@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of ``synthesizer_tpu``.
+
+The JAX package stays the reference; this package mirrors its layout
+(``models/``, ``ops/``, ``utils/``) and names, so each module sits opposite
+the one it is held against.  It imports ``torch`` and numpy and never
+``jax`` or ``synthesizer_tpu``.
+
+Ported so far: the voice-bank song mixdown (``models.voicebank``), its
+fused render as a hand-written Hopper kernel (``ops.kernels`` and
+``csrc/voicebank_render.cu``), the turn-unit trig helpers, the DDS host
+helpers and WAV output.
+"""

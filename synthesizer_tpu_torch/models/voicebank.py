@@ -1,0 +1,974 @@
+"""Batched voice-bank render engine (port of ``synthesizer_tpu.models.voicebank``).
+
+A bank holds V uniform voices described by parameter *tensors*
+(structure-of-arrays).  Each output frame is a pure function of its
+absolute sample index: DDS phase accumulation (u32), closed-form sine-LFO
+FM, waveform evaluation, per-voice ADSR from note start/duration,
+equal-gain pan and the stereo mixdown.  Chunk size never affects output and
+streaming equals offline by construction.  FM uses the exact discrete
+geometric-sum phase of the reference (see its module docstring):
+
+    p_n = p0 + inc*n + inc*d*S_n,
+    S_n = (cos(2*pi*phi - pi*b) - cos(2*pi*(b n + phi) - pi*b)) / (2 sin(pi*b))
+
+Two halves:
+
+* the host half (``pack_voices``, ``Voice``, ``BankLayout``, the curve
+  compilers) computes in numpy with the reference's f64 host arithmetic,
+  so every packed field is bit-identical to the JAX package's, and builds
+  tensors at the end (``voice_params_from_numpy``);
+* the plain render (``render_block``) is the PyTorch twin of the
+  reference's ``render_block`` with the same formulas.  It is the
+  kernel's plain version: ``VoiceBank`` runs it for CPU tensors and runs
+  the Hopper kernel (``ops.kernels.render_stereo``) for CUDA tensors.
+
+u32 on the CPU: PyTorch has no ``+``, ``>>``, ``<`` or ``//`` for
+``uint32`` there, so u32 quantities are held as int64 in [0, 2^32) and
+masked with ``& 0xFFFFFFFF`` after every add and multiply.  A product of
+two such values can overflow int64; only its low 32 bits are kept, and
+those survive the two's-complement wrap.  int64 -> f32 rounds like the
+reference's u32 -> f32.
+
+Not ported yet (the next slice): pitch, amplitude and FM-depth curves
+(``use_bend``/``use_amp``/``use_dmod``), segment buses (``seg``), the
+sparse bucketed render and the grouped-bus renders.  They raise
+``NotImplementedError``; the host packing of the curve fields is ported,
+so packed banks stay field-for-field identical to the reference's.
+
+Voice waveforms: 0=sine 1=triangle 2=square 3=sawtooth 4=pulse 5=semicircle
+6=pointy 7=white_noise (sample-and-hold via ``frequency``) 8=harmonics
+(integer partials 1..H with per-voice amplitudes) 9=sawtooth_bl
+10=square_bl (polyBLEP bandlimited) 11=wavetable (canonical 256-sample
+single-cycle table, linear interp) 12=pluck (Karplus-Strong in spectral
+form, per-harmonic exponential decay).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import spec as S
+from ..ops.trig import cos_turns, sin_turns
+
+_TWO_NEG32 = float(np.float32(2.0 ** -32))
+_U32 = 0xFFFFFFFF
+
+WAVE_IDS = {
+    "sine": 0, "triangle": 1, "square": 2, "sawtooth": 3, "pulse": 4,
+    "semicircle": 5, "pointy": 6, "white_noise": 7, "harmonics": 8,
+    "sawtooth_bl": 9, "square_bl": 10, "wavetable": 11, "pluck": 12,
+}
+ALL_WAVES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+
+#: canonical single-cycle table length for banked wavetable voices: user
+#: tables of any length are resampled to this at pack time (linear interp
+#: with wraparound, f32 — bank_table() is the documented canonicalization)
+BANK_TABLE_LEN = 256
+
+_NEXT_SLICE = ("not ported yet: pitch/amp/FM-depth curves and segment "
+               "buses come with the next slice of the PyTorch port")
+
+
+def bank_table(table) -> np.ndarray:
+    """Resample a single-cycle table to BANK_TABLE_LEN (f32 linear interp
+    with wraparound).  A table already of length BANK_TABLE_LEN passes
+    through bit-identically."""
+    t = np.asarray(table, np.float32)
+    T = len(t)
+    if T == 0:
+        return np.zeros(BANK_TABLE_LEN, np.float32)
+    if T == BANK_TABLE_LEN:
+        return t
+    pos = (np.arange(BANK_TABLE_LEN, dtype=np.float32)
+           * np.float32(T) / np.float32(BANK_TABLE_LEN)).astype(np.float32)
+    i = np.minimum(pos.astype(np.int64), T - 1)
+    frac = (pos - i.astype(np.float32)).astype(np.float32)
+    lo = t[i]
+    hi = t[(i + 1) % T]
+    return (lo + (hi - lo) * frac).astype(np.float32)
+
+
+class VoiceParams(NamedTuple):
+    """Structure-of-arrays voice parameters as tensors; every field has
+    shape [V] unless noted.  "u32" fields are int64 tensors holding the
+    u32 value (see the module docstring); "i32" fields are int32 and "f32"
+    fields float32."""
+    wave: torch.Tensor        # i32 waveform id
+    base_inc: torch.Tensor    # u32 DDS increment
+    phase0: torch.Tensor      # u32 initial phase
+    amp: torch.Tensor         # f32
+    bias: torch.Tensor        # f32
+    pan: torch.Tensor         # f32 in [-1, 1]
+    start: torch.Tensor       # i32 note start frame
+    gate: torch.Tensor        # i32 gate duration in frames (before release)
+    attack: torch.Tensor      # f32 seconds
+    decay: torch.Tensor       # f32 seconds
+    sustain_level: torch.Tensor  # f32
+    release: torch.Tensor     # f32 seconds
+    fm_inc: torch.Tensor      # u32 FM LFO increment
+    fm_phase0: torch.Tensor   # u32
+    fm_depth: torch.Tensor    # f32 (0 = no FM)
+    fm_r: torch.Tensor        # f32 R = 1/(2 sin(pi b)), 0 when no FM
+    fm_c0: torch.Tensor       # f32 C0 = cos(2 pi phi - pi b)
+    pulse_width: torch.Tensor  # f32
+    seed: torch.Tensor        # u32 noise seed
+    noise_hold: torch.Tensor  # i32 sample-and-hold period (frames, >=1)
+    harm_amps: torch.Tensor   # f32 [V, H] partial amplitudes (wave id 8)
+    table: torch.Tensor       # f32 [V, BANK_TABLE_LEN] wavetable (wave id 11)
+    damping: torch.Tensor     # f32 pluck loop-loss exponent scale (wave 12)
+    glide_inc0: torch.Tensor  # u32 glide start increment (== base_inc: none)
+    glide_d: torch.Tensor     # u32 per-frame increment step (two's complement)
+    glide_frames: torch.Tensor  # i32 glide length in frames (0 = no glide)
+    # pitch-curve (MIDI bend) chirp segments, [V, S] each; slot 0 starts at
+    # note-relative frame 0 for curve voices, INT32_MAX rows = no curve
+    bend_start: torch.Tensor  # i32 [V, S] segment start (note-relative frames)
+    bend_phase: torch.Tensor  # u32 [V, S] exact phase accumulated at start
+    bend_inc: torch.Tensor    # u32 [V, S] DDS increment at segment start
+    bend_d: torch.Tensor      # u32 [V, S] per-frame increment step (2's compl)
+    # amplitude-curve (MIDI CC7/CC11) gain segments, [V, K] each
+    acurve_start: torch.Tensor  # i32 [V, K] segment start (note-rel frames)
+    acurve_g0: torch.Tensor     # f32 [V, K] gain at segment start
+    acurve_dg: torch.Tensor     # f32 [V, K] per-frame gain slope
+    # FM-depth-curve (MIDI CC1 mod-wheel vibrato) segments, [V, D] each
+    dcurve_start: torch.Tensor  # i32 [V, D] segment start (note-rel frames)
+    dcurve_c: torch.Tensor      # f32 [V, D] depth-weighted LFO sum at start
+    dcurve_a: torch.Tensor      # f32 [V, D] depth at segment start
+    dcurve_b: torch.Tensor      # f32 [V, D] per-frame depth slope
+
+    @property
+    def device(self) -> torch.device:
+        return self.wave.device
+
+    def to(self, device) -> "VoiceParams":
+        return VoiceParams(*(f.to(device) for f in self))
+
+
+#: fields that hold u32 values (int64 tensors here, uint32 in the reference)
+U32_FIELDS = frozenset({"base_inc", "phase0", "fm_inc", "fm_phase0", "seed",
+                        "glide_inc0", "glide_d", "bend_phase", "bend_inc",
+                        "bend_d"})
+I32_FIELDS = frozenset({"wave", "start", "gate", "noise_hold",
+                         "glide_frames", "bend_start", "acurve_start",
+                         "dcurve_start"})
+
+
+def voice_params_from_numpy(fields: Mapping[str, np.ndarray],
+                            device="cpu") -> VoiceParams:
+    """Build ``VoiceParams`` from host arrays keyed by field name — the
+    reference's packed parameters (``vp._asdict()`` as numpy) or this
+    module's own packing.  u32 fields become int64 tensors holding the
+    u32 value; i32 fields int32; the rest float32."""
+    out = []
+    for name in VoiceParams._fields:
+        a = np.asarray(fields[name])
+        if name in U32_FIELDS:
+            if a.dtype.kind not in "iu":
+                raise TypeError(f"{name}: integer array expected, got {a.dtype}")
+            a = a.astype(np.int64)
+            if a.size and (a.min() < 0 or a.max() > _U32):
+                raise ValueError(f"{name}: values outside the u32 range")
+        elif name in I32_FIELDS:
+            if a.dtype != np.int32:
+                raise TypeError(f"{name}: int32 array expected, got {a.dtype}")
+        elif a.dtype != np.float32:
+            raise TypeError(f"{name}: float32 array expected, got {a.dtype}")
+        out.append(torch.from_numpy(np.array(a, order="C")).to(device))
+    return VoiceParams(*out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Voice:
+    """Host-side description of one voice (converted into VoiceParams).
+    Field meanings are the reference's (``synthesizer_tpu.models.
+    voicebank.Voice``)."""
+    wave: str = "sine"
+    frequency: float = 440.0
+    amplitude: float = 1.0
+    phase: float = 0.0
+    bias: float = 0.0
+    pan: float = 0.0
+    start: float = 0.0          # seconds
+    duration: float = 1.0       # gate seconds (release follows)
+    attack: float = 0.01
+    decay: float = 0.05
+    sustain_level: float = 0.8
+    release: float = 0.05
+    fm_frequency: float = 0.0
+    fm_depth: float = 0.0
+    fm_phase: float = 0.0
+    pulse_width: float = 0.5
+    seed: int = 0
+    table: Sequence[float] = ()       # wave="wavetable": one cycle
+    harmonics: Sequence[float] = ()   # partial amps for wave="harmonics"
+    damping: float = 1.0              # wave="pluck": loop-loss scale
+    # Portamento: slide from ``glide_from`` Hz to ``frequency`` over
+    # ``glide_time`` seconds from note start (0 on either = no glide).
+    # Pluck and noise are excluded (see _phases).
+    glide_from: float = 0.0
+    glide_time: float = 0.0
+    # Pitch, amplitude and FM-depth curves: ((t_rel_seconds, value), ...)
+    # control points.  Packed here; rendered by the next slice.
+    pitch_curve: Sequence[Tuple[float, float]] = ()
+    amp_curve: Sequence[Tuple[float, float]] = ()
+    fm_depth_curve: Sequence[Tuple[float, float]] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class BankLayout:
+    """Static voice grouping: tuple of (wave_id, has_fm, start, count)."""
+    groups: Tuple[Tuple[int, bool, int, int], ...]
+    nvoices: int
+    num_harmonics: int
+
+    @classmethod
+    def ungrouped(cls, nvoices: int, num_harmonics: int,
+                  use_fm: bool = True) -> "BankLayout":
+        # a single mixed group: per-voice waveform select, FM optional
+        return cls(((-1, use_fm, 0, nvoices),), nvoices, num_harmonics)
+
+
+def _fm_constants(fm_inc: int, fm_phase0: int) -> Tuple[float, float]:
+    b = fm_inc / 4294967296.0
+    phi = fm_phase0 / 4294967296.0
+    if fm_inc == 0:
+        return 0.0, 0.0
+    r = 1.0 / (2.0 * math.sin(math.pi * b))
+    c0 = math.cos(2.0 * math.pi * phi - math.pi * b)
+    return r, c0
+
+
+_I32_MAX = 2 ** 31 - 1
+#: pitch/amp curves denser than this are decimated (evenly, keeping the
+#: first and last points) at pack time — bounds the static segment dim
+MAX_CURVE_SEGS = 128
+
+
+def _decimate_points(pts: list, cap: int) -> list:
+    if len(pts) <= cap:
+        return pts
+    idx = np.unique(np.round(np.linspace(0, len(pts) - 1, cap)).astype(int))
+    return [pts[i] for i in idx]
+
+
+def _frame_points(pts: list, samplerate: int) -> list:
+    """(t, value) points -> (frame, value), int(t * sr) at point of use;
+    same-frame duplicates keep the LAST event (later event wins)."""
+    framed: list = []
+    for t, val in pts:
+        f = int(t * samplerate)
+        if framed and framed[-1][0] == f:
+            framed[-1] = (f, val)
+        else:
+            framed.append((f, val))
+    return framed
+
+
+def compile_pitch_segments(curve, frequency: float, samplerate: int):
+    """(t_rel, freq_ratio) control points -> exact integer chirp segments
+    (starts, phases, incs, ds): per-segment note-relative start frame,
+    phase accumulated at that frame (mod 2^32, exact Python ints), DDS
+    increment at the start, and per-frame increment step (u32 two's
+    complement).  The last segment has d=0 and holds forever."""
+    pts = sorted((float(t), float(r)) for t, r in curve)
+    if not pts:
+        return [0], [0], [int(S.phase_increment(frequency, samplerate))], [0]
+    if pts[0][0] > 0.0:
+        pts.insert(0, (0.0, pts[0][1]))            # hold before first point
+    framed = _frame_points(_decimate_points(pts, MAX_CURVE_SEGS), samplerate)
+    incs = [int(S.phase_increment(frequency * r, samplerate)) for _, r in framed]
+    starts, phases, segincs, ds = [], [], [], []
+    phase = 0
+    for j, (f, _) in enumerate(framed):
+        starts.append(f)
+        phases.append(phase)
+        segincs.append(incs[j])
+        if j + 1 < len(framed):
+            L = framed[j + 1][0] - f
+            d = ((incs[j + 1] - incs[j]) // L) & 0xFFFFFFFF
+            phase = (phase + L * incs[j] + d * (L * (L - 1) // 2)) % (2 ** 32)
+        else:
+            d = 0
+        ds.append(d)
+    return starts, phases, segincs, ds
+
+
+def compile_amp_segments(curve, samplerate: int):
+    """(t_rel, gain) control points -> (starts, g0s, dgs) linear-ramp
+    segments (per-frame slope; last segment holds, dg=0)."""
+    pts = sorted((float(t), float(g)) for t, g in curve)
+    if pts[0][0] > 0.0:
+        pts.insert(0, (0.0, pts[0][1]))
+    framed = _frame_points(_decimate_points(pts, MAX_CURVE_SEGS), samplerate)
+    starts, g0s, dgs = [], [], []
+    for j, (f, g) in enumerate(framed):
+        starts.append(f)
+        g0s.append(g)
+        if j + 1 < len(framed):
+            L = framed[j + 1][0] - f
+            dgs.append((framed[j + 1][1] - g) / L)
+        else:
+            dgs.append(0.0)
+    return starts, g0s, dgs
+
+
+def compile_depth_segments(curve, fm_frequency: float, fm_phase: float,
+                           start_frame: int, samplerate: int):
+    """(t_rel, depth) control points -> FM-depth-curve segments
+    (starts, cs, a0s, bs): per-segment note-relative start frame, the
+    depth-weighted LFO sum accumulated at that frame (f64 closed form),
+    depth at the segment start, and per-frame depth slope (0 on the final
+    hold segment).  Closed forms: the reference's docstring."""
+    inc = int(S.phase_increment(fm_frequency, samplerate))
+    if inc == 0:
+        raise ValueError("fm_depth_curve requires fm_frequency > 0")
+    ph0 = int(S.phase_offset(fm_phase))
+    b = inc / 4294967296.0
+    alpha = 2.0 * math.pi * b
+    r1 = 1.0 / (2.0 * math.sin(math.pi * b))
+    r2 = r1 * r1
+    pts = sorted((float(t), float(d)) for t, d in curve)
+    if pts[0][0] > 0.0:
+        pts.insert(0, (0.0, pts[0][1]))
+    framed = _frame_points(_decimate_points(pts, MAX_CURVE_SEGS), samplerate)
+
+    def _theta(m_rel: int) -> float:
+        return ((ph0 + (start_frame + m_rel) * inc) % 2 ** 32) \
+            / 4294967296.0 * 2.0 * math.pi
+
+    starts, cs, a0s, bs = [], [], [], []
+    C = 0.0
+    for j, (f, d) in enumerate(framed):
+        starts.append(f)
+        cs.append(C)
+        a0s.append(d)
+        if j + 1 < len(framed):
+            L = framed[j + 1][0] - f
+            slope = (framed[j + 1][1] - d) / L
+            th = _theta(f)
+            s1 = (math.cos(th - alpha / 2.0)
+                  - math.cos(_theta(f + L) - alpha / 2.0)) * r1
+            K = L - 1
+            A = math.sin(alpha * K) * r2 - K * math.cos(alpha * (K + 0.5)) * r1
+            B = (K * math.sin(alpha * (K + 0.5)) * r1
+                 - (1.0 - math.cos(alpha * K)) * r2)
+            s2 = math.sin(th) * B + math.cos(th) * A
+            C += d * s1 + slope * s2
+        else:
+            slope = 0.0
+        bs.append(slope)
+    return starts, cs, a0s, bs
+
+
+def pack_voices(voices: Sequence[Voice], samplerate: int,
+                num_harmonics: int = 8, pad_to: int = 8,
+                sort_by_wave: bool = False,
+                tags: Optional[Sequence[int]] = None, device="cpu"):
+    """Pack host voice descriptions into parameter tensors on ``device``.
+
+    Pads the voice count up to a multiple of ``pad_to`` with silent voices.
+    With ``sort_by_wave`` the voices are ordered into per-waveform groups,
+    each padded to ``pad_to``, and a (VoiceParams, BankLayout) pair is
+    returned (the grouped fast path); otherwise just VoiceParams.
+
+    ``tags`` (sort_by_wave only): per-voice integer labels carried through
+    the sort — returns (vp, layout, packed_tags) where pad voices get tag 0.
+    """
+    silent = Voice(amplitude=0.0, frequency=0.0, duration=0.0)
+
+    if sort_by_wave:
+        # group by waveform only: FM (if any voice in the group uses it) is
+        # cheap closed-form per group, while a finer (wave, fm) split would
+        # double the padding for mixed banks
+        keyed = sorted(range(len(voices)), key=lambda i: WAVE_IDS[voices[i].wave])
+        ordered: list = []
+        otags: list = []
+        groups: list = []
+        i = 0
+        while i < len(keyed):
+            v0 = voices[keyed[i]]
+            wid = WAVE_IDS[v0.wave]
+            members = []
+            mtags = []
+            while i < len(keyed) and WAVE_IDS[voices[keyed[i]].wave] == wid:
+                members.append(voices[keyed[i]])
+                mtags.append(tags[keyed[i]] if tags is not None else 0)
+                i += 1
+            has_fm = any(v.fm_depth != 0.0 for v in members)
+            start = len(ordered)
+            npad = -len(members) % pad_to
+            members = members + [dataclasses.replace(silent, wave=v0.wave)] * npad
+            mtags = mtags + [0] * npad
+            ordered.extend(members)
+            otags.extend(mtags)
+            groups.append((wid, has_fm, start, len(members)))
+        vp = voice_params_from_numpy(
+            _pack_flat(ordered, samplerate, num_harmonics), device)
+        layout = BankLayout(tuple(groups), len(ordered), num_harmonics)
+        if tags is not None:
+            return vp, layout, np.asarray(otags, np.int32)
+        return vp, layout
+
+    npad = -len(voices) % pad_to
+    ordered = list(voices) + [silent] * max(npad, pad_to - len(voices)
+                                            if len(voices) < pad_to else npad)
+    return voice_params_from_numpy(
+        _pack_flat(ordered, samplerate, num_harmonics), device)
+
+
+def _pack_flat(voices: Sequence[Voice], samplerate: int,
+               num_harmonics: int) -> dict:
+    """Host packing -> {field: numpy array} with the reference's dtypes
+    (u32 fields as np.uint32) and f64 host arithmetic."""
+    V = len(voices)
+    H = num_harmonics
+
+    def arr(fn, dtype):
+        out = np.zeros(V, dtype)
+        for i, vc in enumerate(voices):
+            out[i] = fn(vc)
+        return out
+
+    fm_r = np.zeros(V, np.float32)
+    fm_c0 = np.zeros(V, np.float32)
+    for i, vc in enumerate(voices):
+        inc = S.phase_increment(vc.fm_frequency, samplerate)
+        r, c0 = _fm_constants(inc, S.phase_offset(vc.fm_phase))
+        fm_r[i], fm_c0[i] = r, c0
+
+    harm = np.zeros((V, max(H, 1)), np.float32)
+    for i, vc in enumerate(voices):
+        for j, a in enumerate(vc.harmonics[:H]):
+            harm[i, j] = a
+
+    tables = np.zeros((V, BANK_TABLE_LEN), np.float32)
+    for i, vc in enumerate(voices):
+        if vc.wave == "wavetable":
+            tables[i] = bank_table(vc.table)
+
+    # portamento constants (exact Python-int arithmetic mod 2^32):
+    # per-frame increment step d = floor((inc1 - inc0) / G)
+    g_inc0 = np.zeros(V, np.uint32)
+    g_d = np.zeros(V, np.uint32)
+    g_frames = np.zeros(V, np.int32)
+    for i, vc in enumerate(voices):
+        if vc.glide_from > 0.0 and vc.glide_time > 0.0 and vc.frequency > 0.0:
+            if vc.pitch_curve:
+                raise ValueError(
+                    "glide_from/glide_time and pitch_curve are mutually "
+                    "exclusive on one voice (both sweep the DDS increment)")
+            inc0 = int(S.phase_increment(vc.glide_from, samplerate))
+            inc1 = int(S.phase_increment(vc.frequency, samplerate))
+            G = max(1, int(vc.glide_time * samplerate))
+            g_inc0[i] = np.uint32(inc0)
+            g_d[i] = np.uint32(((inc1 - inc0) // G) & 0xFFFFFFFF)
+            g_frames[i] = G
+
+    # pitch/amp/depth curve segments (static [V, S] dims sized to the
+    # densest curve in the bank; no-curve rows are INT32_MAX-start sentinels)
+    bsegs = {i: compile_pitch_segments(vc.pitch_curve, vc.frequency,
+                                       samplerate)
+             for i, vc in enumerate(voices) if vc.pitch_curve}
+    asegs = {i: compile_amp_segments(vc.amp_curve, samplerate)
+             for i, vc in enumerate(voices) if vc.amp_curve}
+    for vc in voices:
+        if vc.fm_depth_curve and vc.fm_depth != 0.0:
+            raise ValueError(
+                "fm_depth_curve and a non-zero constant fm_depth are "
+                "mutually exclusive on one voice (the curve IS the depth)")
+    dsegs = {i: compile_depth_segments(vc.fm_depth_curve, vc.fm_frequency,
+                                       vc.fm_phase,
+                                       int(vc.start * samplerate), samplerate)
+             for i, vc in enumerate(voices) if vc.fm_depth_curve}
+    SB = max([len(s[0]) for s in bsegs.values()], default=0) or 1
+    KA = max([len(s[0]) for s in asegs.values()], default=0) or 1
+    b_start = np.full((V, SB), _I32_MAX, np.int32)
+    b_phase = np.zeros((V, SB), np.uint32)
+    b_inc = np.zeros((V, SB), np.uint32)
+    b_d = np.zeros((V, SB), np.uint32)
+    for i, (st, ph, inc, d) in bsegs.items():
+        k = len(st)
+        b_start[i, :k] = st
+        b_phase[i, :k] = np.asarray(ph, np.uint64).astype(np.uint32)
+        b_inc[i, :k] = np.asarray(inc, np.uint64).astype(np.uint32)
+        b_d[i, :k] = np.asarray(d, np.uint64).astype(np.uint32)
+    a_start = np.full((V, KA), _I32_MAX, np.int32)
+    a_g0 = np.ones((V, KA), np.float32)
+    a_dg = np.zeros((V, KA), np.float32)
+    for i, (st, g0, dg) in asegs.items():
+        k = len(st)
+        a_start[i, :k] = st
+        a_g0[i, :k] = g0
+        a_dg[i, :k] = dg
+        if k < KA:            # pad by replicating the hold segment (never
+            a_start[i, k:] = _I32_MAX      # selected: starts at I32_MAX)
+            a_g0[i, k:] = g0[-1]
+    KD = max([len(s[0]) for s in dsegs.values()], default=0) or 1
+    d_start = np.full((V, KD), _I32_MAX, np.int32)
+    d_c = np.zeros((V, KD), np.float32)
+    d_a = np.zeros((V, KD), np.float32)
+    d_b = np.zeros((V, KD), np.float32)
+    for i, (st, cs, a0, bsl) in dsegs.items():
+        k = len(st)
+        d_start[i, :k] = st
+        d_c[i, :k] = cs
+        d_a[i, :k] = a0
+        d_b[i, :k] = bsl
+    return dict(
+        wave=arr(lambda x: WAVE_IDS[x.wave], np.int32),
+        base_inc=arr(lambda x: S.phase_increment(x.frequency, samplerate), np.uint32),
+        phase0=arr(lambda x: S.phase_offset(x.phase), np.uint32),
+        amp=arr(lambda x: x.amplitude, np.float32),
+        bias=arr(lambda x: x.bias, np.float32),
+        pan=arr(lambda x: x.pan, np.float32),
+        start=arr(lambda x: int(x.start * samplerate), np.int32),
+        gate=arr(lambda x: int(x.duration * samplerate), np.int32),
+        attack=arr(lambda x: x.attack, np.float32),
+        decay=arr(lambda x: x.decay, np.float32),
+        sustain_level=arr(lambda x: x.sustain_level, np.float32),
+        release=arr(lambda x: x.release, np.float32),
+        fm_inc=arr(lambda x: S.phase_increment(x.fm_frequency, samplerate), np.uint32),
+        fm_phase0=arr(lambda x: S.phase_offset(x.fm_phase), np.uint32),
+        fm_depth=arr(lambda x: x.fm_depth, np.float32),
+        fm_r=fm_r,
+        fm_c0=fm_c0,
+        pulse_width=arr(lambda x: min(max(x.pulse_width, 1.0 / 65536.0),
+                                      1.0 - 1.0 / 65536.0), np.float32),
+        seed=arr(lambda x: x.seed & 0xFFFFFFFF, np.uint32),
+        noise_hold=arr(lambda x: max(1, int(round(samplerate / x.frequency)))
+                       if (x.wave == "white_noise" and x.frequency > 0) else 1,
+                       np.int32),
+        harm_amps=harm,
+        table=tables,
+        damping=arr(lambda x: x.damping, np.float32),
+        glide_inc0=g_inc0,
+        glide_d=g_d,
+        glide_frames=g_frames,
+        bend_start=b_start,
+        bend_phase=b_phase,
+        bend_inc=b_inc,
+        bend_d=b_d,
+        acurve_start=a_start,
+        acurve_g0=a_g0,
+        acurve_dg=a_dg,
+        dcurve_start=d_start,
+        dcurve_c=d_c,
+        dcurve_a=d_a,
+        dcurve_b=d_b,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Waveform evaluation (plain PyTorch twin of the reference's render_block).
+# Phases are int64 tensors in [0, 2^32) ("u32"); every add and multiply of
+# u32 values is followed by ``& _U32``.
+# ---------------------------------------------------------------------------
+
+def _phase_x(p: torch.Tensor) -> torch.Tensor:
+    return p.to(torch.float32) * _TWO_NEG32
+
+
+def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> i32 truncating toward zero and saturating at the i32 range,
+    as XLA converts (a plain ``.to(torch.int32)`` wraps out-of-range
+    values on the CPU).  Returned as int64."""
+    return x.to(torch.int64).clamp(-2 ** 31, 2 ** 31 - 1)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt on every device.  PyTorch's vectorized
+    f32 sqrt on the CPU is not (it differs in the last bit on about 0.5%
+    of inputs); the f64 square root rounded once to f32 is, and matches
+    CUDA's sqrtf."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _triangle(x):
+    return torch.where(x < 0.25, 4.0 * x,
+                       torch.where(x < 0.75, 2.0 - 4.0 * x, 4.0 * x - 4.0))
+
+
+def _noise_u32(idx, seed):
+    """Counter hash (u32).  idx [v, N] or [1, N], seed [v]."""
+    x = (idx * 0x9E3779B9 + seed[:, None]) & _U32
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _U32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & _U32
+    return x ^ (x >> 16)
+
+
+def _noise(idx, seed):
+    x = _noise_u32(idx, seed)
+    return (x >> 8).to(torch.float32) * float(2.0 ** -23) - 1.0
+
+
+def _blep(t, dt):
+    """polyBLEP residual (formula: goldref.osc.poly_blep)."""
+    u0 = t / dt
+    lo = (u0 + u0) - u0 * u0 - 1.0
+    u1 = (t - 1.0) / dt
+    hi = u1 * u1 + (u1 + u1) + 1.0
+    return torch.where(t < dt, lo,
+                       torch.where(t > 1.0 - dt, hi, torch.zeros_like(t)))
+
+
+def _one_wave(wid: int, p, vp: VoiceParams, n, num_harmonics: int,
+              inst_inc=None):
+    """Evaluate a single statically-known waveform at phases p [v, N].
+
+    ``inst_inc`` (u32 [v, N], optional): the instantaneous DDS increment
+    under glide — the polyBLEP waveforms place their residual at the
+    current chirp pitch from it instead of the landing ``base_inc``."""
+    x = _phase_x(p)
+    one = torch.ones((), dtype=torch.float32, device=p.device)
+    if wid == 0:
+        return sin_turns(x)
+    if wid == 1:
+        return _triangle(x)
+    if wid == 2:
+        return torch.where(p < 2 ** 31, one, -one)
+    if wid == 3:
+        return 2.0 * x - 1.0
+    if wid == 4:
+        wu = (vp.pulse_width[:, None] * 4294967296.0).to(torch.int64)
+        return torch.where(p < wu, one, -one)
+    if wid == 5:
+        y_up = 4.0 * x - 1.0
+        y_dn = 4.0 * x - 3.0
+        up = _sqrt(torch.clamp_min(1.0 - y_up * y_up, 0.0))
+        dn = -_sqrt(torch.clamp_min(1.0 - y_dn * y_dn, 0.0))
+        return torch.where(x < 0.5, up, dn)
+    if wid == 6:
+        t = _triangle(x)
+        return t * t * t
+    if wid == 7:
+        idx = (n[None, :] // vp.noise_hold[:, None]) & _U32
+        return _noise(idx, vp.seed)
+    if wid == 8:
+        acc = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        for k in range(1, num_harmonics + 1):
+            pk = (p * k) & _U32
+            acc = acc + vp.harm_amps[:, k - 1][:, None] * sin_turns(_phase_x(pk))
+        return acc
+    if wid in (9, 10):
+        # polyBLEP bandlimited saw/square: per-voice dt = f/sr = inc * 2^-32
+        inc = vp.base_inc[:, None] if inst_inc is None else inst_inc
+        dt = torch.clamp_min(inc.to(torch.float32) * _TWO_NEG32,
+                             float(np.float32(1e-9)))
+        blep = _blep(x, dt)
+        if wid == 9:
+            return (2.0 * x - 1.0) - blep
+        naive = torch.where(p < 2 ** 31, one, -one)
+        x2 = torch.where(x < 0.5, x + 0.5, x - 0.5)
+        return naive + blep - _blep(x2, dt)
+    if wid == 12:
+        return _pluck(p, vp, n, num_harmonics)
+    if wid == 11:
+        # banked wavetable: canonical [v, BANK_TABLE_LEN] table, linear
+        # interp with wraparound
+        T = vp.table.shape[1]
+        pos = x * float(T)
+        i = torch.clamp_max(pos.to(torch.int64), T - 1)
+        frac = pos - i.to(torch.float32)
+        lo = torch.gather(vp.table, 1, i)
+        hi = torch.gather(vp.table, 1, (i + 1) % T)
+        return lo + (hi - lo) * frac
+    raise ValueError(f"bad wave id {wid}")
+
+
+def _pluck(p, vp: VoiceParams, n, num_harmonics: int):
+    """Karplus-Strong in spectral form (spec: goldref/spec.py): K partials
+    with hashed amplitudes and phases, each decaying at its loop-loss rate
+    from the note start.  Sums over k run serially in k order, as the
+    kernel does."""
+    K = max(1, num_harmonics)
+    dev = p.device
+    inc = vp.base_inc                                     # u32 [v]
+    ratio = inc.to(torch.float32) * _TWO_NEG32            # f32 [v]
+    nrel = torch.clamp_min(n[None, :] - vp.start[:, None], 0).to(torch.float32)
+    V = inc.shape[0]
+    ks = torch.arange(1, K + 1, dtype=torch.int64, device=dev)[None, :]
+    u = _noise(ks.expand(V, K), vp.seed)                  # [v, K]
+    # active iff k*inc < 2^31 (exact integer Nyquist mask)
+    lim = torch.tensor([(2 ** 31 - 1) // k for k in range(1, K + 1)],
+                       dtype=torch.int64, device=dev)[None, :]
+    active = (inc[:, None] <= lim) & (inc[:, None] > 0)   # [v, K]
+    absu = torch.where(active, u.abs(), torch.zeros_like(u))
+    denom = torch.zeros_like(ratio)
+    for j in range(K):
+        denom = denom + absu[:, j]
+    denom = torch.clamp_min(denom, float(np.float32(1e-30)))
+    phi = _noise_u32((ks + K).expand(V, K), vp.seed)      # [v, K]
+    g = torch.cos(float(np.float32(math.pi)) * ks.to(torch.float32)
+                  * ratio[:, None])
+    alpha = (vp.damping[:, None] * ratio[:, None]
+             * torch.log(torch.clamp_min(g, float(np.float32(1e-30)))))
+    acc = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+    for j in range(K):
+        pk = (p * (j + 1) + phi[:, j][:, None]) & _U32
+        term = ((u[:, j] / denom)[:, None]
+                * torch.exp(nrel * alpha[:, j][:, None])
+                * sin_turns(_phase_x(pk)))
+        acc = acc + torch.where(active[:, j][:, None], term,
+                                torch.zeros_like(term))
+    return acc
+
+
+def _wave_select(p, vp: VoiceParams, n, num_harmonics: int,
+                 used_waves: tuple = ALL_WAVES, inst_inc=None):
+    """Per-voice waveform select (mixed group): computes every used family."""
+    used = tuple(w for w in used_waves
+                 if w not in (8, 12) or num_harmonics > 0)
+    wid = vp.wave[:, None]
+    out = None
+    for w in used:
+        vals = _one_wave(w, p, vp, n, num_harmonics, inst_inc)
+        out = vals if out is None else torch.where(wid == w, vals, out)
+    return out if out is not None else torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device)
+
+
+def _tri_u32(m):
+    """Triangular number m*(m-1)/2 mod 2^32 (u32 in, u32 out).
+
+    Halve the EVEN factor before the wrapped multiply — dividing a
+    wrapped product by 2 would need mod 2^33."""
+    even = (m & 1) == 0
+    m1 = (m - 1) & _U32
+    a = torch.where(even, m >> 1, m)
+    b = torch.where(even, m1, m1 >> 1)
+    return (a * b) & _U32
+
+
+def _phases(vp: VoiceParams, n, use_fm: bool, use_glide: bool = False):
+    """Closed-form DDS phases (u32 [v, N]) for absolute frames n [N].
+
+    Portamento (use_glide): for note-relative frame m, inc_m = inc0 + m*d,
+    so phase_m = phase0 + m*inc0 + d*m(m-1)/2 (mod 2^32) during the glide
+    and phase_G + (m-G)*incG after it.  Pluck (wave 12) is excluded: its
+    spectral decay rates are tied to ONE pitch."""
+    nu = n[None, :] & _U32
+    p = (vp.phase0[:, None] + nu * vp.base_inc[:, None]) & _U32
+    if use_glide:
+        m = n[None, :] - vp.start[:, None]               # note-relative
+        mu = m & _U32
+        inc0 = vp.glide_inc0[:, None]
+        d = vp.glide_d[:, None]
+        G = vp.glide_frames[:, None]
+        Gu = G.to(torch.int64) & _U32
+        during = (inc0 * mu + d * _tri_u32(mu)) & _U32
+        phase_g = (inc0 * Gu + d * _tri_u32(Gu)) & _U32   # phase at m == G
+        inc_g = (inc0 + d * Gu) & _U32
+        after = (phase_g + ((mu - Gu) & _U32) * inc_g) & _U32
+        pg = (vp.phase0[:, None] + torch.where(m < G, during, after)) & _U32
+        p = torch.where((G > 0) & (vp.wave[:, None] != 12), pg, p)
+    if not use_fm:
+        return p
+    # exact discrete FM integral (module docstring): delta = inc*d*S_n
+    fm_inc = vp.fm_inc[:, None]
+    fm_phase = (vp.fm_phase0[:, None] + nu * fm_inc) & _U32
+    x_half = _phase_x((fm_phase - (fm_inc >> 1)) & _U32)
+    s_n = (vp.fm_c0[:, None] - cos_turns(x_half)) * vp.fm_r[:, None]
+    delta = (vp.base_inc.to(torch.float32) * vp.fm_depth)[:, None] * s_n
+    has_fm = ((vp.fm_depth != 0.0) & (vp.fm_inc != 0))[:, None]
+    # wrap to [-2^31, 2^31) before the integer cast (phase is modular)
+    q = delta * _TWO_NEG32
+    frac = q - torch.round(q)
+    dunits = _f32_to_i32(frac * 4294967296.0) & _U32
+    return torch.where(has_fm, (p + dunits) & _U32, p)
+
+
+def _inst_inc(vp: VoiceParams, n, use_glide: bool):
+    """Instantaneous DDS increment (u32 [v, N]) under glide — feeds the
+    polyBLEP dt.  None when the bank has no glide."""
+    if not use_glide:
+        return None
+    m = n[None, :] - vp.start[:, None]
+    G = vp.glide_frames[:, None].to(torch.int64)
+    mcl = torch.minimum(torch.clamp_min(m, 0), G)
+    gi = (vp.glide_inc0[:, None] + mcl * vp.glide_d[:, None]) & _U32
+    return torch.where(G > 0, gi, vp.base_inc[:, None].expand_as(gi))
+
+
+def _adsr(n, vp: VoiceParams, samplerate: int):
+    """Per-voice ADSR gain at absolute frames n [N] -> [v, N] (f32).
+
+    Sustain duration = max(0, gate/sr - attack - decay); release follows the
+    gate; outside [start, start+total) the gain is 0.  Time is the i32
+    note-relative frame converted to f32 (exact past 2^24 absolute frames),
+    the slopes are per-voice reciprocals, and the result is clipped to
+    [0, 1]."""
+    sr_r = float(np.float32(1.0 / samplerate))
+    t = (n[None, :] - vp.start[:, None]).to(torch.float32) * sr_r
+    a = torch.clamp_min(vp.attack, 0.0)[:, None]
+    d = torch.clamp_min(vp.decay, 0.0)[:, None]
+    r = torch.clamp_min(vp.release, 0.0)[:, None]
+    sl = vp.sustain_level[:, None]
+    gate = vp.gate.to(torch.float32)[:, None] * sr_r
+    s = torch.clamp_min(gate - a - d, 0.0)
+    t2 = a + d
+    t4 = t2 + s + r
+    t3 = t2 + s
+    eps = float(np.float32(1e-30))
+    # region select, not a min-of-lines form (see the reference's _adsr)
+    a_r = torch.reciprocal(torch.clamp_min(a, eps))
+    d_r = torch.reciprocal(torch.clamp_min(d, eps))
+    r_r = torch.reciprocal(torch.clamp_min(r, eps))
+    zero = torch.zeros((), dtype=torch.float32, device=t.device)
+    g = torch.where(t < a, t * a_r,
+        torch.where(t < t2, 1.0 + (sl - 1.0) * (t - a) * d_r,
+        torch.where(t < t3, sl.expand_as(t),
+        torch.where(t < t4, sl * (t4 - t) * r_r, zero))))
+    g = torch.where(t < 0, zero, g)
+    return torch.clamp(g, 0.0, 1.0)
+
+
+def _slice_params(vp: VoiceParams, start: int, count: int) -> VoiceParams:
+    return VoiceParams(*(f[start:start + count] for f in vp))
+
+
+def render_block(vp: VoiceParams, n0: int, blocksize: int,
+                 samplerate: int, num_harmonics: int,
+                 layout: Optional[BankLayout] = None,
+                 used_waves: tuple = ALL_WAVES, use_fm: bool = True,
+                 seg=None, nseg: int = 0,
+                 use_glide: bool = False, use_bend: bool = False,
+                 use_amp: bool = False, use_dmod: bool = False):
+    """Render one block -> stereo f32 [blocksize, 2] on vp's device
+    (stateless, pure in n0).
+
+    With a grouped ``layout`` each group evaluates only its own waveform;
+    otherwise the mixed-group select path is used.  The voices are summed
+    serially in packed order (the order the kernel sums in), so the result
+    does not depend on the block size.  ``seg``/``use_bend``/``use_amp``/
+    ``use_dmod`` are the next slice's and raise NotImplementedError."""
+    if seg is not None or nseg or use_bend or use_amp or use_dmod:
+        raise NotImplementedError(_NEXT_SLICE)
+    dev = vp.device
+    n = n0 + torch.arange(blocksize, dtype=torch.int64, device=dev)
+    if layout is None:
+        layout = BankLayout.ungrouped(vp.wave.shape[0], num_harmonics, use_fm)
+    mix = torch.zeros((blocksize, 2), dtype=torch.float32, device=dev)
+    for (wid, has_fm, start, count) in layout.groups:
+        if count == 0:
+            continue
+        sub = _slice_params(vp, start, count)
+        p = _phases(sub, n, has_fm, use_glide)
+        blep_here = wid in (9, 10) or (
+            wid < 0 and any(w in (9, 10) for w in used_waves))
+        inst = _inst_inc(sub, n, use_glide) if blep_here else None
+        if wid < 0:
+            w = _wave_select(p, sub, n, num_harmonics, used_waves, inst)
+        else:
+            w = _one_wave(wid, p, sub, n, num_harmonics, inst)
+        sig = (sub.bias[:, None] + sub.amp[:, None] * w) * _adsr(n, sub, samplerate)
+        lg = torch.clamp_max(1.0 - sub.pan, 1.0)
+        rg = torch.clamp_max(1.0 + sub.pan, 1.0)
+        prod = sig[:, :, None] * torch.stack([lg, rg], dim=1)[:, None, :]
+        for i in range(count):
+            mix += prod[i]
+    return mix
+
+
+class VoiceBank:
+    """Batched renderer for a fixed (V, chunk, samplerate) shape on one
+    device.  On a CUDA device ``render_song``/``render_chunk`` launch the
+    Hopper kernel (``ops.kernels.render_stereo``); on the CPU they run the
+    plain ``render_block``."""
+
+    def __init__(self, nvoices: int, samplerate: int = 44100,
+                 chunk_frames: int = 8192, num_harmonics: int = 8,
+                 used_waves: tuple = ALL_WAVES, use_fm: bool = True,
+                 layout: Optional[BankLayout] = None,
+                 use_glide: bool = False, use_bend: bool = False,
+                 use_amp: bool = False, use_dmod: bool = False,
+                 device="cpu"):
+        self.nvoices = nvoices
+        self.samplerate = samplerate
+        self.chunk_frames = chunk_frames
+        self.num_harmonics = num_harmonics
+        self.used_waves = tuple(sorted(used_waves))
+        self.use_fm = use_fm
+        self.use_glide = use_glide
+        self.use_bend = use_bend
+        self.use_amp = use_amp
+        self.use_dmod = use_dmod
+        self.layout = layout
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+
+    @classmethod
+    def for_voices(cls, voices: Sequence[Voice], samplerate: int = 44100,
+                   chunk_frames: int = 8192, num_harmonics: int = 8,
+                   layout: Optional[BankLayout] = None,
+                   nvoices: Optional[int] = None, device="cpu") -> "VoiceBank":
+        """Bank statically specialized to the waveforms/FM these voices use."""
+        used = tuple(sorted({WAVE_IDS[v.wave] for v in voices})) or (0,)
+        use_fm = any(v.fm_depth != 0.0 for v in voices)
+        use_glide = any(v.glide_from > 0.0 and v.glide_time > 0.0
+                        and v.frequency > 0.0 for v in voices)
+        use_bend = any(v.pitch_curve for v in voices)
+        use_amp = any(v.amp_curve for v in voices)
+        use_dmod = any(v.fm_depth_curve for v in voices)
+        if 8 not in used and 12 not in used:
+            num_harmonics = 0
+        return cls(nvoices or len(voices), samplerate, chunk_frames,
+                   num_harmonics, used_waves=used, use_fm=use_fm,
+                   layout=layout, use_glide=use_glide, use_bend=use_bend,
+                   use_amp=use_amp, use_dmod=use_dmod, device=device)
+
+    def _check(self, vp: VoiceParams):
+        if self.use_bend or self.use_amp or self.use_dmod:
+            raise NotImplementedError(_NEXT_SLICE)
+        if vp.device != self.device:
+            raise ValueError(f"voice params on {vp.device}, bank on "
+                             f"{self.device}")
+
+    def _kernel_layout(self, vp: VoiceParams) -> BankLayout:
+        """The layout the kernel walks: the bank's grouped layout, or one
+        mixed group (per-voice waveform switch) for an ungrouped bank."""
+        if self.layout is not None:
+            return self.layout
+        return BankLayout.ungrouped(vp.wave.shape[0], self.num_harmonics,
+                                    self.use_fm)
+
+    def _render(self, vp: VoiceParams, n0: int, nframes: int):
+        if self.device.type == "cuda":
+            from ..ops.kernels import render_stereo
+            return render_stereo(vp, n0, nframes=nframes,
+                                 samplerate=self.samplerate,
+                                 layout=self._kernel_layout(vp),
+                                 use_glide=self.use_glide)
+        return render_block(vp, n0, nframes, self.samplerate,
+                            self.num_harmonics, self.layout, self.used_waves,
+                            self.use_fm, use_glide=self.use_glide)
+
+    def render_chunk(self, vp: VoiceParams, n0: int) -> torch.Tensor:
+        """One streaming chunk: stereo f32 [chunk, 2] (stateless)."""
+        self._check(vp)
+        return self._render(vp, n0, self.chunk_frames)
+
+    def render_song(self, vp: VoiceParams, total_frames: int) -> torch.Tensor:
+        """Offline mixdown: stereo f32 [total_frames, 2].  On a CUDA device
+        the whole song is one kernel launch; on the CPU it renders chunk by
+        chunk (bit-identical, every frame depends only on its index)."""
+        self._check(vp)
+        if self.device.type == "cuda":
+            return self._render(vp, 0, total_frames)
+        cf = self.chunk_frames
+        nchunks = -(-total_frames // cf)
+        out = torch.cat([self._render(vp, i * cf, cf) for i in range(nchunks)])
+        return out[:total_frames]
+
+    @staticmethod
+    def to_int16(stereo_f32: torch.Tensor,
+                 master_gain: float = 1.0) -> torch.Tensor:
+        """f32 mix -> saturating int16 (rint half-even, then clip)."""
+        v = torch.round(stereo_f32 * float(np.float32(32767.0 * master_gain)))
+        return torch.clamp(v, -32768, 32767).to(torch.int16)

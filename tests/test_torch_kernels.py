@@ -1,0 +1,120 @@
+"""Port's fused-render wrapper (synthesizer_tpu_torch.ops.kernels).
+
+On the CPU ``render_stereo`` runs its plain version; it is held here
+against the TPU kernel ``render_stereo_pallas`` in interpret mode, as
+tests/test_pallas_kernel.py runs it.  The CUDA kernel itself runs only on
+the card, where chip_smoke.py holds it against the plain version; what
+surrounds it (parameter packing, input checks, the column order shared
+with the source) is checked here.
+"""
+
+import dataclasses
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from synthesizer_tpu.models import voicebank as J
+from synthesizer_tpu.ops.kernels import render_stereo_pallas
+from synthesizer_tpu_torch.models import voicebank as T
+from synthesizer_tpu_torch.ops import kernels as K
+from test_pallas_kernel import VOICES
+
+torch.set_num_threads(1)
+
+SR = 44100
+
+
+@pytest.fixture(scope="module")
+def packed():
+    vpj, ly = J.pack_voices(VOICES, SR, num_harmonics=8, sort_by_wave=True)
+    vpt = T.voice_params_from_numpy({k: np.asarray(v)
+                                     for k, v in vpj._asdict().items()})
+    return vpj, ly, vpt, T.BankLayout(ly.groups, ly.nvoices, ly.num_harmonics)
+
+
+def test_render_stereo_cpu_matches_pallas_interpret(packed):
+    vpj, ly, vpt, tly = packed
+    before = K.render_stereo.launches
+    got = K.render_stereo(vpt, 0, nframes=4096, samplerate=SR, layout=tly)
+    assert K.render_stereo.launches == before == 0    # plain path: no launch
+    want = np.asarray(render_stereo_pallas(vpj, 0, nframes=4096,
+                                           samplerate=SR, layout=ly,
+                                           tile=1024))
+    got = got.numpy()
+    assert got.shape == (4096, 2) and got.dtype == np.float32
+    # the budget of test_pallas_matches_xla_engine: the Pallas kernel's
+    # folded int32 phase costs a few LSB on isolated samples at the
+    # semicircle's vertical edges (the port keeps the u32 phase)
+    w16 = np.clip(np.rint(want * 32767), -32768, 32767)
+    g16 = np.clip(np.rint(got * 32767), -32768, 32767)
+    d = np.abs(g16 - w16)
+    assert d.max() <= 16, f"f32 max diff {np.abs(got - want).max():.3g}"
+    assert (d > 1).mean() < 1e-3
+
+
+def test_render_stereo_offset(packed):
+    _, _, vpt, tly = packed
+    whole = K.render_stereo(vpt, 0, nframes=3000, samplerate=SR, layout=tly)
+    part = K.render_stereo(vpt, 1024, nframes=1000, samplerate=SR, layout=tly)
+    assert torch.equal(part, whole[1024:2024])
+
+
+def test_kernel_params_round_trip(packed):
+    _, _, vpt, _ = packed
+    P = K._kernel_params(vpt)
+    assert P.dtype == torch.int32 and P.shape == (vpt.wave.shape[0],
+                                                  len(K.KERNEL_COLUMNS))
+    assert P.is_contiguous()
+    for j, name in enumerate(K.KERNEL_COLUMNS):
+        f = getattr(vpt, name)
+        col = P[:, j]
+        if f.dtype == torch.float32:
+            assert torch.equal(col.view(torch.float32), f), name
+        elif f.dtype == torch.int64:          # u32: two's-complement bits
+            assert torch.equal(col.to(torch.int64) & 0xFFFFFFFF, f), name
+        else:
+            assert torch.equal(col, f), name
+
+
+def test_kernel_columns_match_source():
+    src = K._SRC.read_text()
+    enum = re.search(r"enum Col \{([^}]*)\}", src).group(1)
+    names = [s.strip() for s in enum.split(",") if s.strip()]
+    assert names[-1] == "kCols"
+    assert len(names) - 1 == len(K.KERNEL_COLUMNS)
+    aliases = {"SUSTAIN": "sustain_level"}
+    for c, name in zip(names, K.KERNEL_COLUMNS):
+        assert aliases.get(c, c.lower()) == name
+    assert f"kMaxGroups = {K.MAX_GROUPS};" in src
+    assert f"kTableLen = {T.BANK_TABLE_LEN};" in src
+    assert "--use_fast_math" not in K.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
+
+
+def test_check_inputs_rejects(packed):
+    _, _, vpt, tly = packed
+    K._check_inputs(vpt, 0, 4096, tly)
+    with pytest.raises(ValueError, match="frame range"):
+        K._check_inputs(vpt, 2 ** 31 - 100, 4096, tly)
+    with pytest.raises(ValueError, match="groups"):
+        K._check_inputs(vpt, 0, 64, dataclasses.replace(
+            tly, groups=((0, False, 0, 1),) * (K.MAX_GROUPS + 1)))
+    with pytest.raises(ValueError, match="bad group"):
+        K._check_inputs(vpt, 0, 64, dataclasses.replace(
+            tly, groups=((0, False, 0, tly.nvoices + 1),)))
+    with pytest.raises(ValueError, match="amp"):
+        K._check_inputs(vpt._replace(amp=vpt.amp.double()), 0, 64, tly)
+    with pytest.raises(ValueError, match="harm_amps"):
+        K._check_inputs(vpt._replace(harm_amps=vpt.harm_amps[:, :2]), 0, 64,
+                        tly)
+
+
+def test_render_stereo_has_no_fallback(packed):
+    # a tensor on neither the CPU nor a CUDA card is refused, not rendered
+    _, _, vpt, tly = packed
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        K.render_stereo(vpt.to("meta"), 0, nframes=64, samplerate=SR,
+                        layout=tly)
+    assert K.render_stereo.launches == 0

@@ -1,0 +1,260 @@
+"""Port's voice bank (synthesizer_tpu_torch.models.voicebank) vs the JAX
+reference: host packing bit-exact on every field, and the plain render
+(render_block) within 1 LSB at int16 on every waveform, FM, glide and
+layout.  Inputs are the Voice lists the reference's own tests use plus
+seeded random banks; both packages get the same voices."""
+
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from synthesizer_tpu.models import voicebank as J
+from synthesizer_tpu_torch.models import voicebank as T
+from test_pallas_kernel import VOICES as KERNEL_VOICES
+from test_voicebank import VOICES as BANK_VOICES
+from test_voicebank import rand_voice
+
+torch.set_num_threads(1)
+
+SR = 44100
+
+
+def to_port(voices):
+    return [T.Voice(**dataclasses.asdict(v)) for v in voices]
+
+
+def jax_fields(vp) -> dict:
+    return {k: np.asarray(v) for k, v in vp._asdict().items()}
+
+
+def _special_voices():
+    rng = np.random.default_rng(31)
+    return [
+        J.Voice("sine", 660.0, glide_from=330.0, glide_time=0.04,
+                start=0.005, duration=0.2, amplitude=0.4),
+        J.Voice("wavetable", 220.0, amplitude=0.2, duration=0.08,
+                table=tuple(float(x) for x in rng.uniform(-1, 1, 48))),
+        J.Voice("pluck", 440.0, amplitude=0.5, seed=7, damping=1.3),
+        J.Voice("sine", 440.0, amplitude=0.3,
+                pitch_curve=((0.0, 1.0), (0.05, 1.5), (0.1, 0.8))),
+        J.Voice("triangle", 330.0, amplitude=0.3,
+                amp_curve=((0.0, 0.2), (0.05, 1.0), (0.2, 0.5))),
+        J.Voice("sine", 550.0, amplitude=0.3, fm_frequency=5.0,
+                fm_depth_curve=((0.0, 0.0), (0.1, 0.02))),
+    ]
+
+
+def _rand_bank(seed):
+    rng = np.random.default_rng(seed + 9000)
+    return [rand_voice(rng) for _ in range(int(rng.integers(4, 16)))]
+
+
+PACK_CASES = {
+    "bank_voices": lambda: BANK_VOICES,
+    "kernel_voices": lambda: KERNEL_VOICES,
+    "special": _special_voices,
+    "random0": lambda: _rand_bank(0),
+    "random1": lambda: _rand_bank(1),
+    "random2": lambda: _rand_bank(2),
+}
+
+
+@pytest.mark.parametrize("sort_by_wave", [False, True])
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_pack_voices_bit_exact(case, sort_by_wave):
+    voices = PACK_CASES[case]()
+    want = J.pack_voices(voices, SR, num_harmonics=8, sort_by_wave=sort_by_wave)
+    got = T.pack_voices(to_port(voices), SR, num_harmonics=8,
+                        sort_by_wave=sort_by_wave)
+    if sort_by_wave:
+        (want, wly), (got, gly) = want, got
+        assert (gly.groups, gly.nvoices, gly.num_harmonics) == \
+            (wly.groups, wly.nvoices, wly.num_harmonics)
+    assert T.VoiceParams._fields == J.VoiceParams._fields
+    assert len(T.VoiceParams._fields) == 37
+    wf = jax_fields(want)
+    for name in T.VoiceParams._fields:
+        w, g = wf[name], getattr(got, name).numpy()
+        assert g.shape == w.shape, name
+        if name in T.U32_FIELDS:
+            assert w.dtype == np.uint32 and g.dtype == np.int64, name
+            np.testing.assert_array_equal(g, w.astype(np.int64), err_msg=name)
+        else:
+            assert g.dtype == w.dtype, name
+            # bit-exact, NaN-safe: compare the raw bytes
+            assert g.tobytes() == w.tobytes(), name
+    # carrying the reference's packed fields across gives the same tensors
+    carried = T.voice_params_from_numpy(wf)
+    for name in T.VoiceParams._fields:
+        a, b = getattr(carried, name), getattr(got, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def test_pack_tags_and_validation():
+    voices = BANK_VOICES[:5]
+    _, wly, wt = J.pack_voices(voices, SR, sort_by_wave=True,
+                               tags=[3, 1, 4, 1, 5])
+    _, gly, gt = T.pack_voices(to_port(voices), SR, sort_by_wave=True,
+                               tags=[3, 1, 4, 1, 5])
+    np.testing.assert_array_equal(gt, wt)
+    assert gly.groups == wly.groups
+    fields = jax_fields(J.pack_voices(voices, SR))
+    with pytest.raises(TypeError):
+        T.voice_params_from_numpy({**fields, "amp": fields["amp"].astype(np.float64)})
+    with pytest.raises(ValueError):
+        T.voice_params_from_numpy({**fields, "seed": fields["seed"].astype(np.int64) - 1})
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_block_fn(blocksize, H, layout, used, use_fm, use_glide):
+    return jax.jit(functools.partial(
+        J.render_block, blocksize=blocksize, samplerate=SR, num_harmonics=H,
+        layout=layout, used_waves=used, use_fm=use_fm, use_glide=use_glide))
+
+
+def render_pair(voices, n, grouped=True, n0=0, H=8):
+    """(reference, port) render_block of the same packed bank -> f32 [n, 2]
+    each.  Bank flags (waves, FM, glide, harmonics) from for_voices."""
+    if grouped:
+        vpj, ly = J.pack_voices(voices, SR, num_harmonics=H, sort_by_wave=True)
+    else:
+        vpj, ly = J.pack_voices(voices, SR, num_harmonics=H), None
+    bank = J.VoiceBank.for_voices(voices, SR, num_harmonics=H, layout=ly)
+    fn = _jax_block_fn(n, bank.num_harmonics, ly, bank.used_waves,
+                       bank.use_fm, bank.use_glide)
+    want = np.asarray(fn(vpj, np.int32(n0)))
+    tly = None if ly is None else T.BankLayout(ly.groups, ly.nvoices,
+                                               ly.num_harmonics)
+    got = T.render_block(T.voice_params_from_numpy(jax_fields(vpj)), n0, n,
+                         SR, bank.num_harmonics, tly, bank.used_waves,
+                         bank.use_fm, use_glide=bank.use_glide).numpy()
+    return want, got
+
+
+def q16(x):
+    return np.clip(np.rint(x * 32767.0), -32768, 32767)
+
+
+def assert_lsb(want, got, lsb=1):
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    d = np.abs(q16(got) - q16(want))
+    assert d.max() <= lsb, (f"max {d.max()} LSB, f32 max diff "
+                            f"{np.abs(got - want).max():.3g}")
+    return d
+
+
+def _wave_voices(wave):
+    """Four voices of one waveform covering pitch, phase, pan, start and
+    every ADSR stage inside an 8192-frame block."""
+    rng = np.random.default_rng(WAVE_NAMES.index(wave))
+    out = []
+    for i in range(4):
+        kw = {}
+        if wave == "harmonics":
+            kw["harmonics"] = [1.0, 0.5, 0.33, 0.25, 0.2, 0.16, 0.14, 0.125]
+        if wave == "pulse":
+            kw["pulse_width"] = float(rng.uniform(0.1, 0.9))
+        if wave in ("white_noise", "pluck"):
+            kw["seed"] = int(rng.integers(0, 1000))
+        if wave == "pluck":
+            kw["damping"] = float(rng.uniform(0.3, 3.0))
+        if wave == "wavetable":
+            kw["table"] = tuple(float(x) for x in
+                                rng.uniform(-1, 1, int(rng.integers(3, 300))))
+        out.append(J.Voice(
+            wave=wave, frequency=float(rng.uniform(40, 4000)),
+            amplitude=float(rng.uniform(0.1, 0.3)),
+            phase=float(rng.uniform(0, 1)), pan=float(rng.uniform(-1, 1)),
+            start=0.02 * i, duration=float(rng.uniform(0.03, 0.1)),
+            attack=0.005, decay=0.01, sustain_level=0.6, release=0.02,
+            **kw))
+    return out
+
+
+WAVE_NAMES = sorted(J.WAVE_IDS, key=J.WAVE_IDS.get)
+
+
+@pytest.mark.parametrize("wave", WAVE_NAMES)
+def test_render_block_each_wave(wave):
+    want, got = render_pair(_wave_voices(wave), 8192)
+    assert np.abs(want).max() > 0.01
+    assert_lsb(want, got)
+
+
+def test_render_block_fm():
+    voices = [J.Voice(w, 110.0 * (i + 1), amplitude=0.2, pan=0.3 * i - 0.6,
+                      fm_frequency=3.0 + i, fm_depth=0.005 * (i + 1),
+                      fm_phase=0.1 * i, duration=0.12)
+              for i, w in enumerate(["sine", "triangle", "square",
+                                     "sawtooth", "harmonics"])]
+    voices[4] = dataclasses.replace(voices[4], harmonics=[1.0, 0.5, 0.25])
+    want, got = render_pair(voices, 8192)
+    assert_lsb(want, got)
+
+
+def test_render_block_glide():
+    voices = [J.Voice(wave=w, frequency=660.0, glide_from=330.0,
+                      glide_time=0.04, start=0.005, duration=0.2,
+                      amplitude=0.4)
+              for w in ("sine", "sawtooth", "square", "triangle")]
+    voices.append(J.Voice(wave="sine", frequency=440.0, amplitude=0.3))
+    want, got = render_pair(voices, 11025)
+    assert_lsb(want, got)
+
+
+def test_render_block_glide_blep():
+    # bandlimited saw/square under glide: the BLEP dt tracks the
+    # instantaneous chirp increment
+    voices = [J.Voice(wave=w, frequency=1760.0, glide_from=110.0,
+                      glide_time=0.15, start=0.005, duration=0.2,
+                      amplitude=0.4)
+              for w in ("sawtooth_bl", "square_bl")]
+    want, got = render_pair(voices, 11025)
+    assert_lsb(want, got)
+
+
+def test_render_block_glide_pluck_excluded():
+    # a glided pluck renders EXACTLY as the same voice without glide
+    base = dict(wave="pluck", frequency=440.0, start=0.005, duration=0.3,
+                amplitude=0.5, seed=7)
+    wg, gg = render_pair([J.Voice(glide_from=110.0, glide_time=0.05, **base)],
+                         8192)
+    wn, gn = render_pair([J.Voice(**base)], 8192)
+    np.testing.assert_array_equal(gg, gn)
+    assert_lsb(wg, gg)
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "mixed"])
+@pytest.mark.parametrize("seed", range(2))
+def test_render_block_layouts(seed, grouped):
+    want, got = render_pair(_rand_bank(seed), 8192, grouped=grouped)
+    assert_lsb(want, got)
+
+
+def test_render_block_past_2_pow_24_frames():
+    # notes 400 s in: the ADSR time is the i32 note-relative frame, so
+    # the envelope keeps frame resolution where f32(n) would not
+    voices = [dataclasses.replace(v, start=400.0 + 0.01 * i)
+              for i, v in enumerate(KERNEL_VOICES)]
+    n0 = int(400.0 * SR) - 1000
+    assert n0 > 2 ** 24
+    want, got = render_pair(voices, 8192, n0=n0)
+    assert np.abs(want).max() > 0.01
+    assert_lsb(want, got)
+
+
+def test_curves_and_buses_raise():
+    vp = T.pack_voices(to_port(BANK_VOICES[:2]), SR)
+    for kw in ({"use_bend": True}, {"use_amp": True}, {"use_dmod": True},
+               {"seg": torch.zeros(8, dtype=torch.int32), "nseg": 1}):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            T.render_block(vp, 0, 64, SR, 8, **kw)
+    curve = to_port([_special_voices()[3]])
+    bank = T.VoiceBank.for_voices(curve, SR)
+    with pytest.raises(NotImplementedError):
+        bank.render_song(T.pack_voices(curve, SR), 64)
