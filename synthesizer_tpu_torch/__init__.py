@@ -6,7 +6,9 @@ the one it is held against.  It imports ``torch`` and numpy and never
 ``jax`` or ``synthesizer_tpu``.
 
 Ported so far: the voice-bank song mixdown (``models.voicebank``), its
-fused render as a hand-written Hopper kernel (``ops.kernels`` and
+fused render as two hand-written Hopper kernels, a per-voice setup and a
+render that skips silent voice-tiles (``ops.kernels`` and
 ``csrc/voicebank_render.cu``), the turn-unit trig helpers, the DDS host
-helpers and WAV output.
+helpers and WAV output.  Its entry points run on the card unless the
+caller passes ``device="cpu"``.
 """

@@ -19,8 +19,8 @@ Two halves:
   tensors at the end (``voice_params_from_numpy``);
 * the plain render (``render_block``) is the PyTorch twin of the
   reference's ``render_block`` with the same formulas.  It is the
-  kernel's plain version: ``VoiceBank`` runs it for CPU tensors and runs
-  the Hopper kernel (``ops.kernels.render_stereo``) for CUDA tensors.
+  kernels' plain version: ``VoiceBank`` runs it for CPU tensors and runs
+  the Hopper kernels (``ops.kernels.render_stereo``) for CUDA tensors.
 
 u32 on the CPU: PyTorch has no ``+``, ``>>``, ``<`` or ``//`` for
 ``uint32`` there, so u32 quantities are held as int64 in [0, 2^32) and
@@ -157,12 +157,23 @@ I32_FIELDS = frozenset({"wave", "start", "gate", "noise_hold",
                          "dcurve_start"})
 
 
+def _device(device) -> torch.device:
+    """``device`` as a torch.device.  The port's entry points default to the
+    card; without one they raise rather than run on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    return dev
+
+
 def voice_params_from_numpy(fields: Mapping[str, np.ndarray],
-                            device="cpu") -> VoiceParams:
-    """Build ``VoiceParams`` from host arrays keyed by field name — the
-    reference's packed parameters (``vp._asdict()`` as numpy) or this
-    module's own packing.  u32 fields become int64 tensors holding the
-    u32 value; i32 fields int32; the rest float32."""
+                            device="cuda") -> VoiceParams:
+    """Build ``VoiceParams`` on ``device`` from host arrays keyed by field
+    name — the reference's packed parameters (``vp._asdict()`` as numpy)
+    or this module's own packing.  u32 fields become int64 tensors holding
+    the u32 value; i32 fields int32; the rest float32."""
+    device = _device(device)
     out = []
     for name in VoiceParams._fields:
         a = np.asarray(fields[name])
@@ -367,8 +378,9 @@ def compile_depth_segments(curve, fm_frequency: float, fm_phase: float,
 def pack_voices(voices: Sequence[Voice], samplerate: int,
                 num_harmonics: int = 8, pad_to: int = 8,
                 sort_by_wave: bool = False,
-                tags: Optional[Sequence[int]] = None, device="cpu"):
-    """Pack host voice descriptions into parameter tensors on ``device``.
+                tags: Optional[Sequence[int]] = None, device="cuda"):
+    """Pack host voice descriptions into parameter tensors on ``device``
+    (the card unless the caller passes ``device="cpu"``).
 
     Pads the voice count up to a multiple of ``pad_to`` with silent voices.
     With ``sort_by_wave`` the voices are ordered into per-waveform groups,
@@ -877,9 +889,10 @@ def render_block(vp: VoiceParams, n0: int, blocksize: int,
 
 class VoiceBank:
     """Batched renderer for a fixed (V, chunk, samplerate) shape on one
-    device.  On a CUDA device ``render_song``/``render_chunk`` launch the
-    Hopper kernel (``ops.kernels.render_stereo``); on the CPU they run the
-    plain ``render_block``."""
+    device, the card unless the caller passes ``device="cpu"``.  On a CUDA
+    device ``render_song``/``render_chunk`` launch the Hopper kernels
+    (``ops.kernels.render_stereo``); on the CPU they run the plain
+    ``render_block``."""
 
     def __init__(self, nvoices: int, samplerate: int = 44100,
                  chunk_frames: int = 8192, num_harmonics: int = 8,
@@ -887,7 +900,7 @@ class VoiceBank:
                  layout: Optional[BankLayout] = None,
                  use_glide: bool = False, use_bend: bool = False,
                  use_amp: bool = False, use_dmod: bool = False,
-                 device="cpu"):
+                 device="cuda"):
         self.nvoices = nvoices
         self.samplerate = samplerate
         self.chunk_frames = chunk_frames
@@ -899,7 +912,7 @@ class VoiceBank:
         self.use_amp = use_amp
         self.use_dmod = use_dmod
         self.layout = layout
-        self.device = torch.device(device)
+        self.device = _device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
 
@@ -907,7 +920,8 @@ class VoiceBank:
     def for_voices(cls, voices: Sequence[Voice], samplerate: int = 44100,
                    chunk_frames: int = 8192, num_harmonics: int = 8,
                    layout: Optional[BankLayout] = None,
-                   nvoices: Optional[int] = None, device="cpu") -> "VoiceBank":
+                   nvoices: Optional[int] = None,
+                   device="cuda") -> "VoiceBank":
         """Bank statically specialized to the waveforms/FM these voices use."""
         used = tuple(sorted({WAVE_IDS[v.wave] for v in voices})) or (0,)
         use_fm = any(v.fm_depth != 0.0 for v in voices)

@@ -1,12 +1,16 @@
-"""Fused voice-bank render: the Hopper kernel's wrapper and its plain version.
+"""Fused voice-bank render: the Hopper kernels' wrappers and their plain
+versions.
 
 ``render_stereo`` is the port of ``synthesizer_tpu.ops.kernels.
-render_stereo_pallas``.  For CUDA tensors it launches the hand-written
-kernel in ``csrc/voicebank_render.cu`` (CUDA C++ for ``sm_90a``, built by
-``nvcc`` at first use into ``build/`` and loaded with ``ctypes``); for CPU
-tensors it runs ``render_stereo_reference``, which is the plain
-``render_block`` over the same layout.  There is no fallback between the
-two: a CUDA tensor launches the kernel or raises.
+render_stereo_pallas``.  For CUDA tensors it launches the two hand-written
+kernels in ``csrc/voicebank_render.cu`` (CUDA C++ for ``sm_90a``, built by
+``nvcc`` at first use into ``build/`` and loaded with ``ctypes``): the
+per-voice setup kernel (``voice_setup``, plain version ``voice_constants``)
+and the tiled render kernel that skips silent voice-tiles (plain version of
+its test: ``active_voice_tiles``).  For CPU tensors it runs
+``render_stereo_reference``, the plain ``render_block`` over the same
+layout.  There is no fallback between the two: a CUDA tensor launches the
+kernels or raises.
 
 Nothing here imports a GPU toolchain at import time, so the CPU tests can
 import the module.
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -25,8 +30,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.voicebank import (BANK_TABLE_LEN, I32_FIELDS, U32_FIELDS,
-                                BankLayout, VoiceParams, render_block)
+from ..models.voicebank import (_U32, BANK_TABLE_LEN, I32_FIELDS, U32_FIELDS,
+                                BankLayout, VoiceParams, _noise, _noise_u32,
+                                _tri_u32, render_block)
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "voicebank_render.cu"
 #: build products go under the checkout's ``build/`` (listed in .gitignore)
@@ -38,15 +44,39 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-#: per-voice parameter columns of the kernel's [V, NCOLS] int32 matrix
-#: (f32 fields bit-cast); the order matches ``enum Col`` in the source
+#: the VoiceParams columns the setup kernel reads through a table of device
+#: pointers; the order matches ``enum Col`` in the source
 KERNEL_COLUMNS = ("wave", "base_inc", "phase0", "amp", "bias", "pan", "start",
                   "gate", "attack", "decay", "sustain_level", "release",
                   "fm_inc", "fm_phase0", "fm_depth", "fm_r", "fm_c0",
                   "pulse_width", "seed", "noise_hold", "damping",
                   "glide_inc0", "glide_d", "glide_frames")
+#: words of a voice's row of the [V, C] constants, before the pluck
+#: partials; the order matches ``enum Const`` in the source.  Words from
+#: ``amp`` on are f32 bit patterns, the rest u32 (or i32) values.
+CONST_COLUMNS = ("wave", "inc", "phase0", "start", "fm_inc", "fm_phase0",
+                 "seed", "noise_hold", "glide_inc0", "glide_d",
+                 "glide_frames", "phase_g", "inc_g", "pulse_wu", "flags",
+                 "pluck_ka", "amp", "bias", "lg", "rg", "a", "t2", "t3", "t4",
+                 "sl", "a_r", "d_r", "r_r", "fm_c0", "fm_r", "fm_scale")
+CONST_BASE = len(CONST_COLUMNS)
+#: bits of the ``flags`` word
+FLAG_SAFE, FLAG_PLUCK_SAFE, FLAG_FM_ON = 1, 2, 4
+#: a voice is cull-safe only if every value that scales its waveform lies
+#: within +-2^32, so (bias + amp*w) stays finite and times 0 is +-0
+CULL_MAX = 2.0 ** 32
+#: frames per render block: the unit in which silent voices are skipped
+TILE = 512
 MAX_GROUPS = 16
 _REFERENCE_BLOCK = 131072
+_EPS = float(np.float32(1e-30))
+_TWO_NEG32 = float(np.float32(2.0 ** -32))
+
+
+def const_width(num_harmonics: int) -> int:
+    """Words of one voice's constants: the base words plus 3 for each pluck
+    partial (u/denom, phase offset, decay rate)."""
+    return CONST_BASE + 3 * max(1, num_harmonics)
 
 
 def build_library() -> tuple:
@@ -71,59 +101,76 @@ def build_library() -> tuple:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()[0]))
-    fn = lib.voicebank_render
-    fn.argtypes = [ctypes.c_void_p,                 # params [V, NCOLS] i32
-                   ctypes.c_void_p, ctypes.c_int,   # harm_amps, row stride
-                   ctypes.c_void_p,                 # table [V, 256]
-                   ctypes.POINTER(ctypes.c_int32),  # groups (host) [G, 4]
-                   ctypes.c_int,                    # G
-                   ctypes.c_int,                    # num_harmonics
-                   ctypes.c_int, ctypes.c_int,      # n0, nframes
-                   ctypes.c_float,                  # f32(1/samplerate)
-                   ctypes.c_int,                    # use_glide
-                   ctypes.c_void_p,                 # out [nframes, 2] f32
-                   ctypes.c_void_p]                 # cudaStream_t
-    fn.restype = ctypes.c_int
+    base, tile = ctypes.c_int(), ctypes.c_int()
+    lib.voicebank_info(ctypes.byref(base), ctypes.byref(tile))
+    if (base.value, tile.value) != (CONST_BASE, TILE):
+        raise RuntimeError(f"{_SRC.name} has {base.value} constant words and "
+                           f"{tile.value}-frame tiles, the wrapper expects "
+                           f"{CONST_BASE} and {TILE}")
+    lib.voicebank_setup.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),                # column pointers (host)
+        ctypes.c_void_p, ctypes.c_int,                  # harm_amps, row stride
+        ctypes.c_void_p,                                # table [V, 256]
+        ctypes.c_int, ctypes.c_int,                     # V, num_harmonics
+        ctypes.c_float,                                 # f32(1/samplerate)
+        ctypes.c_void_p, ctypes.c_int,                  # consts [V, C], C
+        ctypes.c_void_p,                                # voice-tile count
+        ctypes.c_void_p]                                # cudaStream_t
+    lib.voicebank_render.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,                  # consts [V, C], C
+        ctypes.c_void_p, ctypes.c_int,                  # harm_amps, row stride
+        ctypes.c_void_p,                                # table [V, 256]
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int,   # groups (host) [G, 4]
+        ctypes.c_int,                                   # num_harmonics
+        ctypes.c_int, ctypes.c_int,                     # n0, nframes
+        ctypes.c_float,                                 # f32(1/samplerate)
+        ctypes.c_int,                                   # use_glide
+        ctypes.c_void_p,                                # out [nframes, 2] f32
+        ctypes.c_void_p,                                # voice-tile count
+        ctypes.c_void_p]                                # cudaStream_t
+    lib.voicebank_setup.restype = lib.voicebank_render.restype = ctypes.c_int
     return lib
 
 
-def _kernel_params(vp: VoiceParams) -> torch.Tensor:
-    """[V, NCOLS] int32: u32 fields as their two's-complement i32 bits,
-    f32 fields bit-cast."""
-    cols = []
-    for name in KERNEL_COLUMNS:
-        f = getattr(vp, name)
-        if f.dtype == torch.float32:
-            cols.append(f.view(torch.int32))
-        elif f.dtype == torch.int64:
-            cols.append(torch.where(f >= 2 ** 31, f - 2 ** 32, f).to(torch.int32))
-        else:
-            cols.append(f)
-    return torch.stack(cols, dim=1).contiguous()
+def _column_pointers(vp: VoiceParams):
+    """Host array of the setup kernel's column pointers, in enum Col order."""
+    return (ctypes.c_void_p * len(KERNEL_COLUMNS))(
+        *(getattr(vp, name).data_ptr() for name in KERNEL_COLUMNS))
 
 
-def _check_inputs(vp: VoiceParams, n0: int, nframes: int,
-                  layout: BankLayout):
+def _check_params(vp: VoiceParams, num_harmonics: int):
+    """What the setup kernel reads through raw pointers."""
     dev = vp.device
     V = vp.wave.shape[0]
     for name in KERNEL_COLUMNS:
         f = getattr(vp, name)
         want = (torch.int64 if name in U32_FIELDS
                 else torch.int32 if name in I32_FIELDS else torch.float32)
-        if f.device != dev or f.dtype != want or f.shape != (V,):
-            raise ValueError(f"{name}: expected {want} [{V}] on {dev}, got "
-                             f"{f.dtype} {tuple(f.shape)} on {f.device}")
+        if (f.device != dev or f.dtype != want or f.shape != (V,)
+                or not f.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous {want} [{V}] on "
+                             f"{dev}, got {f.dtype} {tuple(f.shape)} on "
+                             f"{f.device}")
     for name in ("harm_amps", "table"):
         f = getattr(vp, name)
         if (f.device != dev or f.dtype != torch.float32 or f.dim() != 2
                 or f.shape[0] != V or not f.is_contiguous()):
             raise ValueError(f"{name}: expected contiguous f32 [{V}, ...] on "
                              f"{dev}, got {f.dtype} {tuple(f.shape)}")
-    if (vp.harm_amps.shape[1] < layout.num_harmonics
+    if (vp.harm_amps.shape[1] < num_harmonics
             or vp.table.shape[1] != BANK_TABLE_LEN):
-        raise ValueError(f"harm_amps needs >= {layout.num_harmonics} columns "
+        raise ValueError(f"harm_amps needs >= {num_harmonics} columns "
                          f"and table {BANK_TABLE_LEN}, got "
                          f"{vp.harm_amps.shape[1]} and {vp.table.shape[1]}")
+    if V == 0:
+        raise ValueError("the kernels take at least one voice")
+
+
+def _check_inputs(vp: VoiceParams, n0: int, nframes: int,
+                  layout: BankLayout):
+    """What both kernels of ``render_stereo`` read."""
+    _check_params(vp, layout.num_harmonics)
+    V = vp.wave.shape[0]
     if not 0 < len(layout.groups) <= MAX_GROUPS:
         raise ValueError(f"the kernel takes 1..{MAX_GROUPS} groups, got "
                          f"{len(layout.groups)}")
@@ -135,13 +182,56 @@ def _check_inputs(vp: VoiceParams, n0: int, nframes: int,
                          f"kernel's i32 frame range")
 
 
+def _sr_r(samplerate: int) -> float:
+    return float(np.float32(1.0 / samplerate))
+
+
+def _launch(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def voice_setup(vp: VoiceParams, samplerate: int, num_harmonics: int):
+    """Launch the setup kernel on CUDA tensors -> (constants [V, C] int32,
+    voice-tile count int32 [1], set to 0).  Counted in
+    ``voice_setup.launches``.  Plain version: ``voice_constants``."""
+    if vp.device.type != "cuda":
+        raise ValueError(f"voice_setup takes CUDA tensors, got {vp.device}")
+    _check_params(vp, num_harmonics)
+    return _setup(vp, samplerate, num_harmonics)
+
+
+def _setup(vp: VoiceParams, samplerate: int, num_harmonics: int):
+    """voice_setup without the checks, for render_stereo (which has made
+    them)."""
+    V = vp.wave.shape[0]
+    C = const_width(num_harmonics)
+    buf = torch.empty(V * C + 1, dtype=torch.int32, device=vp.device)
+    consts, count = buf[:V * C].view(V, C), buf[V * C:]
+    with torch.cuda.device(vp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(_library().voicebank_setup(
+            _column_pointers(vp), vp.harm_amps.data_ptr(),
+            vp.harm_amps.shape[1], vp.table.data_ptr(), V, num_harmonics,
+            _sr_r(samplerate), consts.data_ptr(), C, count.data_ptr(),
+            stream), "voicebank_setup")
+    voice_setup.launches += 1
+    return consts, count
+
+
+voice_setup.launches = 0
+
+
 def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
                   samplerate: int, layout: BankLayout,
                   use_glide: bool = False) -> torch.Tensor:
     """Render [nframes, 2] f32 starting at absolute frame n0.
 
-    CUDA tensors: one launch of the Hopper kernel, counted in
-    ``render_stereo.launches``.  CPU tensors: the plain version."""
+    CUDA tensors: one launch of the setup kernel and one of the render
+    kernel, counted in ``voice_setup.launches`` and
+    ``render_stereo.launches``; ``render_stereo.voice_tiles`` is then the
+    device int32 [1] count of voice-tiles the render evaluated.  CPU
+    tensors: the plain version."""
     if vp.device.type == "cpu":
         return render_stereo_reference(vp, n0, nframes=nframes,
                                        samplerate=samplerate, layout=layout,
@@ -151,26 +241,25 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
                          f"{vp.device}")
     n0 = int(n0)
     _check_inputs(vp, n0, nframes, layout)
-    lib = _library()
-    params = _kernel_params(vp)
+    H = layout.num_harmonics
+    consts, count = _setup(vp, samplerate, H)
     groups = [int(x) for g in layout.groups for x in g]
-    gbuf = (ctypes.c_int32 * len(groups))(*groups)
     out = torch.empty((nframes, 2), dtype=torch.float32, device=vp.device)
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.voicebank_render(
-            params.data_ptr(), vp.harm_amps.data_ptr(),
-            vp.harm_amps.shape[1], vp.table.data_ptr(), gbuf,
-            len(layout.groups), layout.num_harmonics, n0, nframes,
-            float(np.float32(1.0 / samplerate)), int(use_glide),
-            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"voicebank_render launch failed: CUDA error {rc}")
+        _launch(_library().voicebank_render(
+            consts.data_ptr(), consts.shape[1], vp.harm_amps.data_ptr(),
+            vp.harm_amps.shape[1], vp.table.data_ptr(),
+            (ctypes.c_int32 * len(groups))(*groups), len(layout.groups), H,
+            n0, nframes, _sr_r(samplerate), int(use_glide), out.data_ptr(),
+            count.data_ptr(), stream), "voicebank_render")
     render_stereo.launches += 1
+    render_stereo.voice_tiles = count
     return out
 
 
 render_stereo.launches = 0
+render_stereo.voice_tiles = None
 
 
 def render_stereo_reference(vp: VoiceParams, n0: int, *, nframes: int,
@@ -186,3 +275,140 @@ def render_stereo_reference(vp: VoiceParams, n0: int, *, nframes: int,
                                    layout.num_harmonics, layout,
                                    use_glide=use_glide))
     return torch.cat(blocks)
+
+
+def _u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """u32 values held in int64 -> their int32 bit patterns."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def _f32_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def voice_constants(vp: VoiceParams, samplerate: int,
+                    num_harmonics: int) -> torch.Tensor:
+    """The setup kernel's plain version -> [V, C] int32, C =
+    ``const_width(num_harmonics)``: the words of ``CONST_COLUMNS`` and then
+    (u/denom, phi, alpha) per pluck partial, zero for partials that do not
+    sound.  Every f32 value is the same expression in the same order as
+    the per-frame code of ``render_block``; max and min follow CUDA's
+    fmaxf/fminf (a NaN operand yields the other one)."""
+    dev = vp.device
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    one = torch.ones((), dtype=f32, device=dev)
+    eps = torch.full((), _EPS, dtype=f32, device=dev)
+    sr_r = _sr_r(samplerate)
+    inc = vp.base_inc
+    V = inc.shape[0]
+    H = num_harmonics
+    K = max(1, H)
+
+    G = vp.glide_frames.to(torch.int64) & _U32
+    phase_g = (vp.glide_inc0 * G + vp.glide_d * _tri_u32(G)) & _U32
+    inc_g = (vp.glide_inc0 + vp.glide_d * G) & _U32
+    wu = vp.pulse_width * 4294967296.0              # __float2uint_rz
+    wu = torch.where(torch.isnan(wu), zero, wu.clamp(0.0, 4294967296.0))
+    wu = wu.to(torch.int64).clamp_max(_U32)
+
+    a = torch.fmax(vp.attack, zero)
+    d = torch.fmax(vp.decay, zero)
+    r = torch.fmax(vp.release, zero)
+    gate = vp.gate.to(f32) * sr_r
+    s = torch.fmax(gate - a - d, zero)
+    t2 = a + d
+    t3 = t2 + s
+    t4 = t3 + r
+
+    # pluck (the twin of render_block's _pluck)
+    ratio = inc.to(f32) * _TWO_NEG32
+    ks = torch.arange(1, K + 1, dtype=torch.int64, device=dev)[None, :]
+    u = _noise(ks.expand(V, K), vp.seed)
+    lim = torch.tensor([(2 ** 31 - 1) // k for k in range(1, K + 1)],
+                       dtype=torch.int64, device=dev)[None, :]
+    active = (inc[:, None] <= lim) & (inc[:, None] > 0)
+    denom = torch.zeros_like(ratio)
+    for j in range(K):
+        denom = denom + torch.where(active[:, j], u[:, j].abs(), zero)
+    denom = torch.fmax(denom, eps)
+    phi = _noise_u32((ks + K).expand(V, K), vp.seed)
+    g = torch.cos(float(np.float32(math.pi)) * ks.to(f32) * ratio[:, None])
+    alpha = (vp.damping[:, None] * ratio[:, None]
+             * torch.log(torch.fmax(g, eps)))
+    izero = torch.zeros((), dtype=torch.int32, device=dev)
+    partials = torch.stack([
+        torch.where(active, _f32_bits(u / denom[:, None]), izero),
+        torch.where(active, _u32_bits(phi), izero),
+        torch.where(active, _f32_bits(alpha), izero)], dim=2)
+
+    def within(x):
+        return x.abs() <= CULL_MAX                  # False for NaN and inf
+
+    safe = (within(vp.amp) & within(vp.bias) & within(vp.pan)
+            & within(vp.harm_amps[:, :H]).all(dim=1)
+            & within(vp.table).all(dim=1))
+    pluck_safe = (vp.damping >= 0.0) & (vp.damping <= CULL_MAX)
+    fm_on = (vp.fm_depth != 0.0) & (vp.fm_inc != 0)
+    flags = (safe.to(torch.int32) * FLAG_SAFE
+             + pluck_safe.to(torch.int32) * FLAG_PLUCK_SAFE
+             + fm_on.to(torch.int32) * FLAG_FM_ON)
+
+    words = dict(
+        wave=vp.wave, inc=_u32_bits(inc), phase0=_u32_bits(vp.phase0),
+        start=vp.start, fm_inc=_u32_bits(vp.fm_inc),
+        fm_phase0=_u32_bits(vp.fm_phase0), seed=_u32_bits(vp.seed),
+        noise_hold=vp.noise_hold, glide_inc0=_u32_bits(vp.glide_inc0),
+        glide_d=_u32_bits(vp.glide_d), glide_frames=vp.glide_frames,
+        phase_g=_u32_bits(phase_g), inc_g=_u32_bits(inc_g),
+        pulse_wu=_u32_bits(wu), flags=flags,
+        pluck_ka=active.sum(dim=1).to(torch.int32),
+        amp=_f32_bits(vp.amp), bias=_f32_bits(vp.bias),
+        lg=_f32_bits(torch.fmin(1.0 - vp.pan, one)),
+        rg=_f32_bits(torch.fmin(1.0 + vp.pan, one)),
+        a=_f32_bits(a), t2=_f32_bits(t2), t3=_f32_bits(t3), t4=_f32_bits(t4),
+        sl=_f32_bits(vp.sustain_level),
+        a_r=_f32_bits(1.0 / torch.fmax(a, eps)),
+        d_r=_f32_bits(1.0 / torch.fmax(d, eps)),
+        r_r=_f32_bits(1.0 / torch.fmax(r, eps)),
+        fm_c0=_f32_bits(vp.fm_c0), fm_r=_f32_bits(vp.fm_r),
+        fm_scale=_f32_bits(inc.to(f32) * vp.fm_depth))
+    base = torch.stack([words[name] for name in CONST_COLUMNS], dim=1)
+    return torch.cat([base, partials.reshape(V, 3 * K)], dim=1).contiguous()
+
+
+def active_voice_tiles(vp: VoiceParams, n0: int, nframes: int, *,
+                       samplerate: int, layout: BankLayout,
+                       tile: int = TILE) -> torch.Tensor:
+    """The render kernel's culling test as plain PyTorch -> bool [V, ntiles]:
+    True where the kernel evaluates voice v on tile j (frames
+    [n0 + j*tile, n0 + min((j+1)*tile, nframes))).  A voice that no group
+    walks is never evaluated; a voice is tested with the waveform of the
+    group that holds it (per-voice in a mixed group).  Same f32 operations
+    as the kernel's test, so its sum is the kernel's voice-tile count for a
+    layout whose groups do not overlap."""
+    dev = vp.device
+    V = vp.wave.shape[0]
+    c = voice_constants(vp, samplerate, layout.num_harmonics)
+    col = {name: c[:, j] for j, name in enumerate(CONST_COLUMNS)}
+    ntiles = -(-nframes // tile)
+    i0 = torch.arange(ntiles, dtype=torch.int64, device=dev) * tile
+    ilast = torch.clamp_max(i0 + tile, nframes) - 1
+
+    def rel(n):            # int32(n - start), wrapped as the kernel's u32 sub
+        m = (n0 + n)[None, :] - col["start"].to(torch.int64)[:, None]
+        return ((m + 2 ** 31) & _U32) - 2 ** 31
+
+    m_first, m_last = rel(i0), rel(ilast)
+    sr_r = _sr_r(samplerate)
+    t4 = col["t4"].view(torch.float32)[:, None]
+    flags = col["flags"][:, None]
+    wid = torch.full((V,), -2, dtype=torch.int32, device=dev)
+    for (gw, _, start, count) in layout.groups:
+        wid[start:start + count] = vp.wave[start:start + count] if gw < 0 else gw
+    safe = ((flags & FLAG_SAFE) != 0) & (
+        (wid[:, None] != 12) | ((flags & FLAG_PLUCK_SAFE) != 0))
+    silent = safe & (m_first <= m_last) & (
+        (m_last.to(torch.float32) * sr_r < 0.0)
+        | (m_first.to(torch.float32) * sr_r >= t4))
+    return ~silent & (wid[:, None] != -2)

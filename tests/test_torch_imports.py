@@ -1,6 +1,8 @@
-"""The port stands alone: importing every module of synthesizer_tpu_torch
-loads neither jax nor the JAX package."""
+"""The port stands alone: importing every module of synthesizer_tpu_torch,
+or every module chip_smoke.py imports, loads neither jax nor the JAX
+package."""
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -31,11 +33,31 @@ def test_port_modules_found():
         assert want in names
 
 
-def test_port_imports_no_jax():
+def _is_jax(name):
+    return name.split(".")[0] in ("jax", "synthesizer_tpu")
+
+
+def _chip_smoke_imports():
+    """Every import statement of chip_smoke.py, at top level or in a
+    function, as (module, names imported from it)."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    imports = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imports.extend((a.name, []) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imports.append((node.module, [a.name for a in node.names]))
+    return imports
+
+
+def _loads_no_jax(imports):
+    """Run the imports in a fresh interpreter, as ``from module import
+    names`` runs them, and check that neither jax nor the JAX package was
+    loaded."""
     code = (
-        "import importlib, sys\n"
-        f"for name in {_port_modules()!r}:\n"
-        "    importlib.import_module(name)\n"
+        "import sys\n"
+        f"for module, names in {imports!r}:\n"
+        "    __import__(module, fromlist=names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
         "('jax.') or m == 'synthesizer_tpu' or m.startswith"
         "('synthesizer_tpu.'))\n"
@@ -45,3 +67,17 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_port_imports_no_jax():
+    _loads_no_jax([(name, []) for name in _port_modules()])
+
+
+def test_chip_smoke_imports_no_jax():
+    imports = _chip_smoke_imports()
+    modules = {m for m, _ in imports}
+    assert {"torch", "synthesizer_tpu_torch.ops"} <= modules
+    assert ("synthesizer_tpu_torch.ops", ["kernels"]) in imports
+    names = modules | {f"{m}.{n}" for m, ns in imports for n in ns}
+    assert not [n for n in names if _is_jax(n)], sorted(names)
+    _loads_no_jax(imports)

@@ -2,10 +2,10 @@
 
 On the CPU ``render_stereo`` runs its plain version; it is held here
 against the TPU kernel ``render_stereo_pallas`` in interpret mode, as
-tests/test_pallas_kernel.py runs it.  The CUDA kernel itself runs only on
-the card, where chip_smoke.py holds it against the plain version; what
-surrounds it (parameter packing, input checks, the column order shared
-with the source) is checked here.
+tests/test_pallas_kernel.py runs it.  The CUDA kernels themselves run only
+on the card, where chip_smoke.py holds them against their plain versions;
+what surrounds them (the column pointer table, input checks, the layouts
+shared with the source) is checked here, the culling in test_torch_cull.py.
 """
 
 import dataclasses
@@ -30,7 +30,8 @@ SR = 44100
 def packed():
     vpj, ly = J.pack_voices(VOICES, SR, num_harmonics=8, sort_by_wave=True)
     vpt = T.voice_params_from_numpy({k: np.asarray(v)
-                                     for k, v in vpj._asdict().items()})
+                                     for k, v in vpj._asdict().items()},
+                                    device="cpu")
     return vpj, ly, vpt, T.BankLayout(ly.groups, ly.nvoices, ly.num_harmonics)
 
 
@@ -61,36 +62,59 @@ def test_render_stereo_offset(packed):
     assert torch.equal(part, whole[1024:2024])
 
 
-def test_kernel_params_round_trip(packed):
+def _enum(src, name):
+    body = re.search(r"enum %s \{([^}]*)\}" % name, src).group(1)
+    return [t.strip() for t in body.split(",") if t.strip()]
+
+
+def test_column_pointers_match_source(packed):
+    # the setup kernel reads VoiceParams columns through a table of device
+    # pointers in enum Col order, each as the type kColType names
     _, _, vpt, _ = packed
-    P = K._kernel_params(vpt)
-    assert P.dtype == torch.int32 and P.shape == (vpt.wave.shape[0],
-                                                  len(K.KERNEL_COLUMNS))
-    assert P.is_contiguous()
-    for j, name in enumerate(K.KERNEL_COLUMNS):
+    src = K._SRC.read_text()
+    names = _enum(src, "Col")
+    assert names[-1] == "kCols" and len(names) - 1 == len(K.KERNEL_COLUMNS)
+    aliases = {"SUSTAIN": "sustain_level"}
+    for c, name in zip(names, K.KERNEL_COLUMNS):
+        assert aliases.get(c, c.lower()) == name
+    types = re.search(r"kColType\[kCols\] = \{([^}]*)\}", src).group(1)
+    types = [t.strip() for t in types.split(",") if t.strip()]
+    assert len(types) == len(K.KERNEL_COLUMNS)
+    for t, name in zip(types, K.KERNEL_COLUMNS):
+        want = ("U32" if name in T.U32_FIELDS
+                else "I32" if name in T.I32_FIELDS else "F32")
+        assert t == want, name
         f = getattr(vpt, name)
-        col = P[:, j]
-        if f.dtype == torch.float32:
-            assert torch.equal(col.view(torch.float32), f), name
-        elif f.dtype == torch.int64:          # u32: two's-complement bits
-            assert torch.equal(col.to(torch.int64) & 0xFFFFFFFF, f), name
-        else:
-            assert torch.equal(col, f), name
+        assert f.dtype == {"U32": torch.int64, "I32": torch.int32,
+                           "F32": torch.float32}[t], name
+    ptrs = list(K._column_pointers(vpt))
+    assert ptrs == [getattr(vpt, name).data_ptr()
+                    for name in K.KERNEL_COLUMNS]
 
 
 def test_kernel_columns_match_source():
     src = K._SRC.read_text()
-    enum = re.search(r"enum Col \{([^}]*)\}", src).group(1)
-    names = [s.strip() for s in enum.split(",") if s.strip()]
-    assert names[-1] == "kCols"
-    assert len(names) - 1 == len(K.KERNEL_COLUMNS)
-    aliases = {"SUSTAIN": "sustain_level"}
-    for c, name in zip(names, K.KERNEL_COLUMNS):
-        assert aliases.get(c, c.lower()) == name
+    consts = _enum(src, "Const")
+    assert consts[-1] == "kBase" and len(consts) - 1 == K.CONST_BASE
+    for c, name in zip(consts, K.CONST_COLUMNS):
+        assert c == "K_" + name.upper()
+    assert consts.index("K_AMP") == K.CONST_COLUMNS.index("amp")
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    frames = int(re.search(r"kFrames = (\d+);", src).group(1))
+    assert "kTile = kThreads * kFrames;" in src
+    assert threads * frames == K.TILE and threads % 32 == 0
+    for flag, value in (("kSafe", K.FLAG_SAFE),
+                        ("kPluckSafe", K.FLAG_PLUCK_SAFE),
+                        ("kFmOn", K.FLAG_FM_ON)):
+        assert f"{flag} = {value}u;" in src
+    assert "kCullMax = 4294967296.0f;" in src and K.CULL_MAX == 2.0 ** 32
     assert f"kMaxGroups = {K.MAX_GROUPS};" in src
     assert f"kTableLen = {T.BANK_TABLE_LEN};" in src
     assert "--use_fast_math" not in K.NVCC_FLAGS
+    assert "-fmad=false" in K.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
+    assert K.const_width(0) == K.const_width(1) == K.CONST_BASE + 3
+    assert K.const_width(8) == K.CONST_BASE + 24
 
 
 def test_check_inputs_rejects(packed):
@@ -109,6 +133,10 @@ def test_check_inputs_rejects(packed):
     with pytest.raises(ValueError, match="harm_amps"):
         K._check_inputs(vpt._replace(harm_amps=vpt.harm_amps[:, :2]), 0, 64,
                         tly)
+    # the setup kernel reads each column through its raw pointer
+    strided = torch.stack([vpt.pan, vpt.pan], dim=1)[:, 0]
+    with pytest.raises(ValueError, match="pan: expected contiguous"):
+        K._check_inputs(vpt._replace(pan=strided), 0, 64, tly)
 
 
 def test_render_stereo_has_no_fallback(packed):
@@ -117,4 +145,7 @@ def test_render_stereo_has_no_fallback(packed):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         K.render_stereo(vpt.to("meta"), 0, nframes=64, samplerate=SR,
                         layout=tly)
-    assert K.render_stereo.launches == 0
+    assert K.render_stereo.launches == 0 and K.voice_setup.launches == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.voice_setup(vpt, SR, 8)
+    assert K.voice_setup.launches == 0

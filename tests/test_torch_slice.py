@@ -25,14 +25,15 @@ SR = 44100
 @pytest.fixture(scope="module")
 def song():
     voices = bench_song.build_song(64, 2.0, SR)
-    vp, ly = T.pack_voices(voices, SR, num_harmonics=8, sort_by_wave=True)
+    vp, ly = T.pack_voices(voices, SR, num_harmonics=8, sort_by_wave=True,
+                           device="cpu")
     return voices, vp, ly
 
 
 def _port_bank(voices, ly, chunk):
     return T.VoiceBank.for_voices(voices, SR, chunk_frames=chunk,
                                   num_harmonics=8, layout=ly,
-                                  nvoices=ly.nvoices)
+                                  nvoices=ly.nvoices, device="cpu")
 
 
 def test_build_song_matches_bench():
@@ -94,8 +95,9 @@ def test_mixed_layout_demo_bank_matches_jax():
     fn = jax.jit(functools.partial(J.render_block, blocksize=2048,
                                    samplerate=SR, num_harmonics=8))
     want = np.asarray(fn(jvp, np.int32(0)))
-    vp = T.pack_voices(bench_song.demo_voices(64), SR, num_harmonics=8)
-    bank = T.VoiceBank(vp.wave.shape[0], SR, chunk_frames=2048)
+    vp = T.pack_voices(bench_song.demo_voices(64), SR, num_harmonics=8,
+                       device="cpu")
+    bank = T.VoiceBank(vp.wave.shape[0], SR, chunk_frames=2048, device="cpu")
     got = bank.render_chunk(vp, 0).numpy()
     w16 = np.clip(np.rint(want * 32767), -32768, 32767)
     g16 = np.clip(np.rint(got * 32767), -32768, 32767)

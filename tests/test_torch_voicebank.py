@@ -69,7 +69,7 @@ def test_pack_voices_bit_exact(case, sort_by_wave):
     voices = PACK_CASES[case]()
     want = J.pack_voices(voices, SR, num_harmonics=8, sort_by_wave=sort_by_wave)
     got = T.pack_voices(to_port(voices), SR, num_harmonics=8,
-                        sort_by_wave=sort_by_wave)
+                        sort_by_wave=sort_by_wave, device="cpu")
     if sort_by_wave:
         (want, wly), (got, gly) = want, got
         assert (gly.groups, gly.nvoices, gly.num_harmonics) == \
@@ -88,7 +88,7 @@ def test_pack_voices_bit_exact(case, sort_by_wave):
             # bit-exact, NaN-safe: compare the raw bytes
             assert g.tobytes() == w.tobytes(), name
     # carrying the reference's packed fields across gives the same tensors
-    carried = T.voice_params_from_numpy(wf)
+    carried = T.voice_params_from_numpy(wf, device="cpu")
     for name in T.VoiceParams._fields:
         a, b = getattr(carried, name), getattr(got, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
@@ -99,14 +99,17 @@ def test_pack_tags_and_validation():
     _, wly, wt = J.pack_voices(voices, SR, sort_by_wave=True,
                                tags=[3, 1, 4, 1, 5])
     _, gly, gt = T.pack_voices(to_port(voices), SR, sort_by_wave=True,
-                               tags=[3, 1, 4, 1, 5])
+                               tags=[3, 1, 4, 1, 5], device="cpu")
     np.testing.assert_array_equal(gt, wt)
     assert gly.groups == wly.groups
     fields = jax_fields(J.pack_voices(voices, SR))
     with pytest.raises(TypeError):
-        T.voice_params_from_numpy({**fields, "amp": fields["amp"].astype(np.float64)})
+        T.voice_params_from_numpy(
+            {**fields, "amp": fields["amp"].astype(np.float64)}, device="cpu")
     with pytest.raises(ValueError):
-        T.voice_params_from_numpy({**fields, "seed": fields["seed"].astype(np.int64) - 1})
+        T.voice_params_from_numpy(
+            {**fields, "seed": fields["seed"].astype(np.int64) - 1},
+            device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,8 +132,9 @@ def render_pair(voices, n, grouped=True, n0=0, H=8):
     want = np.asarray(fn(vpj, np.int32(n0)))
     tly = None if ly is None else T.BankLayout(ly.groups, ly.nvoices,
                                                ly.num_harmonics)
-    got = T.render_block(T.voice_params_from_numpy(jax_fields(vpj)), n0, n,
-                         SR, bank.num_harmonics, tly, bank.used_waves,
+    vpt = T.voice_params_from_numpy(jax_fields(vpj), device="cpu")
+    got = T.render_block(vpt, n0, n, SR, bank.num_harmonics, tly,
+                         bank.used_waves,
                          bank.use_fm, use_glide=bank.use_glide).numpy()
     return want, got
 
@@ -249,12 +253,12 @@ def test_render_block_past_2_pow_24_frames():
 
 
 def test_curves_and_buses_raise():
-    vp = T.pack_voices(to_port(BANK_VOICES[:2]), SR)
+    vp = T.pack_voices(to_port(BANK_VOICES[:2]), SR, device="cpu")
     for kw in ({"use_bend": True}, {"use_amp": True}, {"use_dmod": True},
                {"seg": torch.zeros(8, dtype=torch.int32), "nseg": 1}):
         with pytest.raises(NotImplementedError, match="next slice"):
             T.render_block(vp, 0, 64, SR, 8, **kw)
     curve = to_port([_special_voices()[3]])
-    bank = T.VoiceBank.for_voices(curve, SR)
+    bank = T.VoiceBank.for_voices(curve, SR, device="cpu")
     with pytest.raises(NotImplementedError):
-        bank.render_song(T.pack_voices(curve, SR), 64)
+        bank.render_song(T.pack_voices(curve, SR, device="cpu"), 64)
