@@ -5,9 +5,10 @@
 
 Builds the port's two Hopper kernels (``voicebank_setup`` and
 ``voicebank_render``, one source in ``synthesizer_tpu_torch/csrc``, nvcc
-into ``build/``), drives the main path — config 5, the 64-voice 60 s song,
-through ``VoiceBank.render_song`` and ``to_int16`` to a WAV file — and
-holds both kernels against their plain PyTorch versions on the card:
+into ``build/``), drives the two paths the port has -- config 5, the
+64-voice 60 s song, through ``VoiceBank.render_song`` and ``to_int16`` to a
+WAV file, and a General-MIDI file through ``midi.render_midi`` -- and holds
+both kernels against their plain PyTorch versions on the card:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the build time and ptxas resource lines of both kernels;
@@ -30,7 +31,22 @@ holds both kernels against their plain PyTorch versions on the card:
 7. timing: both kernels' device time (profiler), ``render_song`` over 20
    back-to-back calls (CUDA events), one 131072-frame ``render_chunk``,
    the main path's host wall clock to the int16 on the host with its
-   device-time breakdown, the plain versions, and each kernel's bound.
+   device-time breakdown, the plain versions, and each kernel's bound;
+8. curves battery: every waveform under a pitch, an amplitude and an
+   FM-depth curve, alone and all together, grouped and mixed, kernel vs
+   plain and setup kernel vs ``voice_constants``, bit-exact;
+9. sparse rows on the sparse workload of ``bench.py`` (600 notes, 300 s,
+   seed 5): ``render_song_sparse`` (one launch with per-chunk rows) equal
+   to the flat ``render_song`` bit for bit, to the plain version on a
+   window, voice-tiles evaluated and candidates tested both ways, times;
+10. the MIDI path: a seeded General-MIDI file (16 channels, percussion,
+    about 3000 notes over 180 s, bend sweeps, CC7/CC11 fades, CC1 and
+    pressure vibrato) through ``midi.render_midi`` on the card, with both
+    kernels' launch counts; the whole file twice with identical bytes; the
+    kernel vs plain on three windows (the start, the window with the most
+    curve voices, the release tail); its wall clock split into parse,
+    pack, plan, kernels, ``to_int16`` and the copy; the render kernel's
+    device time with and without the rows, and its bound.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -38,6 +54,7 @@ without that line.  There is no CPU fallback: without a CUDA device it
 exits non-zero at once.
 """
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -73,6 +90,10 @@ OPS_FM, OPS_GLIDE = 32, 14
 #: ... and the waveform (8: per partial; 12: per sounding partial)
 OPS_WAVE = {0: 18, 1: 6, 2: 2, 3: 4, 4: 2, 5: 9, 6: 8, 7: 32, 8: 21, 9: 22,
             10: 38, 11: 12, 12: 32}
+#: ... the closed forms of the curves, without the segment search: the bend
+#: chirp and its BLEP increment, the amplitude ramp and its product with
+#: the envelope, and the depth curve's eight trig evaluations and sums
+OPS_BEND, OPS_AMP, OPS_DMOD = 16, 5, 158
 
 
 def check(ok, what):
@@ -115,7 +136,8 @@ def main():
     for line in log.splitlines():
         if "Compiling entry" in line:
             print("  ptxas:", "setup_kernel" if "setup_kernel" in line
-                  else "render_kernel")
+                  else "render_kernel<curves>" if "ILb1E" in line
+                  else "render_kernel<no curves>")
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
@@ -183,7 +205,7 @@ def main():
         kern = bank.render_chunk(vp, 0)
         plain = K.render_stereo_reference(vp, 0, nframes=nframes,
                                           samplerate=SR, layout=layout,
-                                          use_glide=bank.use_glide)
+                                          **bank._flags())
         return kern, plain
 
     render_err = 0.0
@@ -259,15 +281,16 @@ def main():
     print(f"[4] cull battery ({T}-frame tiles)")
     setup_err = 0.0
 
-    def edge_bank(shift, grouped):
+    def edge_bank(shift, grouped, amp_curve=()):
         """Every waveform, notes placed on, one before and one after tile
         boundaries (start and end), with zero attack, decay, release or
-        gate among them; exact frames patched in after packing."""
+        gate among them, and an amplitude curve if given; exact frames
+        patched in after packing."""
         voices = []
         for i, w in enumerate(waves):
             for j in range(4):
                 kw = dict(attack=0.004, decay=0.006, sustain_level=0.7,
-                          release=0.003)
+                          release=0.003, amp_curve=amp_curve)
                 kw[("attack", "decay", "release", "duration")[j]] = 0.0
                 voices.extend(wave_voices(w, count=1, **kw))
         if grouped:
@@ -291,10 +314,10 @@ def main():
     def cull_case(name, bank, vp, layout, n0, nframes, exact=True):
         nonlocal render_err, setup_err
         kern = K.render_stereo(vp, n0, nframes=nframes, samplerate=SR,
-                               layout=layout, use_glide=bank.use_glide)
+                               layout=layout, **bank._flags())
         plain = K.render_stereo_reference(vp, n0, nframes=nframes,
                                           samplerate=SR, layout=layout,
-                                          use_glide=bank.use_glide)
+                                          **bank._flags())
         if exact:
             render_err = max(render_err, compare(name, kern, plain))
         else:
@@ -313,6 +336,13 @@ def main():
         bank, vp, layout = edge_bank(n0 - T, grouped)
         cull_case(f"cull/edges_{lay}_past_2^24", bank, vp, layout, n0,
                   10 * T)
+        # amplitude curves keep the voices cull-safe (every gain in range)
+        # and ramp across the tile edges
+        bank, vp, layout = edge_bank(0, grouped, amp_curve=(
+            (0.0, 0.5), (0.002, 1.5), (0.005, 0.8)))
+        check(bank.use_amp, "cull/edges_amp: the bank renders amp curves")
+        cull_case(f"cull/edges_{lay}_amp_curve", bank, vp, layout, 0,
+                  10 * T + 37)
 
     # voices that are not cull-safe: the plain version gives non-finite
     # samples on their silent frames too, and the kernel must evaluate them
@@ -577,6 +607,272 @@ def main():
     print(f"  setup bound: {setup_bound:.6f} ms; kernel at "
           f"{100 * setup_bound / setup_ms:.2f}% of it")
 
+    # -- 8. curves battery ----------------------------------------------
+    print("[8] curves battery (kernel vs plain, 1 s, every wave x {bend, "
+          "amp, depth, all})")
+    crng = np.random.default_rng(8)
+
+    def curves(kind):
+        kw = {}
+        if kind in ("bend", "all"):
+            kw["pitch_curve"] = ((0.0, 1.0),
+                                 (0.05, float(crng.uniform(0.6, 1.7))),
+                                 (0.12, float(crng.uniform(0.6, 1.7))),
+                                 (0.2, 1.0))
+        if kind in ("amp", "all"):
+            kw["amp_curve"] = ((0.0, float(crng.uniform(0.1, 1.0))),
+                               (0.04, float(crng.uniform(0.5, 1.6))),
+                               (0.15, float(crng.uniform(0.0, 1.0))))
+        if kind in ("depth", "all"):
+            kw["fm_frequency"] = float(crng.uniform(3.0, 9.0))
+            kw["fm_depth_curve"] = ((0.0, 0.0),
+                                    (0.06, float(crng.uniform(0.005, 0.03))),
+                                    (0.2, float(crng.uniform(0.0, 0.03))))
+        return kw
+
+    curve_tiles = 0
+    for kind in ("bend", "amp", "depth", "all"):
+        for w in waves:
+            voices = wave_voices(w, count=6)
+            voices = [dataclasses.replace(v, **curves(kind))
+                      if i % 3 != 2 else v for i, v in enumerate(voices)]
+            grouped = waves.index(w) % 2 == 0
+            kern, plain = bank_pair(voices, SR, grouped=grouped)
+            battery(f"curves/{kind}/{w}", kern, plain)
+            curve_tiles += int(K.render_stereo.voice_tiles.item())
+        mixed = [dataclasses.replace(v, **curves(kind))
+                 for w in waves for v in wave_voices(w, count=1)]
+        battery(f"curves/{kind}/mixed_all_waves",
+                *bank_pair(mixed, SR, grouped=False))
+        vpc, lyc = pack_voices(mixed, SR, num_harmonics=8, sort_by_wave=True,
+                               device=dev)
+        setup_err = max(setup_err, setup_check(f"curves/{kind}", vpc, lyc))
+    print(f"  {curve_tiles} voice-tiles evaluated over the per-wave banks")
+
+    # -- 9. sparse rows -----------------------------------------------------
+    print("[9] sparse rows: bench.py's sparse workload (600 notes, 300 s, "
+          "seed 5, chunk 131072)")
+    sv = bench_song.sparse_voices()
+    vps, lys = pack_voices(sv, SR, num_harmonics=8, sort_by_wave=True,
+                           device=dev)
+    bs = VoiceBank.for_voices(sv, SR, chunk_frames=bench_song.CHUNK_FRAMES,
+                              num_harmonics=8, layout=lys,
+                              nvoices=lys.nvoices, device=dev)
+    total_s = int(300.0 * SR)
+    plan = bs.sparse_plan(vps, total_s)
+    check(plan is not None, "sparse workload takes the bucketed route")
+    fn_s, idx_s, pad_s, nch_s = plan
+    Vs, Ks = vps.wave.shape[0], idx_s.shape[1]
+    flat_s = bs.render_song(vps, total_s)
+    tiles_flat = int(K.render_stereo.voice_tiles.item())
+    K.voice_setup.launches = K.render_stereo.launches = 0
+    sparse_s = bs.render_song_sparse(vps, total_s)
+    tiles_sparse = int(K.render_stereo.voice_tiles.item())
+    check(K.render_stereo.launches == 1 and K.voice_setup.launches == 1,
+          f"render_song_sparse: one launch of each kernel "
+          f"({K.voice_setup.launches}, {K.render_stereo.launches})")
+    check(torch.equal(sparse_s, flat_s), f"sparse == flat, bit-exact "
+          f"({Vs} voices, K={Ks} rows of {nch_s} chunks)")
+    ntiles_s = -(-nch_s * bs.chunk_frames // T)
+    lay1 = K.BankLayout.ungrouped(Vs, bs.num_harmonics, bs.use_fm)
+    want = int(K.active_voice_tiles(vps, 0, nch_s * bs.chunk_frames,
+                                    samplerate=SR, layout=lay1, idx=idx_s,
+                                    chunk_frames=bs.chunk_frames).sum())
+    check(tiles_sparse == want == tiles_flat,
+          f"voice-tiles evaluated: rows {tiles_sparse}, flat {tiles_flat}, "
+          f"active_voice_tiles {want}; candidates tested: rows "
+          f"{ntiles_s * Ks}, flat {-(-total_s // T) * Vs}")
+    win = 4 * bs.chunk_frames
+    plain_s = K.render_stereo_reference(vps, 0, nframes=win, samplerate=SR,
+                                        layout=lay1, idx=idx_s,
+                                        chunk_frames=bs.chunk_frames,
+                                        **bs._flags())
+    render_err = max(render_err, compare(
+        f"sparse rows, kernel vs plain on frames [0, {win})",
+        sparse_s[:win], plain_s))
+    prof_sp, _, _ = profiled(lambda: bs.render_song_sparse(vps, total_s), 10)
+    prof_fl, _, _ = profiled(lambda: bs.render_song(vps, total_s), 10)
+    sparse_kernel_ms = pick(prof_sp, "render_kernel")
+    flat_kernel_ms = pick(prof_fl, "render_kernel")
+    print(f"  render_kernel device time: rows {sparse_kernel_ms:.6f} ms, "
+          f"flat {flat_kernel_ms:.6f} ms (profiler, 10 calls each)")
+    sparse_call_ms = statistics.median(
+        events_ms(lambda: fn_s(vps, idx_s, pad_s, nch_s), 10)
+        for _ in range(3))
+    print(f"  the plan's fn, 10 back to back (CUDA events): "
+          f"{sparse_call_ms:.6f} ms a call")
+    del flat_s, sparse_s, plain_s
+
+    # -- 10. the MIDI path ----------------------------------------------------
+    print("[10] MIDI path: seeded GM file, ~3000 notes, 180 s, 16 channels")
+    from synthesizer_tpu_torch import midi as M
+    t = time.perf_counter()
+    data = bench_song.gm_file(3000, 180.0, 0)
+    print(f"  gm_file: {len(data)} bytes in "
+          f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    K.voice_setup.launches = 0
+    K.render_stereo.launches = 0
+    t = time.perf_counter()
+    midi_pcm = M.render_midi(data, device=dev).cpu()
+    midi_first_s = time.perf_counter() - t
+    midi_launches = {"voicebank_setup": K.voice_setup.launches,
+                     "voicebank_render": K.render_stereo.launches}
+    check(all(n > 0 for n in midi_launches.values()),
+          f"MIDI path launched {midi_launches} ({midi_first_s:.3f} s host "
+          f"time, first call)")
+    again = M.render_midi(data, device=dev).cpu()
+    check(torch.equal(again, midi_pcm), "the whole file rendered twice, "
+          "identical bytes")
+    mp = midi_pcm.numpy().astype(np.int64)
+    clip = float((np.abs(mp) >= 32767).mean())
+    check(midi_pcm.dtype == torch.int16 and midi_pcm.shape[1] == 2
+          and np.abs(mp).max() > 1000,
+          f"MIDI output int16 {tuple(midi_pcm.shape)}, peak "
+          f"{np.abs(mp).max()}, {100 * clip:.4f}% of samples at full scale")
+
+    # the same path step by step, each step synchronised and timed
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    grace = M.release_grace_for(None)
+    notes = step("parse", lambda: M.parse_midi(data, release_grace=grace))
+    voices = step("voices", lambda: M.midi_to_voices(notes))
+    vpm = step("pack", lambda: pack_voices(voices, SR, num_harmonics=8,
+                                           device=dev))
+    Vm = vpm.wave.shape[0]
+    bm = VoiceBank.for_voices(voices, SR, num_harmonics=8, nvoices=Vm,
+                              device=dev)
+    total_m = M.song_frames(voices, SR)
+    plan = step("plan", lambda: bm.sparse_plan(
+        vpm, total_m, ranges=M.note_ranges(voices, Vm, SR)))
+    check(plan is not None, "the MIDI file takes the sparse route")
+    fn_m, idx_m, pad_m, nch_m = plan
+    f32m = step("kernels", lambda: fn_m(vpm, idx_m, pad_m, nch_m))
+    tiles_m = int(K.render_stereo.voice_tiles.item())
+    q16 = step("to_int16", lambda: VoiceBank.to_int16(f32m[:total_m]))
+    host16 = step("copy", lambda: q16.cpu())
+    check(torch.equal(host16, midi_pcm), "step by step == render_midi, "
+          "bit-exact")
+    print("  steps (ms, synchronised): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()))
+    cm = K.voice_constants(vpm, SR, bm.num_harmonics)
+    colm = {name: cm[:, j] for j, name in enumerate(K.CONST_COLUMNS)}
+    fl = colm["flags"]
+    nb, na, nd = (int(((fl & f) != 0).sum())
+                  for f in (K.FLAG_BEND, K.FLAG_AMP, K.FLAG_DC))
+    check(bm.use_bend and bm.use_amp and bm.use_dmod and min(nb, na, nd) > 0,
+          f"{Vm} voices: {nb} bent, {na} with CC7/CC11 curves, {nd} with "
+          f"CC1/pressure depth curves; K={idx_m.shape[1]} rows of {nch_m} "
+          f"chunks; curve widths S={vpm.bend_start.shape[1]}, "
+          f"KA={vpm.acurve_start.shape[1]}, KD={vpm.dcurve_start.shape[1]}")
+    lay_m = K.BankLayout.ungrouped(Vm, bm.num_harmonics, bm.use_fm)
+    want = int(K.active_voice_tiles(vpm, 0, nch_m * bm.chunk_frames,
+                                    samplerate=SR, layout=lay_m, idx=idx_m,
+                                    chunk_frames=bm.chunk_frames).sum())
+    check(tiles_m == want, f"MIDI voice-tiles evaluated {tiles_m} == "
+          f"active_voice_tiles {want}")
+    flat_m = K.render_stereo(vpm, 0, nframes=nch_m * bm.chunk_frames,
+                             samplerate=SR, layout=lay_m, **bm._flags())
+    tiles_mflat = int(K.render_stereo.voice_tiles.item())
+    check(torch.equal(flat_m, f32m) and tiles_mflat == tiles_m,
+          f"MIDI rows == flat kernel render, bit-exact; voice-tiles "
+          f"{tiles_mflat}; candidates tested: rows "
+          f"{-(-nch_m * bm.chunk_frames // T) * idx_m.shape[1]}, flat "
+          f"{-(-nch_m * bm.chunk_frames // T) * Vm}")
+    del flat_m
+    # the plain version on three windows of 4 chunks each
+    cf = bm.chunk_frames
+    ok_rows = (idx_m >= 0) & (idx_m < Vm)
+    curvy = ((fl & (K.FLAG_BEND | K.FLAG_AMP | K.FLAG_DC)) != 0)
+    per_chunk = (curvy[idx_m.clamp(0, Vm - 1).long()] & ok_rows).sum(dim=1)
+    mid = int(per_chunk.argmax())
+    windows = {"start": 0, "most curves": max(0, mid - 1) * cf,
+               "release tail": max(0, nch_m - 4) * cf}
+    midi_plain_ms = 0.0
+    for wname, w0 in windows.items():
+        wn = min(4 * cf, nch_m * cf - w0)
+        t = time.perf_counter()
+        pw = K.render_stereo_reference(vpm, w0, nframes=wn, samplerate=SR,
+                                       layout=lay_m, idx=idx_m,
+                                       chunk_frames=cf, **bm._flags())
+        torch.cuda.synchronize()
+        midi_plain_ms += (time.perf_counter() - t) * 1e3
+        render_err = max(render_err, compare(
+            f"MIDI {wname} window [{w0}, {w0 + wn}), kernel vs plain",
+            f32m[w0:w0 + wn], pw))
+    plain_frames = sum(min(4 * cf, nch_m * cf - w0) for w0 in windows.values())
+    print(f"  plain version on the windows ({plain_frames} frames): "
+          f"{midi_plain_ms:.3f} ms wall")
+
+    def midi_path():
+        M.render_midi(data, device=dev).cpu()
+
+    midi_wall = []
+    for _ in range(5):
+        t = time.perf_counter()
+        midi_path()
+        torch.cuda.synchronize()
+        midi_wall.append((time.perf_counter() - t) * 1e3)
+    print(f"  render_midi(...).cpu(), host wall clock: {spread(midi_wall)}")
+    prof_midi, busy_m, pwall_m = profiled(midi_path, 3)
+    midi_render_ms = max(pick(prof_midi, "render_kernel"), 1e-9)
+    midi_setup_ms = max(pick(prof_midi, "setup_kernel"), 1e-9)
+    print(f"  under the profiler: {pwall_m:.3f} ms wall a call, device busy "
+          f"{busy_m:.6f} ms ({100 * busy_m / pwall_m:.1f}%); render_kernel "
+          f"{midi_render_ms:.6f} ms, setup_kernel {midi_setup_ms:.6f} ms")
+    for name, ms in sorted(prof_midi.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {ms:.6f} ms  {100 * ms / busy_m:5.1f}%  {name[:90]}")
+    prof_mflat, _, _ = profiled(lambda: K.render_stereo(
+        vpm, 0, nframes=nch_m * cf, samplerate=SR, layout=lay_m,
+        **bm._flags()), 3)
+    midi_flat_ms = pick(prof_mflat, "render_kernel")
+    print(f"  render_kernel without the rows (flat, same bank): "
+          f"{midi_flat_ms:.6f} ms")
+
+    # the render bound on the MIDI song: the closed forms on each voice's
+    # audible frames [start, start + t4 * sr) inside the song
+    t4m = colm["t4"].view(torch.float32).double()
+    startm = vpm.start.long()
+    endm = torch.clamp(startm + torch.ceil(t4m * SR).long(), max=total_m)
+    audible = torch.clamp(endm - torch.clamp(startm, min=0), min=0)
+    wid = vpm.wave.long()
+    per = torch.full_like(audible, OPS_COMMON)
+    for w_, o_ in OPS_WAVE.items():
+        per += (wid == w_) * o_ * (bm.num_harmonics if w_ == 8 else 1)
+    per += ((fl & K.FLAG_FM_ON) != 0).long() * OPS_FM
+    per += ((fl & K.FLAG_BEND) != 0).long() * OPS_BEND
+    per += ((fl & K.FLAG_AMP) != 0).long() * OPS_AMP
+    per += ((fl & K.FLAG_DC) != 0).long() * OPS_DMOD
+    ops_m = int((audible * per).sum())
+    curve_bytes = sum(getattr(vpm, f).numel() * getattr(vpm, f).element_size()
+                      for f in K.CURVE_COLUMNS)
+    bytes_m = (total_m * 8 + cm.numel() * 4 + curve_bytes
+               + idx_m.numel() * 4)
+    midi_bound = max(bytes_m / HBM_BYTES_S, ops_m / F32_OPS_S) * 1e3
+    midi_bound_by = ("operations" if ops_m / F32_OPS_S > bytes_m / HBM_BYTES_S
+                     else "bytes")
+    print(f"  MIDI render bound: {ops_m:.4g} ops and {bytes_m} B -> "
+          f"{midi_bound:.6f} ms ({midi_bound_by}); kernel at "
+          f"{100 * midi_bound / midi_render_ms:.1f}% of it")
+    midi = {"midi_launches": midi_launches,
+            "midi_setup_ms": midi_setup_ms, "midi_render_ms": midi_render_ms,
+            "midi_render_flat_ms": midi_flat_ms,
+            "midi_voice_tiles": tiles_m, "midi_bound_ms": midi_bound,
+            "midi_bound_by": midi_bound_by,
+            "midi_plain_window_ms": midi_plain_ms,
+            "midi_plain_window_frames": plain_frames,
+            "midi_wall_ms": statistics.median(midi_wall),
+            "midi_steps_ms": steps,
+            "sparse_workload_render_ms": sparse_kernel_ms,
+            "sparse_workload_flat_render_ms": flat_kernel_ms}
+
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [
         {"name": "voicebank_setup", "route": "cuda", "source": src,
@@ -585,7 +881,9 @@ def main():
          "ms": setup_ms, "plain_ms": plain_setup_ms, "bound_ms": setup_bound,
          "bound_by": ("operations" if setup_ops / F32_OPS_S
                       > setup_bytes / HBM_BYTES_S else "bytes"),
-         "library_ms": None},
+         "library_ms": None,
+         "midi_launches": midi_launches["voicebank_setup"],
+         "midi_ms": midi_setup_ms},
         {"name": "voicebank_render", "route": "cuda", "source": src,
          "replaces": "synthesizer_tpu/ops/kernels.py:58",
          "launches": launches["voicebank_render"], "max_abs_err": render_err,
@@ -595,7 +893,9 @@ def main():
          "library_ms": None, "voice_tiles": tiles5,
          "render_song_ms": statistics.median(song_ms),
          "render_chunk_ms": statistics.median(chunk_ms),
-         "main_path_ms": statistics.median(wall)}]}))
+         "main_path_ms": statistics.median(wall),
+         **{k: v for k, v in midi.items() if k != "midi_launches"},
+         "midi_launches": midi_launches["voicebank_render"]}]}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

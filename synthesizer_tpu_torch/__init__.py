@@ -5,10 +5,13 @@ The JAX package stays the reference; this package mirrors its layout
 the one it is held against.  It imports ``torch`` and numpy and never
 ``jax`` or ``synthesizer_tpu``.
 
-Ported so far: the voice-bank song mixdown (``models.voicebank``), its
+Ported so far: the voice-bank song mixdown (``models.voicebank``) with
+pitch, amplitude and FM-depth curves and the sparse bucketed render; its
 fused render as two hand-written Hopper kernels, a per-voice setup and a
-render that skips silent voice-tiles (``ops.kernels`` and
-``csrc/voicebank_render.cu``), the turn-unit trig helpers, the DDS host
-helpers and WAV output.  Its entry points run on the card unless the
-caller passes ``device="cpu"``.
+render that skips silent voice-tiles and takes the curves and the sparse
+rows (``ops.kernels`` and ``csrc/voicebank_render.cu``); the MIDI path
+(``midi``: SMF parse and write, GM mapping, ``render_midi``); the
+turn-unit trig helpers, the DDS host helpers, ``params``, the
+``sequencer.SynthDef`` and WAV output.  Its entry points run on the card
+unless the caller passes ``device="cpu"``.
 """

@@ -1,9 +1,11 @@
-"""Config 5: the 64-voice song the bank is measured on, and an entry point
-that renders it on the GPU to a WAV file.
+"""The workloads the port is measured on, and an entry point that renders
+config 5 on the GPU to a WAV file.
 
 ``build_song`` is the twin of ``bench.build_song`` and ``demo_voices`` the
 twin of ``__graft_entry__._demo_voices`` (same voices, same fields), so the
-port renders exactly what the reference renders.
+port renders exactly what the reference renders.  ``sparse_voices`` is the
+sparse-render workload of ``bench.py`` (600 notes over 300 s, seed 5), and
+``gm_file`` a seeded General-MIDI file for the MIDI path.
 
     python -m synthesizer_tpu_torch out.wav
 """
@@ -14,8 +16,10 @@ import argparse
 import sys
 import time
 
+import numpy as np
 import torch
 
+from .midi import MidiNote, write_midi
 from .models.voicebank import Voice, VoiceBank, pack_voices
 from .utils.wavio import write_wav
 
@@ -72,6 +76,104 @@ def demo_voices(n: int = 64):
             seed=i,
         ))
     return voices
+
+
+def sparse_voices(nnotes: int = 600, duration: float = 300.0, seed: int = 5):
+    """The sparse-render workload of ``bench.py`` (its ``sparse_rtf``):
+    ``nnotes`` 0.4 s notes of three waveforms at random starts over
+    ``duration`` seconds, a few sounding at once."""
+    rng = np.random.default_rng(seed)
+    return [Voice(
+        wave=("sine", "sawtooth_bl", "triangle")[i % 3],
+        frequency=float(rng.uniform(80, 2000)), amplitude=0.08,
+        pan=float(rng.uniform(-1, 1)),
+        start=round(float(rng.uniform(0, duration - 1.0)), 3),
+        duration=0.4, attack=0.005, decay=0.05, sustain_level=0.7,
+        release=0.1) for i in range(nnotes)]
+
+
+def gm_events(nnotes: int, duration: float, seed: int = 0):
+    """A seeded General-MIDI song for ``write_midi``: ``nnotes`` notes on 16
+    channels (channel 10, index 9, is percussion) over ``duration``
+    seconds, with the controllers the MIDI path turns into curves.
+    Returns (notes, bends, controls, pressures, poly_pressures).
+
+    - programs from every GM family the mapping knows, pan on most
+      channels;
+    - pitch-bend sweeps on channels 0-3, channel 1 with a +-12 semitone
+      range set through RPN 0,0;
+    - CC7/CC11 fades on channels 4 and 5, CC1 vibrato swells on 6 and 7,
+      channel pressure on 8, poly pressure on 10;
+    - the sustain pedal (CC64) going down and up on channel 0."""
+    rng = np.random.default_rng(seed)
+    families = (0, 16, 24, 32, 40, 56, 80, 88)
+    programs = [families[c % 8] + int(rng.integers(0, 8)) for c in range(16)]
+    pans = [None if c % 5 == 4 else float(rng.uniform(-1, 1))
+            for c in range(16)]
+    notes = []
+    for _ in range(nnotes):
+        ch = int(rng.integers(0, 16))
+        start = round(float(rng.uniform(0.0, duration - 2.0)), 4)
+        if ch == 9:
+            key, dur = int(rng.integers(35, 52)), float(rng.uniform(0.05, 0.2))
+        else:
+            key = int(rng.integers(36, 90))
+            dur = float(rng.uniform(0.08, 1.2))
+        notes.append(MidiNote(start, round(dur, 4), key,
+                              int(rng.integers(20, 90)), ch, programs[ch],
+                              pan=pans[ch]))
+    notes.sort(key=lambda n: n.start)
+    step = 0.02
+
+    def ramp(t0, length):
+        return [round(t0 + k * step, 4) for k in range(int(length / step))]
+
+    def spots(count, length):
+        return sorted(float(t) for t in rng.uniform(0.0, duration - length - 1,
+                                                    count))
+
+    nsweeps = max(2, int(duration / 6))
+    bends, controls, pressures, poly = [], [], [], []
+    controls += [(0.0, 1, 101, 0), (0.0, 1, 100, 0), (0.0, 1, 6, 12),
+                 (0.0, 1, 38, 0)]
+    for ch in range(4):
+        for t0 in spots(nsweeps, 0.6):
+            ts = ramp(t0, 0.6)
+            bends += [(t, ch, int(8191 * np.sin(np.pi * k / len(ts))
+                                  * (1 if ch % 2 else -1)))
+                      for k, t in enumerate(ts)]
+            bends.append((round(ts[-1] + step, 4), ch, 0))
+    for ch, cc in ((4, 7), (5, 11)):
+        for t0 in spots(nsweeps, 1.0):
+            ts = ramp(t0, 1.0)
+            controls += [(t, ch, cc, int(127 - 100 * k / len(ts)))
+                         for k, t in enumerate(ts)]
+            controls.append((round(ts[-1] + step, 4), ch, cc, 127))
+    for ch in (6, 7):
+        for t0 in spots(nsweeps, 1.0):
+            ts = ramp(t0, 1.0)
+            controls += [(t, ch, 1, int(127 * k / len(ts)))
+                         for k, t in enumerate(ts)]
+            controls.append((round(ts[-1] + step, 4), ch, 1, 0))
+    for t0 in spots(nsweeps, 0.8):
+        ts = ramp(t0, 0.8)
+        pressures += [(t, 8, int(120 * k / len(ts))) for k, t in enumerate(ts)]
+        pressures.append((round(ts[-1] + step, 4), 8, 0))
+    for n in [n for n in notes if n.channel == 10][:nsweeps]:
+        poly += [(round(n.start + 0.05 * k, 4), 10, n.note, 30 * k)
+                 for k in range(1, 4)]
+    for t0 in spots(nsweeps, 2.0):
+        controls += [(round(t0, 4), 0, 64, 127), (round(t0 + 2.0, 4), 0, 64, 0)]
+    return notes, bends, controls, pressures, poly
+
+
+def gm_file(nnotes: int = 3000, duration: float = 180.0,
+            seed: int = 0) -> bytes:
+    """``gm_events`` written as a format-0 SMF by the port's
+    ``write_midi``."""
+    notes, bends, controls, pressures, poly = gm_events(nnotes, duration, seed)
+    return write_midi(notes, bends=bends, controls=controls,
+                      pressures=pressures, poly_pressures=poly)
 
 
 def song_bank(nvoices: int = NVOICES, duration: float = DURATION,

@@ -12,7 +12,12 @@
 //   * pluck decay from g = cosf(pi*k*ratio);
 //   * the FM offset cast saturates (__float2int_rz), as XLA's f32->i32 does.
 // Wavetable voices (wave 11) gather from their 256-sample row inside the
-// kernel: the TPU kernel had to leave them to an XLA side path.
+// kernel: the TPU kernel had to leave them to an XLA side path.  So do the
+// pitch, amplitude and FM-depth curves (MIDI bend, CC7/CC11, CC1 and
+// pressure), which the Pallas engine rejects: render_block's use_bend,
+// use_amp and use_dmod branches, segment by segment.  And the sparse rows
+// of VoiceBank.sparse_plan: with idx [nchunks, K], a tile takes its
+// candidate voices from its chunk's row instead of walking all V slots.
 //
 // What bounds it on this card: operations on the audible voice-frames.  A
 // voice-frame costs about 20-200 f32 and integer operations (8 turn-unit
@@ -54,6 +59,27 @@
 //     fits the fixed shared memory.
 //   * The block adds the voice-tiles it evaluated to one int32 (integer
 //     atomics: the total does not depend on the order).
+//   * Curves: a voice's active segment at frame m is the count of its
+//     segment starts <= m, minus one, clamped to [0, S-1], as the plain
+//     version counts it.  The starts of a packed row are non-decreasing,
+//     so a binary search over the row gives that count; the setup kernel
+//     checks each row and a row that is not sorted is counted linearly.
+//     Bend and depth curves move only the phase, which stays an integer,
+//     so a culled voice's waveform stays finite.  An amplitude curve
+//     scales the envelope: the setup kernel keeps such a voice cull-safe
+//     only if every gain its segments can reach (the ends of each ramp,
+//     g0 + f32(L) * dg) lies within +-2^32.  The curve code lives only
+//     in render_kernel<true>, launched for banks with curves: a
+//     curve-free bank runs render_kernel<false>, the code without them
+//     (the curves' registers would otherwise slow it), and curve-free
+//     voices in a curve bank skip every curve branch (block-uniform
+//     flags).
+//   * Sparse rows: a tile's chunk row lists the voices that may sound in
+//     the chunk in ascending packed order, sentinel slots (== V) skipped;
+//     the exact tile test then applies as before.  Rows the plan dropped
+//     would add exact zeros to the flat sum, so the sparse render equals
+//     the flat one bit for bit.  A tile never straddles two chunks: the
+//     chunk is a multiple of kTile frames.
 // The sum stays serial in packed voice order, as the plain version sums,
 // so the output is bit-identical to it, deterministic and chunk-invariant
 // (a frame depends only on its absolute index).  That pinned order is why
@@ -104,6 +130,14 @@ enum Const {
 constexpr uint32_t kSafe = 1u;        // cull-safe for every waveform but pluck
 constexpr uint32_t kPluckSafe = 2u;   // cull-safe as a pluck voice
 constexpr uint32_t kFmOn = 4u;        // fm_depth != 0 and fm_inc != 0
+constexpr uint32_t kBend = 8u;        // pitch curve: bend_start[0] == 0
+constexpr uint32_t kAmpCurve = 16u;   // amplitude curve: acurve_start[0] == 0
+constexpr uint32_t kDc = 32u;         // depth curve: dcurve_start[0] == 0, fm_inc != 0
+constexpr uint32_t kBendSorted = 64u;   // the row's starts are non-decreasing
+constexpr uint32_t kAmpSorted = 128u;
+constexpr uint32_t kDcSorted = 256u;
+// bits of the render's `modes` argument (the bank's static flags)
+constexpr int kGlide = 1, kUseBend = 2, kUseAmp = 4, kUseDmod = 8;
 constexpr float kCullMax = 4294967296.0f;   // 2^32
 
 // (wave id or -1 for a mixed group, has_fm, first voice, voice count) and
@@ -121,6 +155,25 @@ struct Groups {
 struct Columns {
   const void* p[kCols];
 };
+
+// The curve segment arrays, [V, S], [V, KA] and [V, KD] row-major, in the
+// order of CURVE_COLUMNS in ops/kernels.py.  u32 fields are int64 tensors
+// holding the u32 value.
+struct Curves {
+  const int32_t* bend_start;
+  const int64_t* bend_phase;
+  const int64_t* bend_inc;
+  const int64_t* bend_d;
+  const int32_t* acurve_start;
+  const float* acurve_g0;
+  const float* acurve_dg;
+  const int32_t* dcurve_start;
+  const float* dcurve_c;
+  const float* dcurve_a;
+  const float* dcurve_b;
+  int S, KA, KD;
+};
+constexpr int kCurveCols = 11;
 
 // f32 constants, bit-exact to the numpy values the reference uses
 constexpr float kTwoNeg32 = 0x1p-32f;
@@ -201,6 +254,31 @@ __device__ __forceinline__ bool within(float x) {
   return fabsf(x) <= kCullMax;                 // false for NaN and +-inf
 }
 
+// The active segment of a curve row at note-relative frame m: the count of
+// starts <= m, minus one, clamped to [0, S-1].  A sorted row is searched
+// (upper bound), any other row counted.
+__device__ __forceinline__ int seg_index(const int32_t* st, int S, int m,
+                                         bool sorted) {
+  int cnt = 0;
+  if (sorted) {
+    int hi = S;
+    while (cnt < hi) {
+      const int mid = (cnt + hi) >> 1;
+      if (st[mid] <= m) cnt = mid + 1; else hi = mid;
+    }
+  } else {
+    for (int s = 0; s < S; ++s) cnt += st[s] <= m ? 1 : 0;
+  }
+  return min(max(cnt - 1, 0), S - 1);
+}
+
+// warp-wide: are the row's starts non-decreasing?
+__device__ __forceinline__ bool row_sorted(const int32_t* st, int S, int lane) {
+  bool ok = true;
+  for (int s = lane; s + 1 < S; s += 32) ok = ok & (st[s] <= st[s + 1]);
+  return __all_sync(0xffffffffu, ok);
+}
+
 // ---------------------------------------------------------------------------
 // Setup: one warp per voice -> one [C] row of frame-independent values.
 // The lanes share the voice's harmonic and table values (coalesced) for
@@ -211,9 +289,9 @@ __device__ __forceinline__ bool within(float x) {
 constexpr int kSetupWarps = 4;                // voices per setup block
 
 __global__ void __launch_bounds__(32 * kSetupWarps)
-setup_kernel(Columns cols, const float* __restrict__ harm, int harm_stride,
-             const float* __restrict__ table, int V, int H, float sr_r,
-             uint32_t* __restrict__ consts, int C,
+setup_kernel(Columns cols, Curves cv, const float* __restrict__ harm,
+             int harm_stride, const float* __restrict__ table, int V, int H,
+             float sr_r, uint32_t* __restrict__ consts, int C,
              int* __restrict__ voice_tiles) {
   if (blockIdx.x == 0 && threadIdx.x == 0) *voice_tiles = 0;
   const int lane = threadIdx.x & 31;
@@ -233,6 +311,25 @@ setup_kernel(Columns cols, const float* __restrict__ harm, int harm_stride,
   const float* trow = table + (size_t)v * kTableLen;
   for (int k = lane; k < kTableLen; k += 32) rows_ok = rows_ok & within(trow[k]);
   rows_ok = __all_sync(0xffffffffu, rows_ok);
+
+  // curve rows: sorted starts, and every gain an amplitude curve can reach
+  // (each ramp's ends g0 and g0 + f32(L) * dg, L the distance to the next
+  // start, or to INT32_MAX for the last segment) within +-2^32
+  const int32_t* bst = cv.bend_start + (size_t)v * cv.S;
+  const int32_t* ast = cv.acurve_start + (size_t)v * cv.KA;
+  const int32_t* dst = cv.dcurve_start + (size_t)v * cv.KD;
+  const bool bend_sorted = row_sorted(bst, cv.S, lane);
+  const bool amp_sorted = row_sorted(ast, cv.KA, lane);
+  const bool dc_sorted = row_sorted(dst, cv.KD, lane);
+  bool gains_ok = true;
+  for (int k = lane; k < cv.KA; k += 32) {
+    const long long next = k + 1 < cv.KA ? ast[k + 1] : 2147483647LL;
+    const float g0 = cv.acurve_g0[(size_t)v * cv.KA + k];
+    const float dg = cv.acurve_dg[(size_t)v * cv.KA + k];
+    const float g1 = g0 + (float)(next - ast[k]) * dg;
+    gains_ok = gains_ok & within(g0) & within(g1);
+  }
+  gains_ok = __all_sync(0xffffffffu, gains_ok);
 
   // pluck: partial k sounds iff k*inc < 2^31, which holds for k <= ka;
   // the denominator is summed serially in k order by every lane
@@ -311,24 +408,30 @@ setup_kernel(Columns cols, const float* __restrict__ harm, int harm_stride,
   put(K_FM_R, f32(FM_R));
   put(K_FM_SCALE, __uint2float_rn(inc) * depth);
 
-  const bool safe = rows_ok && within(amp) && within(bias) && within(pan);
+  const bool has_amp = ast[0] == 0;
+  const bool safe = rows_ok && within(amp) && within(bias) && within(pan)
+                    && (!has_amp || (amp_sorted && gains_ok));
   const bool pluck_safe = damping >= 0.0f && damping <= kCullMax;
   c[K_FLAGS] = (safe ? kSafe : 0u) | (pluck_safe ? kPluckSafe : 0u)
-             | (depth != 0.0f && u32(FM_INC) != 0u ? kFmOn : 0u);
+             | (depth != 0.0f && u32(FM_INC) != 0u ? kFmOn : 0u)
+             | (bst[0] == 0 ? kBend : 0u) | (has_amp ? kAmpCurve : 0u)
+             | (dst[0] == 0 && u32(FM_INC) != 0u ? kDc : 0u)
+             | (bend_sorted ? kBendSorted : 0u)
+             | (amp_sorted ? kAmpSorted : 0u) | (dc_sorted ? kDcSorted : 0u);
 }
 
 // ---------------------------------------------------------------------------
 // Render: one voice's contribution to the thread's kFrames frames.
 // ---------------------------------------------------------------------------
 
-template <int WID>
+template <int WID, bool CURVES>
 __device__ __forceinline__ void add_voice(
     const uint32_t* c, const uint32_t* __restrict__ partials,
     const float* __restrict__ harm, const float* __restrict__ table, int H,
-    bool fm, bool glide, const int (&n)[kFrames], float sr_r,
-    float (&acc_l)[kFrames], float (&acc_r)[kFrames]) {
+    bool fm, int modes, const Curves& cv, size_t v, const int (&n)[kFrames],
+    float sr_r, float (&acc_l)[kFrames], float (&acc_r)[kFrames]) {
   const uint32_t inc = c[K_INC], phase0 = c[K_PHASE0];
-  const uint32_t start = c[K_START];
+  const uint32_t start = c[K_START], flags = c[K_FLAGS];
   uint32_t p[kFrames], inst[kFrames];
   int m[kFrames];                                   // note-relative frame
 #pragma unroll
@@ -337,12 +440,29 @@ __device__ __forceinline__ void add_voice(
     p[f] = phase0 + (uint32_t)n[f] * inc;
     inst[f] = inc;
   }
+  const bool chirp = c[K_WAVE] != 12u;              // pluck keeps one pitch
+  if (CURVES && (modes & kUseBend) && (flags & kBend)
+      && (chirp || WID == 9 || WID == 10)) {
+    // pitch curve: the glide chirp per segment, anchored at the segment's
+    // exact phase (reference _phases and _inst_inc)
+    const int32_t* st = cv.bend_start + v * cv.S;
+    const bool sorted = (flags & kBendSorted) != 0;
+#pragma unroll
+    for (int f = 0; f < kFrames; ++f) {
+      const int j = seg_index(st, cv.S, m[f], sorted);
+      const uint32_t ph = (uint32_t)cv.bend_phase[v * cv.S + j];
+      const uint32_t bi = (uint32_t)cv.bend_inc[v * cv.S + j];
+      const uint32_t bd = (uint32_t)cv.bend_d[v * cv.S + j];
+      const uint32_t mrel = (uint32_t)m[f] - (uint32_t)st[j];
+      if (chirp) p[f] = phase0 + ph + mrel * bi + bd * tri_u32(mrel);
+      inst[f] = bi + (uint32_t)max((int)mrel, 0) * bd;
+    }
+  }
   const int G = (int)c[K_GLIDE_FRAMES];
-  if (glide && G > 0) {
+  if ((modes & kGlide) && G > 0) {
     // linear-in-increment integer chirp, closed form (reference _phases)
     const uint32_t inc0 = c[K_GLIDE_INC0], d = c[K_GLIDE_D];
     const uint32_t Gu = (uint32_t)G, phase_g = c[K_PHASE_G], inc_g = c[K_INC_G];
-    const bool chirp = c[K_WAVE] != 12u;            // pluck keeps one pitch
 #pragma unroll
     for (int f = 0; f < kFrames; ++f) {
       const uint32_t mu = (uint32_t)m[f];
@@ -354,19 +474,61 @@ __device__ __forceinline__ void add_voice(
       inst[f] = inc0 + (uint32_t)min(max(m[f], 0), G) * d;
     }
   }
-  if (fm && (c[K_FLAGS] & kFmOn)) {
-    // exact discrete FM integral: delta = inc * depth * S_n
+  const bool dc = CURVES && (modes & kUseDmod) && (flags & kDc);
+  if (dc || ((fm || (CURVES && (modes & kUseDmod))) && (flags & kFmOn))) {
+    // exact discrete FM integral: delta = inc * depth * S_n, or under a
+    // depth curve the reference's _dmod_delta (eight trig evaluations)
     const uint32_t finc = c[K_FM_INC], fp0 = c[K_FM_PHASE0];
+    const uint32_t half = finc >> 1;
     const float c0 = f32_of(c, K_FM_C0), rr = f32_of(c, K_FM_R);
     const float scale = f32_of(c, K_FM_SCALE);
+    const int32_t* st = cv.dcurve_start + v * cv.KD;
+    const bool sorted = (flags & kDcSorted) != 0;
 #pragma unroll
     for (int f = 0; f < kFrames; ++f) {
       const uint32_t fp = fp0 + (uint32_t)n[f] * finc;
-      const float xh = phase_x(fp - (finc >> 1));
-      const float s_n = (c0 - cos_turns(xh)) * rr;
-      const float q = (scale * s_n) * kTwoNeg32;
+      float delta;
+      if (dc) {
+        const int j = seg_index(st, cv.KD, m[f], sorted);
+        const float cj = cv.dcurve_c[v * cv.KD + j];
+        const float a = cv.dcurve_a[v * cv.KD + j];
+        const float b = cv.dcurve_b[v * cv.KD + j];
+        const uint32_t ph_j = fp0 + (start + (uint32_t)st[j]) * finc;
+        const float r2 = rr * rr;
+        const float s1 = (cos_turns(phase_x(ph_j - half))
+                          - cos_turns(phase_x(fp - half))) * rr;
+        int K = (int)((uint32_t)m[f] - (uint32_t)st[j] - 1u);
+        K = K > 0 ? K : 0;                          // L-1, clamped
+        const uint32_t Ku = (uint32_t)K;
+        const float xK = phase_x(Ku * finc);
+        const float xKh = phase_x(Ku * finc + half);
+        const float Kf = (float)K;
+        const float A = sin_turns(xK) * r2 - Kf * cos_turns(xKh) * rr;
+        const float B = Kf * sin_turns(xKh) * rr - (1.0f - cos_turns(xK)) * r2;
+        const float xj = phase_x(ph_j);
+        const float s2 = sin_turns(xj) * B + cos_turns(xj) * A;
+        delta = __uint2float_rn(inc) * (cj + a * s1 + b * s2);
+      } else {
+        const float s_n = (c0 - cos_turns(phase_x(fp - half))) * rr;
+        delta = scale * s_n;
+      }
+      const float q = delta * kTwoNeg32;
       const float frac = q - rintf(q);
       p[f] += (uint32_t)__float2int_rz(frac * kTwo32);
+    }
+  }
+  // amplitude curve: gain g0 + f32(max(m - start_j, 0)) * dg
+  float gain[kFrames];
+  const bool amp_curve = CURVES && (modes & kUseAmp) && (flags & kAmpCurve);
+  if (amp_curve) {
+    const int32_t* st = cv.acurve_start + v * cv.KA;
+    const bool sorted = (flags & kAmpSorted) != 0;
+#pragma unroll
+    for (int f = 0; f < kFrames; ++f) {
+      const int j = seg_index(st, cv.KA, m[f], sorted);
+      const int k = (int)((uint32_t)m[f] - (uint32_t)st[j]);
+      gain[f] = cv.acurve_g0[v * cv.KA + j]
+              + (float)(k > 0 ? k : 0) * cv.acurve_dg[v * cv.KA + j];
     }
   }
 
@@ -464,17 +626,20 @@ __device__ __forceinline__ void add_voice(
             : 0.0f;
     if (t < 0.0f) g = 0.0f;
     g = fminf(fmaxf(g, 0.0f), 1.0f);
+    if (amp_curve) g = g * gain[f];
     const float sig = (bias + amp * w[f]) * g;
     acc_l[f] = acc_l[f] + sig * lg;
     acc_r[f] = acc_r[f] + sig * rg;
   }
 }
 
+template <bool CURVES>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(const uint32_t* __restrict__ consts, int C,
               const float* __restrict__ harm, int harm_stride,
-              const float* __restrict__ table, Groups groups, int H, int n0,
-              int nframes, float sr_r, int use_glide,
+              const float* __restrict__ table, Groups groups, Curves cv,
+              int H, int n0, int nframes, float sr_r, int modes,
+              const int32_t* __restrict__ idx, int K, int chunk_frames, int V,
               float2* __restrict__ out, int* __restrict__ voice_tiles) {
   __shared__ uint32_t s_const[kThreads][kBase];
   __shared__ int s_voice[kThreads];
@@ -484,6 +649,10 @@ render_kernel(const uint32_t* __restrict__ consts, int C,
   const int i0 = blockIdx.x * kTile;
   const int ilast = min(i0 + kTile, nframes) - 1;
   const uint32_t n_first = (uint32_t)(n0 + i0), n_last = (uint32_t)(n0 + ilast);
+  // sparse rows: the tile's chunk row holds its candidate voices
+  const int32_t* row = idx ? idx + (size_t)((n0 + i0) / chunk_frames) * K
+                           : nullptr;
+  const int nslots = idx ? K : groups.nslots;
   int n[kFrames];
   float acc_l[kFrames], acc_r[kFrames];
 #pragma unroll
@@ -493,27 +662,33 @@ render_kernel(const uint32_t* __restrict__ consts, int C,
     acc_r[f] = 0.0f;
   }
   int evaluated = 0;
-  for (int base = 0; base < groups.nslots; base += kThreads) {
+  for (int base = 0; base < nslots; base += kThreads) {
     // which voices of this chunk may sound in the tile (exact, see above)
     const int s = base + tid;
     bool active = false;
     int v = 0, code = 0;
-    if (s < groups.nslots) {
+    if (s < nslots) {
       int g = 0;
-      while (g + 1 < groups.n && s >= groups.slot0[g + 1]) ++g;
-      v = groups.start[g] + (s - groups.slot0[g]);
-      const uint32_t* c = consts + (size_t)v * C;
-      const int wid = groups.wid[g] < 0 ? (int)c[K_WAVE] : groups.wid[g];
-      code = wid | (groups.has_fm[g] ? 0x100 : 0);
-      const uint32_t flags = c[K_FLAGS];
-      const bool safe = (flags & kSafe)
-                        && (wid != 12 || (flags & kPluckSafe));
-      const int m_first = (int)(n_first - c[K_START]);
-      const int m_last = (int)(n_last - c[K_START]);
-      const bool silent = safe && m_first <= m_last
-          && ((float)m_last * sr_r < 0.0f
-              || (float)m_first * sr_r >= f32_of(c, K_T4));
-      active = !silent;
+      if (row) {
+        v = row[s];                     // one mixed group; V = sentinel
+      } else {
+        while (g + 1 < groups.n && s >= groups.slot0[g + 1]) ++g;
+        v = groups.start[g] + (s - groups.slot0[g]);
+      }
+      if (v >= 0 && v < V) {
+        const uint32_t* c = consts + (size_t)v * C;
+        const int wid = groups.wid[g] < 0 ? (int)c[K_WAVE] : groups.wid[g];
+        code = wid | (groups.has_fm[g] ? 0x100 : 0);
+        const uint32_t flags = c[K_FLAGS];
+        const bool safe = (flags & kSafe)
+                          && (wid != 12 || (flags & kPluckSafe));
+        const int m_first = (int)(n_first - c[K_START]);
+        const int m_last = (int)(n_last - c[K_START]);
+        const bool silent = safe && m_first <= m_last
+            && ((float)m_last * sr_r < 0.0f
+                || (float)m_first * sr_r >= f32_of(c, K_T4));
+        active = !silent;
+      }
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, active);
     if (lane == 0) s_count[warp] = __popc(ballot);
@@ -540,9 +715,9 @@ render_kernel(const uint32_t* __restrict__ consts, int C,
       const uint32_t* partials = consts + (size_t)vj * C + kBase;
       const float* hrow = harm + (size_t)vj * harm_stride;
       const float* trow = table + (size_t)vj * kTableLen;
-      const bool fm = (s_wid[j] & 0x100) != 0, glide = use_glide != 0;
-#define VOICE(W) add_voice<W>(c, partials, hrow, trow, H, fm, glide, n, \
-                              sr_r, acc_l, acc_r)
+      const bool fm = (s_wid[j] & 0x100) != 0;
+#define VOICE(W) add_voice<W, CURVES>(c, partials, hrow, trow, H, fm, modes, cv, \
+                              (size_t)vj, n, sr_r, acc_l, acc_r)
       switch (s_wid[j] & 0xff) {
         case 0: VOICE(0); break;
         case 1: VOICE(1); break;
@@ -572,6 +747,25 @@ render_kernel(const uint32_t* __restrict__ consts, int C,
   if (tid == 0 && evaluated > 0) atomicAdd(voice_tiles, evaluated);
 }
 
+Curves make_curves(const void* const* p, const int* dims) {
+  Curves cv;
+  cv.bend_start = static_cast<const int32_t*>(p[0]);
+  cv.bend_phase = static_cast<const int64_t*>(p[1]);
+  cv.bend_inc = static_cast<const int64_t*>(p[2]);
+  cv.bend_d = static_cast<const int64_t*>(p[3]);
+  cv.acurve_start = static_cast<const int32_t*>(p[4]);
+  cv.acurve_g0 = static_cast<const float*>(p[5]);
+  cv.acurve_dg = static_cast<const float*>(p[6]);
+  cv.dcurve_start = static_cast<const int32_t*>(p[7]);
+  cv.dcurve_c = static_cast<const float*>(p[8]);
+  cv.dcurve_a = static_cast<const float*>(p[9]);
+  cv.dcurve_b = static_cast<const float*>(p[10]);
+  cv.S = dims[0];
+  cv.KA = dims[1];
+  cv.KD = dims[2];
+  return cv;
+}
+
 }  // namespace
 
 // The layout the wrapper must agree with: words before the pluck partials,
@@ -583,32 +777,47 @@ extern "C" void voicebank_info(int* base_words, int* tile) {
 
 // Launch the setup kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // `cols` is a host array of kCols device pointers (the VoiceParams columns
-// in enum Col order); `consts` is [V, C] with C = kBase + 3 * max(H, 1);
-// the kernel also sets *voice_tiles to 0.
-extern "C" int voicebank_setup(const void* const* cols, const float* harm,
-                               int harm_stride, const float* table, int V,
-                               int H, float sr_r, uint32_t* consts, int C,
-                               int* voice_tiles, void* stream) {
-  if (V <= 0 || H < 0 || C != kBase + 3 * (H > 1 ? H : 1))
+// in enum Col order), `curves` one of kCurveCols (the curve arrays in
+// struct Curves order) and `dims` their widths (S, KA, KD); `consts` is
+// [V, C] with C = kBase + 3 * max(H, 1); the kernel also sets *voice_tiles
+// to 0.
+extern "C" int voicebank_setup(const void* const* cols,
+                               const void* const* curves, const int* dims,
+                               const float* harm, int harm_stride,
+                               const float* table, int V, int H, float sr_r,
+                               uint32_t* consts, int C, int* voice_tiles,
+                               void* stream) {
+  if (V <= 0 || H < 0 || C != kBase + 3 * (H > 1 ? H : 1)
+      || dims[0] < 1 || dims[1] < 1 || dims[2] < 1)
     return (int)cudaErrorInvalidValue;
   Columns cs;
   for (int k = 0; k < kCols; ++k) cs.p[k] = cols[k];
   setup_kernel<<<(V + kSetupWarps - 1) / kSetupWarps, 32 * kSetupWarps, 0,
-                 (cudaStream_t)stream>>>(cs, harm, harm_stride, table, V, H,
-                                         sr_r, consts, C, voice_tiles);
+                 (cudaStream_t)stream>>>(cs, make_curves(curves, dims), harm,
+                                         harm_stride, table, V, H, sr_r,
+                                         consts, C, voice_tiles);
   return (int)cudaGetLastError();
 }
 
 // Launch the render kernel on `stream`; returns cudaGetLastError() after
 // the launch (0 = ok).  `groups` is a host array of ngroups (wid, has_fm,
-// start, count) rows; `consts` is the setup kernel's output.
+// start, count) rows; `consts` is the setup kernel's output; `modes` holds
+// the kGlide/kUseBend/kUseAmp/kUseDmod bits.  With `idx` (device [nchunks,
+// K] int32 rows of voice indices, V = an empty slot; one group;
+// chunk_frames a multiple of kTile and n0 one of chunk_frames; the wrapper
+// checks that the rows cover the window) the tile at absolute frame n
+// takes its voices from row n / chunk_frames.
 extern "C" int voicebank_render(const uint32_t* consts, int C,
                                 const float* harm, int harm_stride,
                                 const float* table, const int32_t* groups,
-                                int ngroups, int H, int n0, int nframes,
-                                float sr_r, int use_glide, float* out,
+                                int ngroups, const void* const* curves,
+                                const int* dims, int H, int n0, int nframes,
+                                float sr_r, int modes, const int32_t* idx,
+                                int K, int chunk_frames, int V, float* out,
                                 int* voice_tiles, void* stream) {
-  if (ngroups < 1 || ngroups > kMaxGroups || nframes <= 0)
+  if (ngroups < 1 || ngroups > kMaxGroups || nframes <= 0
+      || (idx && (ngroups != 1 || K < 1 || chunk_frames <= 0
+                  || chunk_frames % kTile != 0 || n0 % chunk_frames != 0)))
     return (int)cudaErrorInvalidValue;
   Groups gs = {};
   gs.n = ngroups;
@@ -621,8 +830,11 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
     gs.nslots += gs.count[g];
   }
   const int blocks = (nframes + kTile - 1) / kTile;
-  render_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      consts, C, harm, harm_stride, table, gs, H, n0, nframes, sr_r,
-      use_glide, reinterpret_cast<float2*>(out), voice_tiles);
+  auto kernel = modes & (kUseBend | kUseAmp | kUseDmod) ? render_kernel<true>
+                                                        : render_kernel<false>;
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      consts, C, harm, harm_stride, table, gs, make_curves(curves, dims), H,
+      n0, nframes, sr_r, modes, idx, K, chunk_frames, V,
+      reinterpret_cast<float2*>(out), voice_tiles);
   return (int)cudaGetLastError();
 }

@@ -29,11 +29,12 @@ two such values can overflow int64; only its low 32 bits are kept, and
 those survive the two's-complement wrap.  int64 -> f32 rounds like the
 reference's u32 -> f32.
 
-Not ported yet (the next slice): pitch, amplitude and FM-depth curves
-(``use_bend``/``use_amp``/``use_dmod``), segment buses (``seg``), the
-sparse bucketed render and the grouped-bus renders.  They raise
-``NotImplementedError``; the host packing of the curve fields is ported,
-so packed banks stay field-for-field identical to the reference's.
+Pitch, amplitude and FM-depth curves (``use_bend``/``use_amp``/
+``use_dmod``) and the sparse bucketed render (``VoiceBank.sparse_plan``,
+``render_song_sparse``) are ported.  Not ported yet: segment buses
+(``seg``) and the grouped-bus renders, whose consumers are the sequencer's
+fx path and the server's coalesced batches; they raise
+``NotImplementedError`` until those slices.
 
 Voice waveforms: 0=sine 1=triangle 2=square 3=sawtooth 4=pulse 5=semicircle
 6=pointy 7=white_noise (sample-and-hold via ``frequency``) 8=harmonics
@@ -70,8 +71,8 @@ ALL_WAVES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 #: with wraparound, f32 — bank_table() is the documented canonicalization)
 BANK_TABLE_LEN = 256
 
-_NEXT_SLICE = ("not ported yet: pitch/amp/FM-depth curves and segment "
-               "buses come with the next slice of the PyTorch port")
+_NO_BUSES = ("not ported yet: segment buses (seg/nseg) come with the "
+             "sequencer and server slices of the PyTorch port")
 
 
 def bank_table(table) -> np.ndarray:
@@ -223,7 +224,7 @@ class Voice:
     glide_from: float = 0.0
     glide_time: float = 0.0
     # Pitch, amplitude and FM-depth curves: ((t_rel_seconds, value), ...)
-    # control points.  Packed here; rendered by the next slice.
+    # control points (MIDI bend, CC7/CC11, CC1 and pressure).
     pitch_curve: Sequence[Tuple[float, float]] = ()
     amp_curve: Sequence[Tuple[float, float]] = ()
     fm_depth_curve: Sequence[Tuple[float, float]] = ()
@@ -757,15 +758,81 @@ def _tri_u32(m):
     return (a * b) & _U32
 
 
-def _phases(vp: VoiceParams, n, use_fm: bool, use_glide: bool = False):
+def _wrap_i32(x):
+    """int64 values -> what int32 arithmetic wraps them to."""
+    return ((x + 2 ** 31) & _U32) - 2 ** 31
+
+
+def _seg_idx(starts, m):
+    """Active curve segment per (voice, frame): the count of segment starts
+    <= m, minus one, clamped to [0, S-1] (pre-note frames take segment 0,
+    whose values are envelope-masked there).  starts [v, S], m [v, N] ->
+    int64 [v, N].  Counted one segment at a time to bound memory."""
+    cnt = torch.zeros(m.shape, dtype=torch.int64, device=m.device)
+    for s in range(starts.shape[1]):
+        cnt += m >= starts[:, s:s + 1]
+    return torch.clamp(cnt - 1, 0, starts.shape[1] - 1)
+
+
+def _seg(starts, m, *fields):
+    """(segment start as int64, then each field's value) at the active
+    segment of every (voice, frame)."""
+    idx = _seg_idx(starts, m)
+    return (torch.gather(starts, 1, idx).to(torch.int64),
+            *(torch.gather(f, 1, idx) for f in fields))
+
+
+def _dmod_delta(vp: VoiceParams, n):
+    """FM phase contribution for depth-curve voices, f32 [v, N]:
+    inc * sum_{u<m} D(u) sin(2*pi*(phi_s + u*b)) with D the piecewise-
+    linear depth: the host's per-segment sum C_j plus the within-segment
+    weighted trig sums of ``compile_depth_segments``, elementwise.  Eight
+    turn-unit trig evaluations per voice-frame, in the reference's order."""
+    m = n[None, :] - vp.start[:, None]                 # note-relative
+    st, c, a, b = _seg(vp.dcurve_start, m, vp.dcurve_c, vp.dcurve_a,
+                       vp.dcurve_b)
+    inc = vp.fm_inc[:, None]
+    half = inc >> 1
+    # exact u32 LFO phases at the current frame and the segment start
+    ph_n = (vp.fm_phase0[:, None] + (n[None, :] & _U32) * inc) & _U32
+    ph_j = (vp.fm_phase0[:, None]
+            + ((vp.start[:, None] + st) & _U32) * inc) & _U32
+    r1 = vp.fm_r[:, None]
+    r2 = r1 * r1
+    s1 = (cos_turns(_phase_x((ph_j - half) & _U32))
+          - cos_turns(_phase_x((ph_n - half) & _U32))) * r1
+    K = torch.clamp_min(_wrap_i32(m - st - 1), 0)      # L-1, clamped
+    xK = _phase_x((K * inc) & _U32)                    # K*b mod 1 (exact)
+    xKh = _phase_x((K * inc + half) & _U32)            # (K+1/2)*b mod 1
+    Kf = K.to(torch.float32)
+    A = sin_turns(xK) * r2 - Kf * cos_turns(xKh) * r1
+    B = Kf * sin_turns(xKh) * r1 - (1.0 - cos_turns(xK)) * r2
+    xj = _phase_x(ph_j)
+    s2 = sin_turns(xj) * B + cos_turns(xj) * A
+    return vp.base_inc.to(torch.float32)[:, None] * (c + a * s1 + b * s2)
+
+
+def _phases(vp: VoiceParams, n, use_fm: bool, use_glide: bool = False,
+            use_bend: bool = False, use_dmod: bool = False):
     """Closed-form DDS phases (u32 [v, N]) for absolute frames n [N].
 
     Portamento (use_glide): for note-relative frame m, inc_m = inc0 + m*d,
     so phase_m = phase0 + m*inc0 + d*m(m-1)/2 (mod 2^32) during the glide
-    and phase_G + (m-G)*incG after it.  Pluck (wave 12) is excluded: its
-    spectral decay rates are tied to ONE pitch."""
+    and phase_G + (m-G)*incG after it.  Pitch curves (use_bend): the same
+    chirp per segment, anchored at the segment's host-computed phase.
+    Pluck (wave 12) is excluded from both: its spectral decay rates are
+    tied to ONE pitch.  FM-depth curves (use_dmod) replace the constant FM
+    integral of their voices."""
     nu = n[None, :] & _U32
     p = (vp.phase0[:, None] + nu * vp.base_inc[:, None]) & _U32
+    if use_bend:
+        m = n[None, :] - vp.start[:, None]
+        st, ph, bi, bd = _seg(vp.bend_start, m, vp.bend_phase, vp.bend_inc,
+                              vp.bend_d)
+        mrel = (m - st) & _U32
+        pb = (vp.phase0[:, None] + ph + mrel * bi + bd * _tri_u32(mrel)) & _U32
+        has_bend = ((vp.bend_start[:, 0] == 0) & (vp.wave != 12))[:, None]
+        p = torch.where(has_bend, pb, p)
     if use_glide:
         m = n[None, :] - vp.start[:, None]               # note-relative
         mu = m & _U32
@@ -779,7 +846,7 @@ def _phases(vp: VoiceParams, n, use_fm: bool, use_glide: bool = False):
         after = (phase_g + ((mu - Gu) & _U32) * inc_g) & _U32
         pg = (vp.phase0[:, None] + torch.where(m < G, during, after)) & _U32
         p = torch.where((G > 0) & (vp.wave[:, None] != 12), pg, p)
-    if not use_fm:
+    if not (use_fm or use_dmod):
         return p
     # exact discrete FM integral (module docstring): delta = inc*d*S_n
     fm_inc = vp.fm_inc[:, None]
@@ -788,6 +855,10 @@ def _phases(vp: VoiceParams, n, use_fm: bool, use_glide: bool = False):
     s_n = (vp.fm_c0[:, None] - cos_turns(x_half)) * vp.fm_r[:, None]
     delta = (vp.base_inc.to(torch.float32) * vp.fm_depth)[:, None] * s_n
     has_fm = ((vp.fm_depth != 0.0) & (vp.fm_inc != 0))[:, None]
+    if use_dmod:
+        has_dc = ((vp.dcurve_start[:, 0] == 0) & (vp.fm_inc != 0))[:, None]
+        delta = torch.where(has_dc, _dmod_delta(vp, n), delta)
+        has_fm = has_fm | has_dc
     # wrap to [-2^31, 2^31) before the integer cast (phase is modular)
     q = delta * _TWO_NEG32
     frac = q - torch.round(q)
@@ -795,16 +866,35 @@ def _phases(vp: VoiceParams, n, use_fm: bool, use_glide: bool = False):
     return torch.where(has_fm, (p + dunits) & _U32, p)
 
 
-def _inst_inc(vp: VoiceParams, n, use_glide: bool):
-    """Instantaneous DDS increment (u32 [v, N]) under glide — feeds the
-    polyBLEP dt.  None when the bank has no glide."""
-    if not use_glide:
+def _inst_inc(vp: VoiceParams, n, use_glide: bool, use_bend: bool = False):
+    """Instantaneous DDS increment (u32 [v, N]) under glide or bend --
+    feeds the polyBLEP dt.  None when the bank has no pitch sweeps."""
+    if not (use_glide or use_bend):
         return None
     m = n[None, :] - vp.start[:, None]
-    G = vp.glide_frames[:, None].to(torch.int64)
-    mcl = torch.minimum(torch.clamp_min(m, 0), G)
-    gi = (vp.glide_inc0[:, None] + mcl * vp.glide_d[:, None]) & _U32
-    return torch.where(G > 0, gi, vp.base_inc[:, None].expand_as(gi))
+    inc = vp.base_inc[:, None].expand(m.shape)
+    if use_bend:
+        st, bi, bd = _seg(vp.bend_start, m, vp.bend_inc, vp.bend_d)
+        mrel = torch.clamp_min(_wrap_i32(m - st), 0)
+        has_bend = (vp.bend_start[:, 0] == 0)[:, None]
+        inc = torch.where(has_bend, (bi + mrel * bd) & _U32, inc)
+    if use_glide:
+        G = vp.glide_frames[:, None].to(torch.int64)
+        mcl = torch.minimum(torch.clamp_min(m, 0), G)
+        gi = (vp.glide_inc0[:, None] + mcl * vp.glide_d[:, None]) & _U32
+        inc = torch.where(G > 0, gi, inc)
+    return inc
+
+
+def _amp_curve_gain(vp: VoiceParams, n):
+    """Per-voice amplitude-curve gain [v, N] (f32): linear ramps between
+    control points, held after the last; 1.0 for rows without a curve."""
+    m = n[None, :] - vp.start[:, None]
+    st, g0, dg = _seg(vp.acurve_start, m, vp.acurve_g0, vp.acurve_dg)
+    g = g0 + torch.clamp_min(_wrap_i32(m - st), 0).to(torch.float32) * dg
+    has = (vp.acurve_start[:, 0] == 0)[:, None]
+    return torch.where(has, g, torch.ones((), dtype=torch.float32,
+                                          device=g.device))
 
 
 def _adsr(n, vp: VoiceParams, samplerate: int):
@@ -857,10 +947,11 @@ def render_block(vp: VoiceParams, n0: int, blocksize: int,
     With a grouped ``layout`` each group evaluates only its own waveform;
     otherwise the mixed-group select path is used.  The voices are summed
     serially in packed order (the order the kernel sums in), so the result
-    does not depend on the block size.  ``seg``/``use_bend``/``use_amp``/
-    ``use_dmod`` are the next slice's and raise NotImplementedError."""
-    if seg is not None or nseg or use_bend or use_amp or use_dmod:
-        raise NotImplementedError(_NEXT_SLICE)
+    does not depend on the block size.  ``use_bend``/``use_amp``/
+    ``use_dmod`` enable the pitch, amplitude and FM-depth curve segments;
+    ``seg`` (segment buses) raises NotImplementedError."""
+    if seg is not None or nseg:
+        raise NotImplementedError(_NO_BUSES)
     dev = vp.device
     n = n0 + torch.arange(blocksize, dtype=torch.int64, device=dev)
     if layout is None:
@@ -870,15 +961,18 @@ def render_block(vp: VoiceParams, n0: int, blocksize: int,
         if count == 0:
             continue
         sub = _slice_params(vp, start, count)
-        p = _phases(sub, n, has_fm, use_glide)
+        p = _phases(sub, n, has_fm, use_glide, use_bend, use_dmod)
         blep_here = wid in (9, 10) or (
             wid < 0 and any(w in (9, 10) for w in used_waves))
-        inst = _inst_inc(sub, n, use_glide) if blep_here else None
+        inst = _inst_inc(sub, n, use_glide, use_bend) if blep_here else None
         if wid < 0:
             w = _wave_select(p, sub, n, num_harmonics, used_waves, inst)
         else:
             w = _one_wave(wid, p, sub, n, num_harmonics, inst)
-        sig = (sub.bias[:, None] + sub.amp[:, None] * w) * _adsr(n, sub, samplerate)
+        env = _adsr(n, sub, samplerate)
+        if use_amp:
+            env = env * _amp_curve_gain(sub, n)
+        sig = (sub.bias[:, None] + sub.amp[:, None] * w) * env
         lg = torch.clamp_max(1.0 - sub.pan, 1.0)
         rg = torch.clamp_max(1.0 + sub.pan, 1.0)
         prod = sig[:, :, None] * torch.stack([lg, rg], dim=1)[:, None, :]
@@ -887,12 +981,53 @@ def render_block(vp: VoiceParams, n0: int, blocksize: int,
     return mix
 
 
+#: pad-slot fills for the sparse render's sentinel row (every other field
+#: is 0 of its dtype): amp 0 and gate 0 make every sample an exact 0, and
+#: start lies past the song
+_SPARSE_PAD_FILLS = {"pulse_width": 0.5, "noise_hold": 1, "damping": 1.0,
+                     "bend_start": _I32_MAX, "acurve_start": _I32_MAX,
+                     "acurve_g0": 1.0, "dcurve_start": _I32_MAX}
+
+
+def _append_pad_voice(vp: VoiceParams, start_frame: int) -> VoiceParams:
+    """Append ONE silent sentinel row (index V) for the sparse render's pad
+    slots, keeping every field's dtype and trailing segment dims."""
+    rows = []
+    for name, a in zip(VoiceParams._fields, vp):
+        fill = start_frame if name == "start" else _SPARSE_PAD_FILLS.get(name, 0)
+        pad = torch.full((1,) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                         device=a.device)
+        rows.append(torch.cat([a, pad]))
+    return VoiceParams(*rows)
+
+
+def audible_ranges(start, gate, attack, decay, release, samplerate: int,
+                   margin: int = 0):
+    """Conservative frame range [start, end) of each voice's non-zero
+    envelope, from host arrays (start and gate in frames, the ADSR times in
+    seconds): ``_adsr`` runs to max(gate, attack + decay) + release, so a
+    short-gate voice still completes its attack and decay.  ``margin``
+    frames are added to the attack+decay and to the release; the end gets
+    2 frames for the f32 boundary compare plus dur >> 20 for the f32
+    rounding of the envelope's time scale (2^-24 relative).  Shared by
+    ``VoiceBank.sparse_plan`` (margin 0, from the packed fields) and
+    ``midi.render_notes`` (margin 1, from the note list)."""
+    start = np.asarray(start, np.int64)
+    ad = np.ceil((np.asarray(attack, np.float64)
+                  + np.asarray(decay, np.float64)) * samplerate
+                 ).astype(np.int64) + margin
+    rel = np.ceil(np.asarray(release, np.float64) * samplerate
+                  ).astype(np.int64) + margin
+    dur = np.maximum(np.asarray(gate, np.int64), ad) + rel
+    return start, start + dur + 2 + (dur >> 20)
+
+
 class VoiceBank:
     """Batched renderer for a fixed (V, chunk, samplerate) shape on one
     device, the card unless the caller passes ``device="cpu"``.  On a CUDA
-    device ``render_song``/``render_chunk`` launch the Hopper kernels
-    (``ops.kernels.render_stereo``); on the CPU they run the plain
-    ``render_block``."""
+    device ``render_song``/``render_chunk``/``render_song_sparse`` launch
+    the Hopper kernels (``ops.kernels.render_stereo``); on the CPU they run
+    the plain ``render_block``."""
 
     def __init__(self, nvoices: int, samplerate: int = 44100,
                  chunk_frames: int = 8192, num_harmonics: int = 8,
@@ -938,11 +1073,13 @@ class VoiceBank:
                    use_amp=use_amp, use_dmod=use_dmod, device=device)
 
     def _check(self, vp: VoiceParams):
-        if self.use_bend or self.use_amp or self.use_dmod:
-            raise NotImplementedError(_NEXT_SLICE)
         if vp.device != self.device:
             raise ValueError(f"voice params on {vp.device}, bank on "
                              f"{self.device}")
+
+    def _flags(self) -> dict:
+        return dict(use_glide=self.use_glide, use_bend=self.use_bend,
+                    use_amp=self.use_amp, use_dmod=self.use_dmod)
 
     def _kernel_layout(self, vp: VoiceParams) -> BankLayout:
         """The layout the kernel walks: the bank's grouped layout, or one
@@ -958,10 +1095,10 @@ class VoiceBank:
             return render_stereo(vp, n0, nframes=nframes,
                                  samplerate=self.samplerate,
                                  layout=self._kernel_layout(vp),
-                                 use_glide=self.use_glide)
+                                 **self._flags())
         return render_block(vp, n0, nframes, self.samplerate,
                             self.num_harmonics, self.layout, self.used_waves,
-                            self.use_fm, use_glide=self.use_glide)
+                            self.use_fm, **self._flags())
 
     def render_chunk(self, vp: VoiceParams, n0: int) -> torch.Tensor:
         """One streaming chunk: stereo f32 [chunk, 2] (stateless)."""
@@ -979,6 +1116,100 @@ class VoiceBank:
         nchunks = -(-total_frames // cf)
         out = torch.cat([self._render(vp, i * cf, cf) for i in range(nchunks)])
         return out[:total_frames]
+
+    def render_song_sparse(self, vp: VoiceParams,
+                           total_frames: int) -> torch.Tensor:
+        """Sparse offline mixdown: stereo f32 [total_frames, 2].
+
+        Buckets the voices by their audible frame range per chunk on the
+        host and renders each chunk over only its K active rows, in packed
+        order, instead of all V.  A dropped row adds an exact zero to the
+        flat render's serial sum, so for finite parameters the output is
+        bit-identical to :meth:`render_song`.  Falls back to render_song
+        when the bucketed shape would not be smaller."""
+        plan = self.sparse_plan(vp, total_frames)
+        if plan is None:
+            return self.render_song(vp, total_frames)
+        fn, idx, pad_start, nchunks = plan
+        return fn(vp, idx, pad_start, nchunks)[:total_frames]
+
+    def sparse_plan(self, vp: VoiceParams, total_frames: int,
+                    ranges=None):
+        """Host side of :meth:`render_song_sparse`: bucket the voices'
+        audible frame ranges per chunk -> (fn, idx [nchunks, K] int32 on
+        the bank's device, pad_start, nchunks), or None when the bucketed
+        shape would not beat the flat render (the cost model below).  Call
+        ``fn(vp, idx, pad_start, nchunks)`` -> f32 [nchunks * chunk, 2].
+        Pad slots hold V, the index of a silent sentinel row.
+
+        ``ranges``: optional (starts, ends, live) host arrays (a
+        conservative cover of each voice's audible frames; live False =
+        never audible).  Callers that still hold the host note list pass
+        them, which saves the copies of vp's fields to the host."""
+        self._check(vp)
+        cf = self.chunk_frames
+        nchunks = -(-total_frames // cf)
+        sr = self.samplerate
+        if ranges is not None:
+            starts, ends, live = ranges
+        else:
+            host = {f: getattr(vp, f).cpu().numpy() for f in
+                    ("start", "gate", "attack", "decay", "release", "amp",
+                     "bias")}
+            starts, ends = audible_ranges(
+                host["start"], host["gate"], host["attack"], host["decay"],
+                host["release"], sr)
+            # sig = (bias + amp*w) * env: a row needs amp or bias to sound
+            live = (host["amp"] != 0.0) | (host["bias"] != 0.0)
+        V = int(starts.shape[0])
+        first_c = np.maximum(0, starts // cf)
+        last_c = np.minimum(nchunks - 1, (ends - 1) // cf)
+        span_ok = live & (last_c >= first_c)
+        # K first, vectorized, so dense songs bail out before the fill
+        delta = np.zeros(nchunks + 1, np.int64)
+        np.add.at(delta, first_c[span_ok], 1)
+        np.add.at(delta, last_c[span_ok] + 1, -1)
+        K = int(np.cumsum(delta)[:nchunks].max(initial=0)) or 1
+        K += -K % 8
+        # cost model (the reference's): bucketed rows pay every used
+        # waveform, grouped flat rows one
+        if K * (1 + len(self.used_waves)) >= 2 * V:
+            return None
+        idx = np.full((nchunks, K), V, np.int32)       # V = sentinel row
+        fill = np.zeros(nchunks, np.int32)
+        for v in np.flatnonzero(span_ok):
+            for c in range(int(first_c[v]), int(last_c[v]) + 1):
+                idx[c, fill[c]] = v
+                fill[c] += 1
+        return (self._render_rows, torch.from_numpy(idx).to(self.device),
+                total_frames + cf + 8, nchunks)
+
+    def _render_rows(self, vp: VoiceParams, idx: torch.Tensor,
+                     pad_start: int, nchunks: int) -> torch.Tensor:
+        """The sparse plan's fn: chunk c renders over the rows idx[c].  On
+        CUDA one launch of the render kernel, which takes its candidate
+        voices from the rows; on the CPU each chunk gathers its rows (pad
+        slots read the appended sentinel row) and renders them ungrouped,
+        as the reference's bucketed program does."""
+        self._check(vp)
+        cf = self.chunk_frames
+        if self.device.type == "cuda":
+            from ..ops.kernels import render_stereo
+            return render_stereo(
+                vp, 0, nframes=nchunks * cf, samplerate=self.samplerate,
+                layout=BankLayout.ungrouped(vp.wave.shape[0],
+                                            self.num_harmonics, self.use_fm),
+                idx=idx, chunk_frames=cf, **self._flags())
+        vp_pad = _append_pad_voice(vp, pad_start)
+        out = []
+        for c in range(nchunks):
+            rows = idx[c].to(torch.int64)
+            vpk = VoiceParams(*(f.index_select(0, rows) for f in vp_pad))
+            out.append(render_block(vpk, c * cf, cf, self.samplerate,
+                                    self.num_harmonics, None,
+                                    self.used_waves, self.use_fm,
+                                    **self._flags()))
+        return torch.cat(out)
 
     @staticmethod
     def to_int16(stereo_f32: torch.Tensor,

@@ -7,10 +7,12 @@ kernels in ``csrc/voicebank_render.cu`` (CUDA C++ for ``sm_90a``, built by
 ``nvcc`` at first use into ``build/`` and loaded with ``ctypes``): the
 per-voice setup kernel (``voice_setup``, plain version ``voice_constants``)
 and the tiled render kernel that skips silent voice-tiles (plain version of
-its test: ``active_voice_tiles``).  For CPU tensors it runs
-``render_stereo_reference``, the plain ``render_block`` over the same
-layout.  There is no fallback between the two: a CUDA tensor launches the
-kernels or raises.
+its test: ``active_voice_tiles``).  The render takes the pitch, amplitude
+and FM-depth curves (``use_bend``/``use_amp``/``use_dmod``) and, for the
+sparse render, per-chunk rows of candidate voices (``idx``).  For CPU
+tensors it runs ``render_stereo_reference``, the plain ``render_block``
+over the same layout and rows.  There is no fallback between the two: a
+CUDA tensor launches the kernels or raises.
 
 Nothing here imports a GPU toolchain at import time, so the CPU tests can
 import the module.
@@ -30,9 +32,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.voicebank import (_U32, BANK_TABLE_LEN, I32_FIELDS, U32_FIELDS,
-                                BankLayout, VoiceParams, _noise, _noise_u32,
-                                _tri_u32, render_block)
+from ..models.voicebank import (_I32_MAX, _U32, BANK_TABLE_LEN, I32_FIELDS,
+                                U32_FIELDS, BankLayout, VoiceParams, _noise,
+                                _noise_u32, _tri_u32, render_block)
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "voicebank_render.cu"
 #: build products go under the checkout's ``build/`` (listed in .gitignore)
@@ -51,6 +53,11 @@ KERNEL_COLUMNS = ("wave", "base_inc", "phase0", "amp", "bias", "pan", "start",
                   "fm_inc", "fm_phase0", "fm_depth", "fm_r", "fm_c0",
                   "pulse_width", "seed", "noise_hold", "damping",
                   "glide_inc0", "glide_d", "glide_frames")
+#: the curve segment arrays both kernels read through a second pointer
+#: table, [V, S], [V, KA] and [V, KD]; the order matches ``struct Curves``
+CURVE_COLUMNS = ("bend_start", "bend_phase", "bend_inc", "bend_d",
+                 "acurve_start", "acurve_g0", "acurve_dg",
+                 "dcurve_start", "dcurve_c", "dcurve_a", "dcurve_b")
 #: words of a voice's row of the [V, C] constants, before the pluck
 #: partials; the order matches ``enum Const`` in the source.  Words from
 #: ``amp`` on are f32 bit patterns, the rest u32 (or i32) values.
@@ -60,8 +67,14 @@ CONST_COLUMNS = ("wave", "inc", "phase0", "start", "fm_inc", "fm_phase0",
                  "pluck_ka", "amp", "bias", "lg", "rg", "a", "t2", "t3", "t4",
                  "sl", "a_r", "d_r", "r_r", "fm_c0", "fm_r", "fm_scale")
 CONST_BASE = len(CONST_COLUMNS)
-#: bits of the ``flags`` word
+#: bits of the ``flags`` word: cull-safe, cull-safe as a pluck voice, FM
+#: on, a pitch / amplitude / FM-depth curve, and each curve row's starts
+#: non-decreasing (searched, not counted)
 FLAG_SAFE, FLAG_PLUCK_SAFE, FLAG_FM_ON = 1, 2, 4
+FLAG_BEND, FLAG_AMP, FLAG_DC = 8, 16, 32
+FLAG_BEND_SORTED, FLAG_AMP_SORTED, FLAG_DC_SORTED = 64, 128, 256
+#: bits of the render's ``modes`` argument (the bank's static flags)
+MODE_GLIDE, MODE_BEND, MODE_AMP, MODE_DMOD = 1, 2, 4, 8
 #: a voice is cull-safe only if every value that scales its waveform lies
 #: within +-2^32, so (bias + amp*w) stays finite and times 0 is +-0
 CULL_MAX = 2.0 ** 32
@@ -109,6 +122,8 @@ def _library() -> ctypes.CDLL:
                            f"{CONST_BASE} and {TILE}")
     lib.voicebank_setup.argtypes = [
         ctypes.POINTER(ctypes.c_void_p),                # column pointers (host)
+        ctypes.POINTER(ctypes.c_void_p),                # curve pointers (host)
+        ctypes.POINTER(ctypes.c_int),                   # S, KA, KD (host)
         ctypes.c_void_p, ctypes.c_int,                  # harm_amps, row stride
         ctypes.c_void_p,                                # table [V, 256]
         ctypes.c_int, ctypes.c_int,                     # V, num_harmonics
@@ -121,10 +136,14 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int,                  # harm_amps, row stride
         ctypes.c_void_p,                                # table [V, 256]
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int,   # groups (host) [G, 4]
+        ctypes.POINTER(ctypes.c_void_p),                # curve pointers (host)
+        ctypes.POINTER(ctypes.c_int),                   # S, KA, KD (host)
         ctypes.c_int,                                   # num_harmonics
         ctypes.c_int, ctypes.c_int,                     # n0, nframes
         ctypes.c_float,                                 # f32(1/samplerate)
-        ctypes.c_int,                                   # use_glide
+        ctypes.c_int,                                   # modes
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,    # idx, K, chunk_frames
+        ctypes.c_int,                                   # V
         ctypes.c_void_p,                                # out [nframes, 2] f32
         ctypes.c_void_p,                                # voice-tile count
         ctypes.c_void_p]                                # cudaStream_t
@@ -132,31 +151,51 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _column_pointers(vp: VoiceParams):
-    """Host array of the setup kernel's column pointers, in enum Col order."""
-    return (ctypes.c_void_p * len(KERNEL_COLUMNS))(
-        *(getattr(vp, name).data_ptr() for name in KERNEL_COLUMNS))
+def _column_pointers(vp: VoiceParams, names=KERNEL_COLUMNS):
+    """Host array of device pointers to vp's ``names`` columns (enum Col
+    order, or ``CURVE_COLUMNS`` for struct Curves)."""
+    return (ctypes.c_void_p * len(names))(
+        *(getattr(vp, name).data_ptr() for name in names))
+
+
+def _curve_dims(vp: VoiceParams):
+    """Host array (S, KA, KD): the widths of the curve segment arrays."""
+    return (ctypes.c_int * 3)(vp.bend_start.shape[1], vp.acurve_start.shape[1],
+                              vp.dcurve_start.shape[1])
+
+
+def _dtype(name: str) -> torch.dtype:
+    return (torch.int64 if name in U32_FIELDS
+            else torch.int32 if name in I32_FIELDS else torch.float32)
+
+
+#: (field, dtype, which dim sets its width) of every tensor the kernels
+#: read through raw pointers: 0 = a [V] column, else the field whose
+#: second dim it shares
+_READ = tuple((name, _dtype(name), 0) for name in KERNEL_COLUMNS) + (
+    ("harm_amps", torch.float32, "harm_amps"),
+    ("table", torch.float32, "table"),
+    *((name, _dtype(name), "bend_start") for name in CURVE_COLUMNS[:4]),
+    *((name, _dtype(name), "acurve_start") for name in CURVE_COLUMNS[4:7]),
+    *((name, _dtype(name), "dcurve_start") for name in CURVE_COLUMNS[7:]))
 
 
 def _check_params(vp: VoiceParams, num_harmonics: int):
     """What the setup kernel reads through raw pointers."""
-    dev = vp.device
+    dev = vp.wave.device
     V = vp.wave.shape[0]
-    for name in KERNEL_COLUMNS:
+    shapes = {0: (V,)}
+    for name in ("harm_amps", "table", "bend_start", "acurve_start",
+                 "dcurve_start"):
+        shapes[name] = (V, getattr(vp, name).shape[-1])
+    for name, want, width in _READ:
         f = getattr(vp, name)
-        want = (torch.int64 if name in U32_FIELDS
-                else torch.int32 if name in I32_FIELDS else torch.float32)
-        if (f.device != dev or f.dtype != want or f.shape != (V,)
-                or not f.is_contiguous()):
-            raise ValueError(f"{name}: expected contiguous {want} [{V}] on "
-                             f"{dev}, got {f.dtype} {tuple(f.shape)} on "
+        shape = shapes[width]
+        if (f.dtype is not want or f.device != dev or f.shape != shape
+                or shape[-1] < 1 or not f.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous {want} {list(shape)} "
+                             f"on {dev}, got {f.dtype} {list(f.shape)} on "
                              f"{f.device}")
-    for name in ("harm_amps", "table"):
-        f = getattr(vp, name)
-        if (f.device != dev or f.dtype != torch.float32 or f.dim() != 2
-                or f.shape[0] != V or not f.is_contiguous()):
-            raise ValueError(f"{name}: expected contiguous f32 [{V}, ...] on "
-                             f"{dev}, got {f.dtype} {tuple(f.shape)}")
     if (vp.harm_amps.shape[1] < num_harmonics
             or vp.table.shape[1] != BANK_TABLE_LEN):
         raise ValueError(f"harm_amps needs >= {num_harmonics} columns "
@@ -167,7 +206,7 @@ def _check_params(vp: VoiceParams, num_harmonics: int):
 
 
 def _check_inputs(vp: VoiceParams, n0: int, nframes: int,
-                  layout: BankLayout):
+                  layout: BankLayout, idx=None, chunk_frames: int = 0):
     """What both kernels of ``render_stereo`` read."""
     _check_params(vp, layout.num_harmonics)
     V = vp.wave.shape[0]
@@ -180,6 +219,21 @@ def _check_inputs(vp: VoiceParams, n0: int, nframes: int,
     if n0 < 0 or nframes <= 0 or n0 + nframes > 2 ** 31 - 1:
         raise ValueError(f"frames [{n0}, {n0 + nframes}) outside the "
                          f"kernel's i32 frame range")
+    if idx is None:
+        return
+    if len(layout.groups) != 1:
+        raise ValueError("sparse rows take a one-group layout")
+    if chunk_frames <= 0 or chunk_frames % TILE or n0 % chunk_frames:
+        raise ValueError(f"sparse rows need chunk_frames a multiple of "
+                         f"{TILE} and n0 one of chunk_frames, got "
+                         f"chunk_frames={chunk_frames}, n0={n0}")
+    if (idx.device != vp.device or idx.dtype != torch.int32 or idx.dim() != 2
+            or idx.shape[1] < 1 or not idx.is_contiguous()
+            or (n0 + nframes - 1) // chunk_frames >= idx.shape[0]):
+        raise ValueError(f"idx: expected contiguous int32 [nchunks, K] on "
+                         f"{vp.device} covering frames [{n0}, "
+                         f"{n0 + nframes}) in chunks of {chunk_frames}, got "
+                         f"{idx.dtype} {tuple(idx.shape)} on {idx.device}")
 
 
 def _sr_r(samplerate: int) -> float:
@@ -201,17 +255,20 @@ def voice_setup(vp: VoiceParams, samplerate: int, num_harmonics: int):
     return _setup(vp, samplerate, num_harmonics)
 
 
-def _setup(vp: VoiceParams, samplerate: int, num_harmonics: int):
+def _setup(vp: VoiceParams, samplerate: int, num_harmonics: int,
+           curves=None):
     """voice_setup without the checks, for render_stereo (which has made
-    them)."""
+    them and passes its curve pointer table and widths)."""
     V = vp.wave.shape[0]
     C = const_width(num_harmonics)
+    if curves is None:
+        curves = _column_pointers(vp, CURVE_COLUMNS), _curve_dims(vp)
     buf = torch.empty(V * C + 1, dtype=torch.int32, device=vp.device)
     consts, count = buf[:V * C].view(V, C), buf[V * C:]
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(_library().voicebank_setup(
-            _column_pointers(vp), vp.harm_amps.data_ptr(),
+            _column_pointers(vp), *curves, vp.harm_amps.data_ptr(),
             vp.harm_amps.shape[1], vp.table.data_ptr(), V, num_harmonics,
             _sr_r(samplerate), consts.data_ptr(), C, count.data_ptr(),
             stream), "voicebank_setup")
@@ -222,27 +279,45 @@ def _setup(vp: VoiceParams, samplerate: int, num_harmonics: int):
 voice_setup.launches = 0
 
 
+def _modes(use_glide, use_bend, use_amp, use_dmod) -> int:
+    return ((MODE_GLIDE if use_glide else 0) | (MODE_BEND if use_bend else 0)
+            | (MODE_AMP if use_amp else 0) | (MODE_DMOD if use_dmod else 0))
+
+
 def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
                   samplerate: int, layout: BankLayout,
-                  use_glide: bool = False) -> torch.Tensor:
+                  use_glide: bool = False, use_bend: bool = False,
+                  use_amp: bool = False, use_dmod: bool = False,
+                  idx=None, chunk_frames: int = 0) -> torch.Tensor:
     """Render [nframes, 2] f32 starting at absolute frame n0.
+
+    ``idx`` (int32 [nchunks, K], with ``chunk_frames``): sparse rows, as
+    ``VoiceBank.sparse_plan`` makes them.  The frames of absolute chunk c
+    (frames [c*chunk_frames, (c+1)*chunk_frames)) sum only the voices of
+    row c, in row order; a slot outside [0, V) is empty.  Needs a
+    one-group layout, and on CUDA chunk_frames a multiple of ``TILE`` and
+    n0 a multiple of chunk_frames.
 
     CUDA tensors: one launch of the setup kernel and one of the render
     kernel, counted in ``voice_setup.launches`` and
     ``render_stereo.launches``; ``render_stereo.voice_tiles`` is then the
     device int32 [1] count of voice-tiles the render evaluated.  CPU
     tensors: the plain version."""
+    flags = dict(use_glide=use_glide, use_bend=use_bend, use_amp=use_amp,
+                 use_dmod=use_dmod, idx=idx, chunk_frames=chunk_frames)
     if vp.device.type == "cpu":
         return render_stereo_reference(vp, n0, nframes=nframes,
                                        samplerate=samplerate, layout=layout,
-                                       use_glide=use_glide)
+                                       **flags)
     if vp.device.type != "cuda":
         raise ValueError(f"render_stereo takes CPU or CUDA tensors, got "
                          f"{vp.device}")
     n0 = int(n0)
-    _check_inputs(vp, n0, nframes, layout)
+    _check_inputs(vp, n0, nframes, layout, idx, chunk_frames)
     H = layout.num_harmonics
-    consts, count = _setup(vp, samplerate, H)
+    V = vp.wave.shape[0]
+    curves = _column_pointers(vp, CURVE_COLUMNS), _curve_dims(vp)
+    consts, count = _setup(vp, samplerate, H, curves)
     groups = [int(x) for g in layout.groups for x in g]
     out = torch.empty((nframes, 2), dtype=torch.float32, device=vp.device)
     with torch.cuda.device(vp.device):
@@ -250,9 +325,13 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
         _launch(_library().voicebank_render(
             consts.data_ptr(), consts.shape[1], vp.harm_amps.data_ptr(),
             vp.harm_amps.shape[1], vp.table.data_ptr(),
-            (ctypes.c_int32 * len(groups))(*groups), len(layout.groups), H,
-            n0, nframes, _sr_r(samplerate), int(use_glide), out.data_ptr(),
-            count.data_ptr(), stream), "voicebank_render")
+            (ctypes.c_int32 * len(groups))(*groups), len(layout.groups),
+            *curves, H, n0,
+            nframes, _sr_r(samplerate),
+            _modes(use_glide, use_bend, use_amp, use_dmod),
+            0 if idx is None else idx.data_ptr(),
+            0 if idx is None else idx.shape[1], int(chunk_frames), V,
+            out.data_ptr(), count.data_ptr(), stream), "voicebank_render")
     render_stereo.launches += 1
     render_stereo.voice_tiles = count
     return out
@@ -264,17 +343,46 @@ render_stereo.voice_tiles = None
 
 def render_stereo_reference(vp: VoiceParams, n0: int, *, nframes: int,
                             samplerate: int, layout: BankLayout,
-                            use_glide: bool = False) -> torch.Tensor:
+                            use_glide: bool = False, use_bend: bool = False,
+                            use_amp: bool = False, use_dmod: bool = False,
+                            idx=None, chunk_frames: int = 0) -> torch.Tensor:
     """The kernel's plain version: ``render_block`` over the same layout,
     on vp's device, in blocks of at most 131072 frames to bound memory
-    (block size does not change the result)."""
-    blocks = []
-    for b0 in range(0, nframes, _REFERENCE_BLOCK):
-        nb = min(_REFERENCE_BLOCK, nframes - b0)
-        blocks.append(render_block(vp, n0 + b0, nb, samplerate,
-                                   layout.num_harmonics, layout,
-                                   use_glide=use_glide))
-    return torch.cat(blocks)
+    (block size does not change the result).  With ``idx`` each chunk
+    renders the voices of its row (empty slots dropped) as one group of
+    the layout's wave and FM flag."""
+    flags = dict(use_glide=use_glide, use_bend=use_bend, use_amp=use_amp,
+                 use_dmod=use_dmod)
+    H = layout.num_harmonics
+
+    def blocks(sub, sub_layout, a, b):
+        return [render_block(sub, b0, min(_REFERENCE_BLOCK, b - b0), samplerate,
+                             H, sub_layout, **flags)
+                for b0 in range(a, b, _REFERENCE_BLOCK)]
+
+    if idx is None:
+        return torch.cat(blocks(vp, layout, n0, n0 + nframes))
+    if len(layout.groups) != 1 or chunk_frames <= 0:
+        raise ValueError("sparse rows take a one-group layout and "
+                         "chunk_frames > 0")
+    (wid, has_fm, _, _), = layout.groups
+    V = vp.wave.shape[0]
+    out = []
+    end = n0 + nframes
+    for c in range(n0 // chunk_frames, -(-end // chunk_frames)):
+        a = max(n0, c * chunk_frames)
+        b = min(end, (c + 1) * chunk_frames)
+        rows = idx[c].to(torch.int64)
+        rows = rows[(rows >= 0) & (rows < V)]
+        if rows.numel() == 0:
+            out.append(torch.zeros((b - a, 2), dtype=torch.float32,
+                                   device=vp.device))
+            continue
+        sub = VoiceParams(*(f.index_select(0, rows) for f in vp))
+        sub_layout = BankLayout(((wid, has_fm, 0, rows.numel()),),
+                                rows.numel(), H)
+        out.extend(blocks(sub, sub_layout, a, b))
+    return torch.cat(out)
 
 
 def _u32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -345,14 +453,32 @@ def voice_constants(vp: VoiceParams, samplerate: int,
     def within(x):
         return x.abs() <= CULL_MAX                  # False for NaN and inf
 
+    def row_sorted(st):
+        return (st[:, 1:] >= st[:, :-1]).all(dim=1)
+
+    # an amplitude curve keeps its voice cull-safe only if every gain its
+    # segments reach -- each ramp's ends g0 and g0 + f32(L) * dg, L the
+    # distance to the next start (to INT32_MAX for the last) -- is within
+    # +-2^32, and its starts are sorted
+    ast = vp.acurve_start.to(torch.int64)
+    nxt = torch.cat([ast[:, 1:], torch.full_like(ast[:, :1], _I32_MAX)], 1)
+    g1 = vp.acurve_g0 + (nxt - ast).to(f32) * vp.acurve_dg
+    has_amp = vp.acurve_start[:, 0] == 0
+    amp_ok = (row_sorted(vp.acurve_start) & within(vp.acurve_g0).all(dim=1)
+              & within(g1).all(dim=1))
     safe = (within(vp.amp) & within(vp.bias) & within(vp.pan)
             & within(vp.harm_amps[:, :H]).all(dim=1)
-            & within(vp.table).all(dim=1))
+            & within(vp.table).all(dim=1) & (~has_amp | amp_ok))
     pluck_safe = (vp.damping >= 0.0) & (vp.damping <= CULL_MAX)
     fm_on = (vp.fm_depth != 0.0) & (vp.fm_inc != 0)
-    flags = (safe.to(torch.int32) * FLAG_SAFE
-             + pluck_safe.to(torch.int32) * FLAG_PLUCK_SAFE
-             + fm_on.to(torch.int32) * FLAG_FM_ON)
+    bits = (
+        (safe, FLAG_SAFE), (pluck_safe, FLAG_PLUCK_SAFE), (fm_on, FLAG_FM_ON),
+        (vp.bend_start[:, 0] == 0, FLAG_BEND), (has_amp, FLAG_AMP),
+        ((vp.dcurve_start[:, 0] == 0) & (vp.fm_inc != 0), FLAG_DC),
+        (row_sorted(vp.bend_start), FLAG_BEND_SORTED),
+        (row_sorted(vp.acurve_start), FLAG_AMP_SORTED),
+        (row_sorted(vp.dcurve_start), FLAG_DC_SORTED))
+    flags = sum(b.to(torch.int32) * bit for b, bit in bits)
 
     words = dict(
         wave=vp.wave, inc=_u32_bits(inc), phase0=_u32_bits(vp.phase0),
@@ -379,14 +505,17 @@ def voice_constants(vp: VoiceParams, samplerate: int,
 
 def active_voice_tiles(vp: VoiceParams, n0: int, nframes: int, *,
                        samplerate: int, layout: BankLayout,
-                       tile: int = TILE) -> torch.Tensor:
+                       tile: int = TILE, idx=None,
+                       chunk_frames: int = 0) -> torch.Tensor:
     """The render kernel's culling test as plain PyTorch -> bool [V, ntiles]:
     True where the kernel evaluates voice v on tile j (frames
     [n0 + j*tile, n0 + min((j+1)*tile, nframes))).  A voice that no group
     walks is never evaluated; a voice is tested with the waveform of the
-    group that holds it (per-voice in a mixed group).  Same f32 operations
-    as the kernel's test, so its sum is the kernel's voice-tile count for a
-    layout whose groups do not overlap."""
+    group that holds it (per-voice in a mixed group).  With sparse rows
+    (``idx``, ``chunk_frames``) a voice is a candidate only on the tiles of
+    the chunks whose row lists it.  Same f32 operations as the kernel's
+    test, so its sum is the kernel's voice-tile count for a layout whose
+    groups do not overlap and rows that list a voice at most once."""
     dev = vp.device
     V = vp.wave.shape[0]
     c = voice_constants(vp, samplerate, layout.num_harmonics)
@@ -411,4 +540,12 @@ def active_voice_tiles(vp: VoiceParams, n0: int, nframes: int, *,
     silent = safe & (m_first <= m_last) & (
         (m_last.to(torch.float32) * sr_r < 0.0)
         | (m_first.to(torch.float32) * sr_r >= t4))
-    return ~silent & (wid[:, None] != -2)
+    walked = (wid != -2)[:, None].expand(V, ntiles)
+    if idx is not None:
+        rows = idx.to(torch.int64)[(n0 + i0) // chunk_frames]  # [ntiles, K]
+        ok = (rows >= 0) & (rows < V)
+        cand = torch.zeros((V, ntiles), dtype=torch.bool, device=dev)
+        tiles = torch.arange(ntiles, device=dev)[:, None].expand_as(rows)
+        cand[rows[ok], tiles[ok]] = True
+        walked = walked & cand
+    return ~silent & walked

@@ -29,6 +29,9 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.ops.trig",
                  "synthesizer_tpu_torch.utils.wavio",
                  "synthesizer_tpu_torch.bench_song",
+                 "synthesizer_tpu_torch.midi",
+                 "synthesizer_tpu_torch.params",
+                 "synthesizer_tpu_torch.sequencer",
                  "synthesizer_tpu_torch.__main__"):
         assert want in names
 

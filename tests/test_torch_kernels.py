@@ -149,3 +149,56 @@ def test_render_stereo_has_no_fallback(packed):
     with pytest.raises(ValueError, match="CUDA tensors"):
         K.voice_setup(vpt, SR, 8)
     assert K.voice_setup.launches == 0
+
+
+def test_curve_columns_and_flags_match_source(packed):
+    # both kernels read the curve arrays through a second pointer table in
+    # struct Curves order; the flag and mode bits are shared with the source
+    _, _, vpt, _ = packed
+    src = K._SRC.read_text()
+    body = re.search(r"struct Curves \{([^}]*)\}", src).group(1)
+    fields = re.findall(r"\*\s*(\w+);", body)
+    assert tuple(fields) == K.CURVE_COLUMNS
+    assert f"kCurveCols = {len(K.CURVE_COLUMNS)};" in src
+    for line in body.splitlines():
+        m = re.search(r"const (\w+)\* (\w+);", line)
+        if m:
+            want = {"int32_t": torch.int32, "int64_t": torch.int64,
+                    "float": torch.float32}[m.group(1)]
+            assert getattr(vpt, m.group(2)).dtype == want, m.group(2)
+    assert list(K._column_pointers(vpt, K.CURVE_COLUMNS)) == [
+        getattr(vpt, name).data_ptr() for name in K.CURVE_COLUMNS]
+    assert list(K._curve_dims(vpt)) == [vpt.bend_start.shape[1],
+                                        vpt.acurve_start.shape[1],
+                                        vpt.dcurve_start.shape[1]]
+    for flag, value in (("kBend", K.FLAG_BEND), ("kAmpCurve", K.FLAG_AMP),
+                        ("kDc", K.FLAG_DC), ("kBendSorted", K.FLAG_BEND_SORTED),
+                        ("kAmpSorted", K.FLAG_AMP_SORTED),
+                        ("kDcSorted", K.FLAG_DC_SORTED)):
+        assert f"{flag} = {value}u;" in src
+    assert (f"kGlide = {K.MODE_GLIDE}, kUseBend = {K.MODE_BEND}, "
+            f"kUseAmp = {K.MODE_AMP}, kUseDmod = {K.MODE_DMOD};") in src
+    assert K._modes(True, False, True, False) == K.MODE_GLIDE | K.MODE_AMP
+
+
+def test_check_inputs_rejects_bad_rows_and_curves(packed):
+    _, _, vpt, tly = packed
+    V = vpt.wave.shape[0]
+    one = T.BankLayout.ungrouped(V, tly.num_harmonics)
+    idx = torch.zeros((4, 8), dtype=torch.int32)
+    K._check_inputs(vpt, 0, 4 * 1024, one, idx, 1024)
+    K._check_inputs(vpt, 2048, 1024, one, idx, 1024)
+    for n0, nframes, cf, lay, rows, what in (
+            (0, 1024, 1000, one, idx, "multiple"),      # tiles straddle
+            (512, 1024, 1024, one, idx, "multiple"),    # window off a chunk
+            (0, 5 * 1024, 1024, one, idx, "covering"),  # too few rows
+            (0, 1024, 1024, tly, idx, "one-group"),
+            (0, 1024, 1024, one, idx.long(), "idx"),
+            (0, 1024, 1024, one, idx[:, :0], "idx")):
+        with pytest.raises(ValueError, match=what):
+            K._check_inputs(vpt, n0, nframes, lay, rows, cf)
+    with pytest.raises(ValueError, match="bend_phase"):
+        K._check_inputs(vpt._replace(bend_phase=vpt.bend_phase.int()), 0,
+                        64, tly)
+    with pytest.raises(ValueError, match="acurve_dg"):
+        K._check_inputs(vpt._replace(acurve_dg=vpt.acurve_dg[:1]), 0, 64, tly)

@@ -1,0 +1,175 @@
+"""The port's MIDI path (synthesizer_tpu_torch.midi) against the JAX
+package's: the SMF writer's bytes, the parsed notes and the voices equal
+on seeded General-MIDI files (bends with RPN ranges, CC7/CC11/CC1/CC64,
+channel and poly pressure, percussion, SMPTE timing), and render_notes on
+both routes within 1 LSB at int16 of the reference's rendered Sample."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from synthesizer_tpu import midi as JM
+from synthesizer_tpu.sequencer import SynthDef as JSynthDef
+from synthesizer_tpu_torch import bench_song
+from synthesizer_tpu_torch import midi as TM
+from synthesizer_tpu_torch.models import voicebank as T
+from synthesizer_tpu_torch.sequencer import SynthDef as TSynthDef
+
+torch.set_num_threads(1)
+
+SR = 44100
+
+
+def _events(seed, nnotes=90, duration=8.0):
+    return bench_song.gm_events(nnotes, duration, seed)
+
+
+def _to_jax_notes(notes):
+    return [JM.MidiNote(*n) for n in notes]
+
+
+def _write_both(seed, **kw):
+    notes, bends, controls, pressures, poly = _events(seed, **kw)
+    args = dict(bends=bends, controls=controls, pressures=pressures,
+                poly_pressures=poly)
+    return (TM.write_midi(notes, **args),
+            JM.write_midi(_to_jax_notes(notes), **args))
+
+
+def _smpte(data: bytes, fps: int, tpf: int) -> bytes:
+    """The same track under an SMPTE division (absolute timing)."""
+    return data[:12] + bytes([(256 - fps) & 0xFF, tpf]) + data[14:]
+
+
+def _instruments(mod):
+    return {2: mod.SynthDef(wave="pulse", amplitude=0.3, pulse_width=0.3,
+                            release=0.6),
+            5: mod.SynthDef(wave="wavetable", amplitude=0.3,
+                            table=(0.0, 1.0, 0.5, -1.0)),
+            7: mod.SynthDef(wave="triangle", amplitude=0.3, fm_frequency=4.0,
+                            fm_depth=0.01)}
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_write_midi_bytes_equal(seed):
+    got, want = _write_both(seed)
+    assert got == want and len(got) > 1000
+
+
+@pytest.mark.parametrize("smpte", [None, (25, 40), (29, 100)],
+                         ids=["ppq", "smpte25", "smpte2997"])
+@pytest.mark.parametrize("seed", range(2))
+def test_parse_midi_notes_equal(seed, smpte):
+    data, _ = _write_both(seed)
+    if smpte:
+        data = _smpte(data, *smpte)
+    for grace in (TM.release_grace_for(None), 2.0, 0.5):
+        got = TM.parse_midi(data, release_grace=grace)
+        want = JM.parse_midi(data, release_grace=grace)
+        assert [tuple(n) for n in got] == [tuple(n) for n in want]
+    kinds = {"bend": any(n.bend_curve for n in got),
+             "gain": any(n.gain_curve for n in got),
+             "mod": any(n.mod_curve for n in got),
+             "drums": any(n.channel == 9 for n in got),
+             "pan": any(n.pan is not None for n in got)}
+    assert all(kinds.values()), kinds
+
+
+def test_parse_rejects_what_the_reference_rejects():
+    data, _ = _write_both(0)
+    for bad in (b"RIFF" + data[4:], data[:12] + bytes([0xE6, 40]) + data[14:],
+                data[:14] + b"MTrX" + data[18:]):
+        with pytest.raises(ValueError):
+            JM.parse_midi(bad)
+        with pytest.raises(ValueError):
+            TM.parse_midi(bad)
+
+
+@pytest.mark.parametrize("instruments", [False, True],
+                         ids=["gm", "instruments"])
+@pytest.mark.parametrize("seed", range(2))
+def test_midi_to_voices_equal(seed, instruments):
+    data, _ = _write_both(seed)
+    notes = TM.parse_midi(data)
+    got = TM.midi_to_voices(notes, _instruments(TM) if instruments else None)
+    want = JM.midi_to_voices(_to_jax_notes(notes),
+                             _instruments(JM) if instruments else None)
+    assert [dataclasses.asdict(v) for v in got] == \
+        [dataclasses.asdict(v) for v in want]
+    assert any(v.pitch_curve for v in got) and any(v.amp_curve for v in got)
+    assert any(v.fm_depth_curve for v in got)
+
+
+def test_gm_tables_and_grace_equal():
+    assert TM.release_grace_for(None) == JM.release_grace_for(None)
+    assert TM.release_grace_for(_instruments(TM)) == \
+        JM.release_grace_for(_instruments(JM))
+    assert [dataclasses.asdict(sd) for _, sd in TM._GM_FAMILIES] == \
+        [dataclasses.asdict(sd) for _, sd in JM._GM_FAMILIES]
+    assert dataclasses.asdict(TSynthDef()) == dataclasses.asdict(JSynthDef())
+    for note in (0, 60, 69, 127):
+        assert TM.note_to_freq(note) == JM.note_to_freq(note)
+
+
+@pytest.fixture(scope="module")
+def gm_notes():
+    data, _ = _write_both(3, nnotes=50, duration=14.0)
+    return TM.parse_midi(data, release_grace=TM.release_grace_for(None))
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "flat"])
+def test_render_notes_matches_reference(gm_notes, sparse, monkeypatch):
+    calls = []
+    orig = T.VoiceBank._render_rows
+
+    def spy(self, *a, **k):
+        calls.append(a)
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(T.VoiceBank, "_render_rows", spy)
+    got = TM.render_notes(gm_notes, sparse=sparse, device="cpu")
+    assert bool(calls) == sparse                    # the route taken
+    want = JM.render_notes(_to_jax_notes(gm_notes),
+                           sparse=sparse).get_frame_array()
+    assert got.dtype == torch.int16 and got.device.type == "cpu"
+    assert tuple(got.shape) == want.shape
+    d = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1, d.max()
+    assert np.abs(want).max() > 1000
+
+
+def test_render_midi_bytes_and_routes(tmp_path):
+    notes = [TM.MidiNote(0.4 * i, 0.2, 60 + (i % 12), 100, 0)
+             for i in range(24)]
+    data = TM.write_midi(notes)
+    path = tmp_path / "t.mid"
+    path.write_bytes(data)
+    inst = {0: TSynthDef(wave="sine", amplitude=0.3)}
+    a = TM.render_midi(str(path), inst, device="cpu")
+    b = TM.render_midi(data, inst, device="cpu")
+    assert torch.equal(a, b) and a.abs().max() > 1000
+    want = JM.render_midi(data, {0: JSynthDef(wave="sine", amplitude=0.3)})
+    d = np.abs(a.numpy().astype(np.int32)
+               - want.get_frame_array().astype(np.int32))
+    assert d.max() <= 1
+
+
+def test_empty_mesh_and_device():
+    empty = TM.render_notes([], device="cpu")
+    assert empty.shape == (0, 2) and empty.dtype == torch.int16
+    notes = [TM.MidiNote(0.0, 0.2, 60, 100, 0)]
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TM.render_notes(notes, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TM.render_midi(TM.write_midi(notes), mesh=object(), device="cpu")
+
+
+def test_render_entry_points_default_to_the_card(monkeypatch):
+    import inspect
+    for fn in (TM.render_notes, TM.render_midi):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.render_notes([TM.MidiNote(0.0, 0.2, 60, 100, 0)])

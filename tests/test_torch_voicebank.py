@@ -253,12 +253,19 @@ def test_render_block_past_2_pow_24_frames():
 
 
 def test_curves_and_buses_raise():
+    """Curves render (through VoiceBank, against the JAX bank within 1 LSB);
+    segment buses still raise until the sequencer and server slices."""
     vp = T.pack_voices(to_port(BANK_VOICES[:2]), SR, device="cpu")
-    for kw in ({"use_bend": True}, {"use_amp": True}, {"use_dmod": True},
-               {"seg": torch.zeros(8, dtype=torch.int32), "nseg": 1}):
-        with pytest.raises(NotImplementedError, match="next slice"):
+    for kw in ({"seg": torch.zeros(8, dtype=torch.int32), "nseg": 1},
+               {"nseg": 2}):
+        with pytest.raises(NotImplementedError, match="segment buses"):
             T.render_block(vp, 0, 64, SR, 8, **kw)
-    curve = to_port([_special_voices()[3]])
-    bank = T.VoiceBank.for_voices(curve, SR, device="cpu")
-    with pytest.raises(NotImplementedError):
-        bank.render_song(T.pack_voices(curve, SR, device="cpu"), 64)
+    voices = _special_voices()[3:]
+    jbank = J.VoiceBank.for_voices(voices, SR, chunk_frames=4096)
+    assert jbank.use_bend and jbank.use_amp and jbank.use_dmod
+    want = np.asarray(jbank.render_song(J.pack_voices(voices, SR), 9000))
+    curve = to_port(voices)
+    bank = T.VoiceBank.for_voices(curve, SR, chunk_frames=4096, device="cpu")
+    got = bank.render_song(T.pack_voices(curve, SR, device="cpu"), 9000)
+    assert np.abs(want).max() > 0.1
+    assert_lsb(want, got.numpy())
