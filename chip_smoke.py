@@ -11,7 +11,9 @@ WAV file, and a General-MIDI file through ``midi.render_midi`` -- and holds
 both kernels against their plain PyTorch versions on the card:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the build time and ptxas resource lines of both kernels;
+2. build: the build time and ptxas' registers and spill bytes of the
+   three kernels (``setup_kernel``, ``render_kernel<false>`` for curve-free
+   banks, ``render_kernel<true>`` for banks with curves);
 3. per-wave battery: kernel vs plain for each of the 13 waveforms, FM,
    glide, polyBLEP under glide, pluck excluded from glide, the wavetable
    gather and the mixed (ungrouped) layout;
@@ -34,7 +36,15 @@ both kernels against their plain PyTorch versions on the card:
    device-time breakdown, the plain versions, and each kernel's bound;
 8. curves battery: every waveform under a pitch, an amplitude and an
    FM-depth curve, alone and all together, grouped and mixed, kernel vs
-   plain and setup kernel vs ``voice_constants``, bit-exact;
+   plain, setup kernel vs ``voice_constants`` and its per-segment buffer
+   vs ``curve_constants``, bit-exact; then banks that force each path of
+   the curve kernel's per-tile segment windows -- one segment a tile,
+   exactly ``WINDOW``, one more (the search of the whole row), unsorted
+   rows, segment starts on, one before and one after tile edges, note
+   frames that wrap i32 inside a tile, a note past frame 2^24 -- with the
+   windows the kernel looked up and those without a window equal to
+   ``tile_segment_windows``; banks with harmonics of weight +0 and -0
+   (which the curve kernel skips) and a sustain level above 1;
 9. sparse rows on the sparse workload of ``bench.py`` (600 notes, 300 s,
    seed 5): ``render_song_sparse`` (one launch with per-chunk rows) equal
    to the flat ``render_song`` bit for bit, to the plain version on a
@@ -46,7 +56,10 @@ both kernels against their plain PyTorch versions on the card:
     kernel vs plain on three windows (the start, the window with the most
     curve voices, the release tail); its wall clock split into parse,
     pack, plan, kernels, ``to_int16`` and the copy; the render kernel's
-    device time with and without the rows, and its bound.
+    device time with and without the rows, and its bound; the histogram
+    of window widths, the share of (voice, tile, curve) lookups that
+    search the whole row, and the time of the setup kernel's per-segment
+    pass.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -59,6 +72,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +94,15 @@ CONFIG5_SHA256 = ("3294c70b55a4ba87991a4feefb9f38d6"
 #: issue no FMA, so this bound is generous by up to 2x)
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+
+
+def bound(ops, nbytes):
+    """-> (bound ms, "operations" or "bytes", the bound with the operations
+    at half the rate: what a kernel without FMA can reach)"""
+    t_ops, t_bytes = ops / F32_OPS_S, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes",
+            max(2 * t_ops, t_bytes) * 1e3)
 #: f32/int operations per audible voice-frame, counted from
 #: csrc/voicebank_render.cu (each add, mul, compare, select, conversion
 #: counts one; sin_turns is 16, expf about 8, an integer division about 20):
@@ -87,13 +110,18 @@ F32_OPS_S = 67e12
 OPS_COMMON = 23
 #: ... the FM phase offset where the voice has FM, the glide chirp ...
 OPS_FM, OPS_GLIDE = 32, 14
-#: ... and the waveform (8: per partial; 12: per sounding partial)
+#: ... and the waveform (8: per partial of nonzero weight; 12: per sounding
+#: partial)
 OPS_WAVE = {0: 18, 1: 6, 2: 2, 3: 4, 4: 2, 5: 9, 6: 8, 7: 32, 8: 21, 9: 22,
             10: 38, 11: 12, 12: 32}
 #: ... the closed forms of the curves, without the segment search: the bend
 #: chirp and its BLEP increment, the amplitude ramp and its product with
-#: the envelope, and the depth curve's eight trig evaluations and sums
-OPS_BEND, OPS_AMP, OPS_DMOD = 16, 5, 158
+#: the envelope, and the depth curve's five per-frame trig evaluations and
+#: sums (the three at the segment's first frame are the setup kernel's)
+OPS_BEND, OPS_AMP, OPS_DMOD = 16, 5, 110
+#: the setup kernel's per-segment pass: operations a segment of a pitch, an
+#: amplitude and a depth curve (three trig evaluations)
+OPS_SEGMENT = (4, 3, 60)
 
 
 def check(ok, what):
@@ -116,6 +144,9 @@ def main():
 
     dev = torch.device("cuda")
 
+    def sha16(pcm):
+        return hashlib.sha256(pcm.cpu().numpy().tobytes()).hexdigest()
+
     # -- 1. device -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -133,13 +164,27 @@ def main():
     path, log = K.build_library()
     K._library()
     print(f"  built {os.path.relpath(path)} in {time.perf_counter() - t0:.2f} s")
+    ptxas, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            print("  ptxas:", "setup_kernel" if "setup_kernel" in line
-                  else "render_kernel<curves>" if "ILb1E" in line
-                  else "render_kernel<no curves>")
+            entry = ("setup_kernel" if "setup_kernel" in line
+                     else "render_kernel<true>" if "ILb1E" in line
+                     else "render_kernel<false>")
+            ptxas[entry] = {}
+            print("  ptxas:", entry)
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_bytes", r"(\d+) bytes spill stores"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+                found = re.search(pat, line)
+                if found and entry:
+                    ptxas[entry][key] = int(found.group(1))
+    kernel_names = ("setup_kernel", "render_kernel<false>",
+                    "render_kernel<true>")
+    check(all(set(ptxas.get(k, ())) >= {"registers", "spill_bytes"}
+              for k in kernel_names),
+          f"ptxas resources of the three kernels: {ptxas}")
 
     def to16(x):
         return VoiceBank.to_int16(x).to(torch.int32)
@@ -181,7 +226,8 @@ def main():
     def setup_check(name, vp, layout):
         """Setup kernel vs voice_constants, every word bit-exact ->
         max |diff| over the f32 words."""
-        got, _ = K.voice_setup(vp, SR, layout.num_harmonics)
+        got, _, seg = K.voice_setup(vp, SR, layout.num_harmonics,
+                                    segments=True)
         want = K.voice_constants(vp, SR, layout.num_harmonics)
         torch.cuda.synchronize()
         f0 = K.CONST_COLUMNS.index("amp")
@@ -191,7 +237,47 @@ def main():
         err = float(torch.nan_to_num(diff, nan=0.0).max())
         check(torch.equal(got, want), f"{name}: setup kernel == "
               f"voice_constants, all {got.numel()} words bit-exact")
+        # the per-segment pass: the rows of the voices that carry the curve
+        flags = want[:, K.CONST_COLUMNS.index("flags")]
+        views = K.segment_views(seg, vp.wave.shape[0], vp.bend_start.shape[1],
+                                vp.acurve_start.shape[1],
+                                vp.dcurve_start.shape[1])
+        rows = [(flags & bit) != 0
+                for bit in (K.FLAG_BEND, K.FLAG_AMP, K.FLAG_DC)]
+        plain = K.curve_constants(vp)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g[r], w[r])
+                  for g, w, r in zip(views, plain, rows)),
+              f"{name}: per-segment buffer == curve_constants on "
+              f"{[int(r.sum()) for r in rows]} bend/amp/depth rows, bit-exact")
         return err
+
+    def window_count(name, vp, layout, n0, nframes, flags, idx=None,
+                     chunk_frames=0):
+        """The curve windows the last render looked up, and those it left
+        to the search of the whole row, against the plain predicate ->
+        (looked up, without a window, {curve: histogram of widths})."""
+        got = [int(x) for x in K.render_stereo.windows.tolist()]
+        act = K.active_voice_tiles(vp, n0, nframes, samplerate=SR,
+                                   layout=layout, idx=idx,
+                                   chunk_frames=chunk_frames)
+        need = K.curve_voices(vp, layout, use_bend=flags["use_bend"],
+                              use_amp=flags["use_amp"],
+                              use_dmod=flags["use_dmod"])
+        wins = K.tile_segment_windows(vp, n0, nframes)
+        looked = whole = 0
+        hist = {}
+        for i, curve in enumerate(K.CURVES):
+            first, last, fallback = wins[curve]
+            on = act & need[i][:, None]
+            looked += int(on.sum())
+            whole += int((on & fallback).sum())
+            hist[curve] = torch.bincount((last - first + 1)[on],
+                                         minlength=K.WINDOW + 2).tolist()
+        check(got == [looked, whole],
+              f"{name}: curve windows looked up {got[0]}, without a window "
+              f"{got[1]} == tile_segment_windows {looked}, {whole}")
+        return looked, whole, hist
 
     def bank_pair(voices, nframes, grouped=True):
         if grouped:
@@ -579,7 +665,8 @@ def main():
         audible = int(((t >= 0) & (t < t4[v])).sum())
         wid = int(vp.wave[v])
         per = (OPS_COMMON + OPS_WAVE.get(wid, 0)
-               * (layout.num_harmonics if wid == 8 else
+               * (int((vp.harm_amps[v, :layout.num_harmonics] != 0).sum())
+                  if wid == 8 else
                   int(col["pluck_ka"][v]) if wid == 12 else 1)
                + (OPS_FM if int(col["flags"][v]) & K.FLAG_FM_ON else 0)
                + (OPS_GLIDE if bank.use_glide and int(vp.glide_frames[v]) > 0
@@ -598,14 +685,40 @@ def main():
     H, Kp = layout.num_harmonics, (C - K.CONST_BASE) // 3
     setup_ops = (V * (60 + 30 * Kp + H + vp.table.shape[1])
                  + 90 * int(col["pluck_ka"].sum()))
-    render_bound = max(render_bytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
-    setup_bound = max(setup_bytes / HBM_BYTES_S, setup_ops / F32_OPS_S) * 1e3
+    render_bound, render_by, render_nofma = bound(ops, render_bytes)
+    setup_bound, setup_by, setup_nofma = bound(setup_ops, setup_bytes)
     print(f"  render bound: {ops:.4g} ops / {F32_OPS_S:.3g} op/s and "
           f"{render_bytes} B / {HBM_BYTES_S:.3g} B/s -> {render_bound:.6f} ms "
-          f"({'operations' if ops / F32_OPS_S > render_bytes / HBM_BYTES_S else 'bytes'}"
-          f"); kernel at {100 * render_bound / render_ms:.1f}% of it")
-    print(f"  setup bound: {setup_bound:.6f} ms; kernel at "
+          f"({render_by}; {render_nofma:.6f} ms at {F32_OPS_S / 2:.3g} op/s, "
+          f"the rate without FMA); kernel at "
+          f"{100 * render_bound / render_ms:.1f}% of it")
+    print(f"  setup bound: {setup_bound:.6f} ms ({setup_by}; "
+          f"{setup_nofma:.6f} ms without FMA); kernel at "
           f"{100 * setup_bound / setup_ms:.2f}% of it")
+
+    def song_bound(vpx, cols, bankx, totalx, extra_bytes):
+        """The render bound on a song: the closed forms on each voice's
+        audible frames [start, start + t4 * sr) inside the song, and the
+        bytes read once and written once -> (ops, bytes, *bound(...))."""
+        flx = cols["flags"]
+        t4x = cols["t4"].view(torch.float32).double()
+        startx = vpx.start.long()
+        endx = torch.clamp(startx + torch.ceil(t4x * SR).long(), max=totalx)
+        audible = torch.clamp(endx - torch.clamp(startx, min=0), min=0)
+        widx = vpx.wave.long()
+        per = torch.full_like(audible, OPS_COMMON)
+        sounding = (vpx.harm_amps[:, :bankx.num_harmonics] != 0).sum(dim=1)
+        for w_, o_ in OPS_WAVE.items():
+            per += (widx == w_) * o_ * (
+                sounding if w_ == 8 else
+                cols["pluck_ka"].long() if w_ == 12 else 1)
+        per += ((flx & K.FLAG_FM_ON) != 0).long() * OPS_FM
+        per += ((flx & K.FLAG_BEND) != 0).long() * OPS_BEND
+        per += ((flx & K.FLAG_AMP) != 0).long() * OPS_AMP
+        per += ((flx & K.FLAG_DC) != 0).long() * OPS_DMOD
+        opsx = int((audible * per).sum())
+        nbytes = totalx * 8 + extra_bytes
+        return (opsx, nbytes) + bound(opsx, nbytes)
 
     # -- 8. curves battery ----------------------------------------------
     print("[8] curves battery (kernel vs plain, 1 s, every wave x {bend, "
@@ -649,6 +762,137 @@ def main():
         setup_err = max(setup_err, setup_check(f"curves/{kind}", vpc, lyc))
     print(f"  {curve_tiles} voice-tiles evaluated over the per-wave banks")
 
+    # the per-tile segment windows, each path forced: every voice carries
+    # all three curves, whose segment starts are patched in after packing
+    W = K.WINDOW
+    I32 = 2 ** 31 - 1
+    patterns = {
+        "one segment a tile": ([0, 3 * T + 100, 6 * T + 100, 9 * T + 100],
+                               "none"),
+        f"exactly {W} a tile": (
+            [0] + [T + 10 + 100 * k for k in range(W - 1)]
+            + [5 * T + 1 + k for k in range(W - 1)], "none"),
+        f"{W + 1} a tile": ([0] + [2 * T + 10 + 10 * k for k in range(W)],
+                            "some"),
+        "unsorted rows": ([0, 4 * T, 2 * T, 6 * T], "all"),
+        "starts at tile edges": ([0, T - 1, T, T + 1, 3 * T - 1, 3 * T,
+                                  4 * T, 4 * T + 1], "none"),
+    }
+    nine = [0.03 * k for k in range(9)]
+    many = dict(
+        pitch_curve=tuple((t, 1.0 + 0.05 * ((k * 7) % 5 - 2))
+                          for k, t in enumerate(nine)),
+        amp_curve=tuple((t, 0.3 + 0.1 * ((k * 3) % 7))
+                        for k, t in enumerate(nine)),
+        fm_frequency=5.0,
+        fm_depth_curve=tuple((t, 0.004 * ((k * 5) % 6))
+                             for k, t in enumerate(nine)),
+        duration=0.3)
+    win_waves = ("sine", "sawtooth_bl", "harmonics", "square_bl", "triangle",
+                 "pluck", "wavetable")
+
+    def window_bank(starts, grouped, note_start, odd_start=None):
+        """-> (bank, vp, layout): one voice a waveform, each curve row's
+        starts replaced by ``starts`` (then INT32_MAX), every note at the
+        absolute frame ``note_start`` (every other one at ``odd_start``)."""
+        voices = [v for w in win_waves for v in wave_voices(w, 1, **many)]
+        if grouped:
+            vp, ly = pack_voices(voices, SR, num_harmonics=8,
+                                 sort_by_wave=True, device=dev)
+        else:
+            vp, ly = pack_voices(voices, SR, num_harmonics=8, device=dev), None
+        V = vp.wave.shape[0]
+
+        def patched(row):
+            new = torch.full_like(row, I32)
+            new[:, :len(starts)] = torch.tensor(starts, dtype=torch.int32,
+                                                device=dev)
+            return new
+
+        check(min(vp.bend_start.shape[1], vp.acurve_start.shape[1],
+                  vp.dcurve_start.shape[1]) >= len(starts),
+              f"the curve rows hold {len(starts)} starts")
+        note = torch.full((V,), note_start, dtype=torch.int32, device=dev)
+        if odd_start is not None:
+            note[1::2] = odd_start
+        vp = vp._replace(
+            start=note,
+            bend_start=patched(vp.bend_start),
+            acurve_start=patched(vp.acurve_start),
+            dcurve_start=patched(vp.dcurve_start))
+        bank = VoiceBank.for_voices(voices, SR, chunk_frames=T,
+                                    num_harmonics=8, layout=ly, device=dev)
+        return bank, vp, bank._kernel_layout(vp)
+
+    def window_case(name, bank, vp, layout, n0, nframes, expect):
+        nonlocal render_err, setup_err
+        flags = bank._flags()
+        kern = K.render_stereo(vp, n0, nframes=nframes, samplerate=SR,
+                               layout=layout, **flags)
+        looked, whole, hist = window_count(name, vp, layout, n0, nframes,
+                                           flags)
+        plain = K.render_stereo_reference(vp, n0, nframes=nframes,
+                                          samplerate=SR, layout=layout,
+                                          **flags)
+        render_err = max(render_err, compare(name, kern, plain))
+        setup_err = max(setup_err, setup_check(name, vp, layout))
+        check(looked > 0 and {"none": whole == 0, "all": whole == looked,
+                              "some": 0 < whole < looked}[expect],
+              f"{name}: {whole} of {looked} lookups search the whole row "
+              f"(expected: {expect}); widths {hist}")
+
+    for pname, (starts, expect) in patterns.items():
+        for grouped in (True, False):
+            lay = "grouped" if grouped else "mixed"
+            bank, vp, layout = window_bank(starts, grouped, 0)
+            window_case(f"windows/{pname}/{lay}", bank, vp, layout, 0,
+                        12 * T + 37, expect)
+    # a note that starts inside the first tile, past frame 2^24: tiles
+    # before the note, the tile that straddles its start, the depth curve's
+    # hoisted LFO phase at a large absolute frame
+    n0 = 2 ** 24 + 5 * T + 3
+    starts = patterns["starts at tile edges"][0]
+    bank, vp, layout = window_bank(starts, False, n0 + T + 7)
+    window_case("windows/past 2^24, tiles before the note", bank, vp, layout,
+                n0, 12 * T, "none")
+    # note-relative frames that wrap i32 inside tile 1 (the note "started"
+    # 2^31 - 700 frames before frame 0): that tile searches the whole row;
+    # the other half of the voices starts at frame 0
+    bank, vp, layout = window_bank(starts, False, 0, -2 ** 31 + 700)
+    window_case("windows/i32 wrap inside a tile", bank, vp, layout, 0,
+                6 * T, "some")
+
+    # harmonics of weight +0 and -0, which the curve kernel skips, under a
+    # short gate and a long release, and a sustain level above 1 (clipped)
+    def zero_weight_bank(grouped, **env):
+        voices = []
+        for i, w in enumerate(("sine", "sawtooth_bl", "harmonics",
+                               "square_bl", "harmonics", "pluck")):
+            v = wave_voices(w, 1)[0]
+            kw = dict(curves("all" if i % 2 == 0 else "amp"), start=0.0,
+                      duration=0.06, attack=0.005, decay=0.01, release=0.08)
+            if w == "harmonics":
+                kw["harmonics"] = ([1.0, 0.0, 0.33, 0.0, 0.2, 0.0, 0.0, 0.0],
+                                   [0.0, -0.0, 0.0, 0.5, -0.0, 0.0, 0.25,
+                                    0.0])[i // 4]
+            voices.append(dataclasses.replace(v, **{**kw, **env}))
+        if grouped:
+            vp, ly = pack_voices(voices, SR, num_harmonics=8,
+                                 sort_by_wave=True, device=dev)
+        else:
+            vp, ly = pack_voices(voices, SR, num_harmonics=8, device=dev), None
+        bank = VoiceBank.for_voices(voices, SR, chunk_frames=T,
+                                    num_harmonics=8, layout=ly, device=dev)
+        return bank, vp, bank._kernel_layout(vp)
+
+    for grouped in (True, False):
+        for ename, env in (("", {}), (", sustain level 1.5",
+                                      {"sustain_level": 1.5})):
+            name = (f"zero-weight harmonics/"
+                    f"{'grouped' if grouped else 'mixed'}{ename}")
+            bank, vp, layout = zero_weight_bank(grouped, **env)
+            window_case(name, bank, vp, layout, 0, 16 * T + 5, "none")
+
     # -- 9. sparse rows -----------------------------------------------------
     print("[9] sparse rows: bench.py's sparse workload (600 notes, 300 s, "
           "seed 5, chunk 131072)")
@@ -673,6 +917,8 @@ def main():
           f"({K.voice_setup.launches}, {K.render_stereo.launches})")
     check(torch.equal(sparse_s, flat_s), f"sparse == flat, bit-exact "
           f"({Vs} voices, K={Ks} rows of {nch_s} chunks)")
+    sparse_sha = sha16(VoiceBank.to_int16(sparse_s))
+    print(f"  sha256(int16) {sparse_sha}")
     ntiles_s = -(-nch_s * bs.chunk_frames // T)
     lay1 = K.BankLayout.ungrouped(Vs, bs.num_harmonics, bs.use_fm)
     want = int(K.active_voice_tiles(vps, 0, nch_s * bs.chunk_frames,
@@ -701,6 +947,14 @@ def main():
         for _ in range(3))
     print(f"  the plan's fn, 10 back to back (CUDA events): "
           f"{sparse_call_ms:.6f} ms a call")
+    cs = K.voice_constants(vps, SR, bs.num_harmonics)
+    cols_s = {name: cs[:, j] for j, name in enumerate(K.CONST_COLUMNS)}
+    ops_s, bytes_s, sparse_bound, sparse_by, sparse_nofma = song_bound(
+        vps, cols_s, bs, total_s, cs.numel() * 4 + idx_s.numel() * 4)
+    print(f"  sparse workload render bound: {ops_s:.4g} ops and {bytes_s} B "
+          f"-> {sparse_bound:.6f} ms ({sparse_by}; {sparse_nofma:.6f} ms "
+          f"without FMA); kernel at "
+          f"{100 * sparse_bound / max(sparse_kernel_ms, 1e-9):.1f}% of it")
     del flat_s, sparse_s, plain_s
 
     # -- 10. the MIDI path ----------------------------------------------------
@@ -723,6 +977,8 @@ def main():
     again = M.render_midi(data, device=dev).cpu()
     check(torch.equal(again, midi_pcm), "the whole file rendered twice, "
           "identical bytes")
+    midi_sha = sha16(midi_pcm)
+    print(f"  sha256(int16) {midi_sha}")
     mp = midi_pcm.numpy().astype(np.int64)
     clip = float((np.abs(mp) >= 32767).mean())
     check(midi_pcm.dtype == torch.int16 and midi_pcm.shape[1] == 2
@@ -756,6 +1012,7 @@ def main():
     fn_m, idx_m, pad_m, nch_m = plan
     f32m = step("kernels", lambda: fn_m(vpm, idx_m, pad_m, nch_m))
     tiles_m = int(K.render_stereo.voice_tiles.item())
+    windows_m = K.render_stereo.windows
     q16 = step("to_int16", lambda: VoiceBank.to_int16(f32m[:total_m]))
     host16 = step("copy", lambda: q16.cpu())
     check(torch.equal(host16, midi_pcm), "step by step == render_midi, "
@@ -772,12 +1029,25 @@ def main():
           f"CC1/pressure depth curves; K={idx_m.shape[1]} rows of {nch_m} "
           f"chunks; curve widths S={vpm.bend_start.shape[1]}, "
           f"KA={vpm.acurve_start.shape[1]}, KD={vpm.dcurve_start.shape[1]}")
+    weights_m = vpm.harm_amps[vpm.wave == 8][:, :bm.num_harmonics]
+    zero_weights = int((weights_m == 0).sum())
+    print(f"  {weights_m.shape[0]} harmonics voices: {zero_weights} of their "
+          f"{weights_m.numel()} weights are 0 (the curve kernel skips them)")
     lay_m = K.BankLayout.ungrouped(Vm, bm.num_harmonics, bm.use_fm)
     want = int(K.active_voice_tiles(vpm, 0, nch_m * bm.chunk_frames,
                                     samplerate=SR, layout=lay_m, idx=idx_m,
                                     chunk_frames=bm.chunk_frames).sum())
     check(tiles_m == want, f"MIDI voice-tiles evaluated {tiles_m} == "
           f"active_voice_tiles {want}")
+    K.render_stereo.windows = windows_m
+    looked_m, whole_m, hist_m = window_count(
+        "MIDI rows", vpm, lay_m, 0, nch_m * bm.chunk_frames, bm._flags(),
+        idx=idx_m, chunk_frames=bm.chunk_frames)
+    fallback_share = whole_m / max(looked_m, 1)
+    check(fallback_share < 0.05,
+          f"MIDI segment windows ({K.WINDOW} segments wide): widths "
+          f"{hist_m}; {whole_m} of {looked_m} (voice, tile, curve) lookups "
+          f"search the whole row, {100 * fallback_share:.4f}%")
     flat_m = K.render_stereo(vpm, 0, nframes=nch_m * bm.chunk_frames,
                              samplerate=SR, layout=lay_m, **bm._flags())
     tiles_mflat = int(K.render_stereo.voice_tiles.item())
@@ -836,36 +1106,70 @@ def main():
     print(f"  render_kernel without the rows (flat, same bank): "
           f"{midi_flat_ms:.6f} ms")
 
-    # the render bound on the MIDI song: the closed forms on each voice's
-    # audible frames [start, start + t4 * sr) inside the song
-    t4m = colm["t4"].view(torch.float32).double()
-    startm = vpm.start.long()
-    endm = torch.clamp(startm + torch.ceil(t4m * SR).long(), max=total_m)
-    audible = torch.clamp(endm - torch.clamp(startm, min=0), min=0)
-    wid = vpm.wave.long()
-    per = torch.full_like(audible, OPS_COMMON)
-    for w_, o_ in OPS_WAVE.items():
-        per += (wid == w_) * o_ * (bm.num_harmonics if w_ == 8 else 1)
-    per += ((fl & K.FLAG_FM_ON) != 0).long() * OPS_FM
-    per += ((fl & K.FLAG_BEND) != 0).long() * OPS_BEND
-    per += ((fl & K.FLAG_AMP) != 0).long() * OPS_AMP
-    per += ((fl & K.FLAG_DC) != 0).long() * OPS_DMOD
-    ops_m = int((audible * per).sum())
-    curve_bytes = sum(getattr(vpm, f).numel() * getattr(vpm, f).element_size()
-                      for f in K.CURVE_COLUMNS)
-    bytes_m = (total_m * 8 + cm.numel() * 4 + curve_bytes
-               + idx_m.numel() * 4)
-    midi_bound = max(bytes_m / HBM_BYTES_S, ops_m / F32_OPS_S) * 1e3
-    midi_bound_by = ("operations" if ops_m / F32_OPS_S > bytes_m / HBM_BYTES_S
-                     else "bytes")
+    # the setup kernel with and without its per-segment pass
+    Hm = bm.num_harmonics
+    prof_seg, _, _ = profiled(lambda: K.voice_setup(vpm, SR, Hm, True), 10)
+    prof_noseg, _, _ = profiled(lambda: K.voice_setup(vpm, SR, Hm), 10)
+    seg_setup_ms = pick(prof_seg, "setup_kernel")
+    noseg_setup_ms = pick(prof_noseg, "setup_kernel")
+    print(f"  setup_kernel alone (profiler, 10 calls each): "
+          f"{seg_setup_ms:.6f} ms with the per-segment pass, "
+          f"{noseg_setup_ms:.6f} ms without: the pass takes "
+          f"{seg_setup_ms - noseg_setup_ms:.6f} ms")
+
+    # the bounds on the MIDI song: the render reads the curve rows of the
+    # voices that carry the curve, from the per-segment buffer
+    seg_rows = [int(((fl & bit) != 0).sum()) * width for bit, width in (
+        (K.FLAG_BEND, vpm.bend_start.shape[1]),
+        (K.FLAG_AMP, vpm.acurve_start.shape[1]),
+        (K.FLAG_DC, vpm.dcurve_start.shape[1]))]
+    seg_bytes = sum(4 * n * w for n, w in zip(seg_rows, K.SEGMENT_WORDS))
+    ops_m, bytes_m, midi_bound, midi_bound_by, midi_nofma = song_bound(
+        vpm, colm, bm, total_m,
+        cm.numel() * 4 + seg_bytes + idx_m.numel() * 4)
     print(f"  MIDI render bound: {ops_m:.4g} ops and {bytes_m} B -> "
-          f"{midi_bound:.6f} ms ({midi_bound_by}); kernel at "
+          f"{midi_bound:.6f} ms ({midi_bound_by}; {midi_nofma:.6f} ms "
+          f"without FMA); kernel at "
           f"{100 * midi_bound / midi_render_ms:.1f}% of it")
+    # the setup kernel reads every voice's segment starts (the flag and the
+    # sorted test), and the other curve columns (three int64 of a bend
+    # segment, two f32 of an amplitude and three of a depth segment) only
+    # of the voices that carry the curve
+    curve_bytes = (sum(getattr(vpm, f).numel() * 4 for f in (
+        "bend_start", "acurve_start", "dcurve_start"))
+        + sum(n * b for n, b in zip(seg_rows, (24, 8, 12))))
+    Cm = cm.shape[1]
+    msetup_bytes = (sum(getattr(vpm, f).numel() * getattr(vpm, f).element_size()
+                        for f in K.KERNEL_COLUMNS) + vpm.table.numel() * 4
+                    + vpm.harm_amps[:, :Hm].numel() * 4 + cm.numel() * 4
+                    + curve_bytes + seg_bytes)
+    msetup_ops = (Vm * (60 + 30 * ((Cm - K.CONST_BASE) // 3) + Hm
+                        + vpm.table.shape[1])
+                  + 90 * int(colm["pluck_ka"].sum())
+                  + 2 * sum(getattr(vpm, f).numel() for f in (
+                      "bend_start", "acurve_start", "dcurve_start"))
+                  + sum(n * o for n, o in zip(seg_rows, OPS_SEGMENT)))
+    msetup_bound, msetup_by, msetup_nofma = bound(msetup_ops, msetup_bytes)
+    print(f"  MIDI setup bound: {msetup_ops:.4g} ops and {msetup_bytes} B -> "
+          f"{msetup_bound:.6f} ms ({msetup_by}; {msetup_nofma:.6f} ms "
+          f"without FMA); kernel at "
+          f"{100 * msetup_bound / midi_setup_ms:.1f}% of it")
     midi = {"midi_launches": midi_launches,
             "midi_setup_ms": midi_setup_ms, "midi_render_ms": midi_render_ms,
+            "midi_sha256": midi_sha, "sparse_workload_sha256": sparse_sha,
             "midi_render_flat_ms": midi_flat_ms,
             "midi_voice_tiles": tiles_m, "midi_bound_ms": midi_bound,
             "midi_bound_by": midi_bound_by,
+            "midi_bound_nofma_ms": midi_nofma,
+            "midi_windows": looked_m, "midi_window_hist": hist_m,
+            "midi_fallback_share": fallback_share,
+            "midi_zero_harmonic_weights": zero_weights,
+            "midi_harmonic_weights": weights_m.numel(),
+            "midi_registers": ptxas["render_kernel<true>"]["registers"],
+            "midi_spill_bytes": ptxas["render_kernel<true>"]["spill_bytes"],
+            "sparse_workload_bound_ms": sparse_bound,
+            "sparse_workload_bound_by": sparse_by,
+            "sparse_workload_bound_nofma_ms": sparse_nofma,
             "midi_plain_window_ms": midi_plain_ms,
             "midi_plain_window_frames": plain_frames,
             "midi_wall_ms": statistics.median(midi_wall),
@@ -879,18 +1183,20 @@ def main():
          "replaces": "synthesizer_tpu/ops/kernels.py:58",
          "launches": launches["voicebank_setup"], "max_abs_err": setup_err,
          "ms": setup_ms, "plain_ms": plain_setup_ms, "bound_ms": setup_bound,
-         "bound_by": ("operations" if setup_ops / F32_OPS_S
-                      > setup_bytes / HBM_BYTES_S else "bytes"),
-         "library_ms": None,
+         "bound_by": setup_by, "library_ms": None,
+         "bound_nofma_ms": setup_nofma, **ptxas["setup_kernel"],
          "midi_launches": midi_launches["voicebank_setup"],
-         "midi_ms": midi_setup_ms},
+         "midi_ms": midi_setup_ms, "midi_bound_ms": msetup_bound,
+         "midi_bound_by": msetup_by, "midi_bound_nofma_ms": msetup_nofma,
+         "midi_segment_pass_ms": seg_setup_ms - noseg_setup_ms,
+         "midi_ms_without_segment_pass": noseg_setup_ms},
         {"name": "voicebank_render", "route": "cuda", "source": src,
          "replaces": "synthesizer_tpu/ops/kernels.py:58",
          "launches": launches["voicebank_render"], "max_abs_err": render_err,
          "ms": render_ms, "plain_ms": plain_ms, "bound_ms": render_bound,
-         "bound_by": ("operations" if ops / F32_OPS_S
-                      > render_bytes / HBM_BYTES_S else "bytes"),
-         "library_ms": None, "voice_tiles": tiles5,
+         "bound_by": render_by, "library_ms": None,
+         "bound_nofma_ms": render_nofma, **ptxas["render_kernel<false>"],
+         "voice_tiles": tiles5,
          "render_song_ms": statistics.median(song_ms),
          "render_chunk_ms": statistics.median(chunk_ms),
          "main_path_ms": statistics.median(wall),

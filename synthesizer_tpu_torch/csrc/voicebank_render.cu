@@ -1,5 +1,6 @@
 // Fused voice-bank render for NVIDIA Hopper (sm_90a): a per-voice setup
-// kernel and a tiled render kernel that skips silent voice-tiles.
+// kernel and a tiled render kernel that skips silent voice-tiles and looks
+// curve segments up once per voice and tile.
 //
 // Replaces the TPU kernel synthesizer_tpu/ops/kernels.py::_kernel (launched
 // by render_stereo_pallas).  It computes what the reference's plain
@@ -34,11 +35,12 @@
 //     partial amplitude, phase and decay) into a [V, C] u32 buffer.  Each
 //     value is the same f32 expression, in the same order, as the per-
 //     frame code it replaces, so hoisting changes no bit.
-//   * render_kernel gives each block a tile of kTile contiguous frames,
-//     kFrames a thread (strided by kThreads, so every store is coalesced),
-//     one f32 L/R accumulator pair per frame.  512-frame tiles give a
-//     131072-frame chunk 256 blocks and a 60 s song 5168, both well over
-//     the card's 132 SMs.
+//   * render_kernel gives each block a tile of kTile = 512 contiguous
+//     frames, a few frames a thread (strided by the block's threads, so
+//     every store is coalesced: 4 frames on 128 threads in the curve-free
+//     kernel, 2 on 256 in the curve kernel), one f32 L/R accumulator pair
+//     per frame.  512-frame tiles give a 131072-frame chunk 256 blocks and
+//     a 60 s song 5168, both well over the card's 132 SMs.
 //   * At the start of a tile the block tests each voice in packed order
 //     and keeps, with a ballot and a prefix count, an order-preserving list
 //     of the voices that may sound in it; their constants are staged in
@@ -54,26 +56,72 @@
 //     evaluated on every tile, as the plain version does.
 //   * The tile then loops over the active list: voices outside, the
 //     thread's frames inside, so the waveform switch is block-uniform and
-//     a partial's amplitude or a harmonic's weight is loaded once for
-//     kFrames frames.  Voices are walked in chunks of kThreads, so any V
-//     fits the fixed shared memory.
-//   * The block adds the voice-tiles it evaluated to one int32 (integer
-//     atomics: the total does not depend on the order).
+//     a partial's amplitude or a harmonic's weight is loaded once for the
+//     thread's frames.  Voices are walked in chunks of the block's threads,
+//     so any V fits the fixed shared memory.
+//   * The block adds the voice-tiles it evaluated, and the curve kernel
+//     the windows it looked up and those it left to the whole-row search,
+//     to int32 counters (integer atomics: the totals do not depend on the
+//     order).
 //   * Curves: a voice's active segment at frame m is the count of its
 //     segment starts <= m, minus one, clamped to [0, S-1], as the plain
 //     version counts it.  The starts of a packed row are non-decreasing,
-//     so a binary search over the row gives that count; the setup kernel
-//     checks each row and a row that is not sorted is counted linearly.
+//     so a binary search (upper bound) over the row gives that count; the
+//     setup kernel checks each row and a row that is not sorted is counted
+//     linearly.  Searched per frame in global memory, as a first version
+//     did, the curves bound the kernel by latency, not by operations: up
+//     to 21 dependent loads a voice-frame before any arithmetic.  A
+//     512-frame tile is 11.6 ms of audio, and a controller curve has a
+//     segment or two in it, so the lookups are made per (voice, tile) and
+//     the segments' values per (voice, segment):
+//       - the setup kernel's per-segment pass (lanes over segments) packs
+//         each curve row into 16-byte entries (struct Segments): the u32
+//         bend values out of their int64 columns, and for a depth segment
+//         the three of the integral's eight trig evaluations that depend
+//         only on the segment's first frame.  Same f32 expressions, same
+//         order: no bit changes.  Only rows of voices that carry the
+//         curve are written; a curve-free bank has no such buffer;
+//       - render_kernel<true> walks a tile's list kBatch voices at a
+//         time.  For each listed voice and curve one thread finds the
+//         segment at the tile's first frame (the one binary search),
+//         reads that entry and the next kWin with independent 16-byte
+//         loads, counts those that start by the tile's last frame, and
+//         stages up to kWin entries in shared memory (struct Window);
+//       - per frame, voice_phase counts the starts <= m over the window's
+//         entries after the first (none for the usual one-segment
+//         window) and reads the entry from shared memory.  The count
+//         over the whole row is the first segment's index plus that
+//         count, because the row is sorted;
+//       - a span of more than kWin segments, an unsorted row, or note-
+//         relative frames that wrap i32 inside the tile leave the tile
+//         without a window: its frames search the whole row in global
+//         memory as before (counted, so a run can tell their share).
+//     kBatch = 32 keeps the block's shared memory at about 15 KB (4 KB of
+//     constants, 8 KB of windows), so shared memory allows 15 blocks an
+//     SM and the registers decide the occupancy.
 //     Bend and depth curves move only the phase, which stays an integer,
 //     so a culled voice's waveform stays finite.  An amplitude curve
 //     scales the envelope: the setup kernel keeps such a voice cull-safe
 //     only if every gain its segments can reach (the ends of each ramp,
-//     g0 + f32(L) * dg) lies within +-2^32.  The curve code lives only
-//     in render_kernel<true>, launched for banks with curves: a
-//     curve-free bank runs render_kernel<false>, the code without them
-//     (the curves' registers would otherwise slow it), and curve-free
-//     voices in a curve bank skip every curve branch (block-uniform
-//     flags).
+//     g0 + f32(L) * dg) lies within +-2^32.
+//   * Two kernels from one source.  The curve code lives only in
+//     render_kernel<true>, launched for banks with curves: a curve-free
+//     bank runs render_kernel<false>, the code without them, with every
+//     part of a voice specialised per waveform, in 48 registers.  In the
+//     curve kernel that layout (the curve code once per waveform) made a
+//     program of tens of thousands of SASS operations, most of them
+//     fetched once per voice and tile, and fetching the code, not the
+//     arithmetic, bound it.  So there the voice is cut in three: phase and
+//     curves (voice_phase) and envelope and mix (voice_mix) are held once,
+//     and only the waveform (voice_wave) is switched; the whole-row
+//     searches stay rolled loops.  That program is about a tenth as long.
+//     What then bounds it is the dispatch rate with too few independent
+//     chains in flight, so the curve kernel takes 2 frames a thread on 256
+//     threads in 64 registers (4 blocks = 32 warps an SM, no spill) rather
+//     than 4 frames on 128 threads in 80 or more.
+//   * Work the data does not need is skipped where that changes no bit:
+//     a harmonic of weight 0 (most General-MIDI timbres use 4 or 5 of the
+//     8) is not evaluated.
 //   * Sparse rows: a tile's chunk row lists the voices that may sound in
 //     the chunk in ascending packed order, sentinel slots (== V) skipped;
 //     the exact tile test then applies as before.  Rows the plan dropped
@@ -93,12 +141,17 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kFrames = 4;                    // frames per thread
-constexpr int kTile = kThreads * kFrames;     // frames per block
-constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 512;                    // frames per block
+// threads per block: 4 frames a thread in the curve-free kernel, 2 in the
+// curve kernel
+constexpr int kPlainThreads = 128;
+constexpr int kCurveThreads = 256;
+// blocks an SM the curve kernel is held to (64 registers a thread)
+constexpr int kCurveBlocks = 4;
 constexpr int kMaxGroups = 16;
 constexpr int kTableLen = 256;
+constexpr int kBatch = 32;    // voices staged at a time by the curve kernel
+constexpr int kWin = 4;       // segments of one curve in a tile's window
 
 // The VoiceParams columns the setup kernel reads, in the order of
 // KERNEL_COLUMNS in ops/kernels.py.  u32 fields are int64 tensors holding
@@ -139,6 +192,11 @@ constexpr uint32_t kDcSorted = 256u;
 // bits of the render's `modes` argument (the bank's static flags)
 constexpr int kGlide = 1, kUseBend = 2, kUseAmp = 4, kUseDmod = 8;
 constexpr float kCullMax = 4294967296.0f;   // 2^32
+// the int32 counters after the constants: voice-tiles the render evaluated,
+// and from the curve kernel the curve windows it looked up (one per
+// voice-tile and curve the voice carries) and those of them that search the
+// whole row per frame
+constexpr int kCounts = 3;
 
 // (wave id or -1 for a mixed group, has_fm, first voice, voice count) and
 // each group's first slot in the walk over all groups' voices
@@ -174,6 +232,38 @@ struct Curves {
   int S, KA, KD;
 };
 constexpr int kCurveCols = 11;
+
+// The per-segment buffer the setup kernel writes for a bank with curves,
+// in 16-byte entries: bend rows [V, S] (start, bend_phase, bend_inc,
+// bend_d), then amplitude rows [V, KA] (start, g0, dg, 0), then depth rows
+// [V, KD] of two entries (start, c, a, b) and (ph_j, cos_turns(x(ph_j -
+// fm_inc / 2)), sin_turns(x(ph_j)), cos_turns(x(ph_j))), ph_j the LFO
+// phase at the segment's first frame; f32 values as their bits.  Only the
+// rows of voices that carry the curve's flag are written and read.
+struct Segments {
+  uint4* bend;
+  uint4* amp;
+  uint4* depth;
+};
+
+__device__ __forceinline__ Segments segment_rows(uint32_t* seg, int V,
+                                                 const Curves& cv) {
+  Segments sg;
+  sg.bend = reinterpret_cast<uint4*>(seg);
+  sg.amp = sg.bend + (size_t)V * cv.S;
+  sg.depth = sg.amp + (size_t)V * cv.KA;
+  return sg;
+}
+
+// One listed voice on one tile, as the curve kernel's window pass leaves
+// it in shared memory: for each curve (bend, amplitude, depth) the segments
+// the tile's frames can reach (`width` entries from the first one at
+// s + k * kWin; 0 = the tile searches the whole row in global memory, -1 =
+// the voice does not carry the curve).
+struct Window {
+  const uint4* s;
+  int width[3];
+};
 
 // f32 constants, bit-exact to the numpy values the reference uses
 constexpr float kTwoNeg32 = 0x1p-32f;
@@ -262,11 +352,13 @@ __device__ __forceinline__ int seg_index(const int32_t* st, int S, int m,
   int cnt = 0;
   if (sorted) {
     int hi = S;
+#pragma unroll 1
     while (cnt < hi) {
       const int mid = (cnt + hi) >> 1;
       if (st[mid] <= m) cnt = mid + 1; else hi = mid;
     }
   } else {
+#pragma unroll 1
     for (int s = 0; s < S; ++s) cnt += st[s] <= m ? 1 : 0;
   }
   return min(max(cnt - 1, 0), S - 1);
@@ -292,8 +384,8 @@ __global__ void __launch_bounds__(32 * kSetupWarps)
 setup_kernel(Columns cols, Curves cv, const float* __restrict__ harm,
              int harm_stride, const float* __restrict__ table, int V, int H,
              float sr_r, uint32_t* __restrict__ consts, int C,
-             int* __restrict__ voice_tiles) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) *voice_tiles = 0;
+             uint32_t* __restrict__ seg, int* __restrict__ counts) {
+  if (blockIdx.x == 0 && threadIdx.x < kCounts) counts[threadIdx.x] = 0;
   const int lane = threadIdx.x & 31;
   const int v = blockIdx.x * kSetupWarps + (threadIdx.x >> 5);
   if (v >= V) return;                           // the whole warp
@@ -330,6 +422,46 @@ setup_kernel(Columns cols, Curves cv, const float* __restrict__ harm,
     gains_ok = gains_ok & within(g0) & within(g1);
   }
   gains_ok = __all_sync(0xffffffffu, gains_ok);
+
+  // per-segment constants of the voice's curves, lanes over segments: each
+  // value the same expression as the per-frame code it replaces
+  if (seg != nullptr) {
+    const Segments sg = segment_rows(seg, V, cv);
+    if (bst[0] == 0) {
+      uint4* row = sg.bend + (size_t)v * cv.S;
+      const size_t at = (size_t)v * cv.S;
+      for (int k = lane; k < cv.S; k += 32)
+        row[k] = make_uint4((uint32_t)bst[k], (uint32_t)cv.bend_phase[at + k],
+                            (uint32_t)cv.bend_inc[at + k],
+                            (uint32_t)cv.bend_d[at + k]);
+    }
+    if (ast[0] == 0) {
+      uint4* row = sg.amp + (size_t)v * cv.KA;
+      const size_t at = (size_t)v * cv.KA;
+      for (int k = lane; k < cv.KA; k += 32)
+        row[k] = make_uint4((uint32_t)ast[k],
+                            __float_as_uint(cv.acurve_g0[at + k]),
+                            __float_as_uint(cv.acurve_dg[at + k]), 0u);
+    }
+    const uint32_t finc = u32(FM_INC);
+    if (dst[0] == 0 && finc != 0u) {
+      uint4* row = sg.depth + (size_t)v * cv.KD * 2;
+      const size_t at = (size_t)v * cv.KD;
+      const uint32_t fp0 = u32(FM_PHASE0), half = finc >> 1;
+      const uint32_t start = (uint32_t)i32(START);
+      for (int k = lane; k < cv.KD; k += 32) {
+        const uint32_t ph_j = fp0 + (start + (uint32_t)dst[k]) * finc;
+        const float xj = phase_x(ph_j);
+        row[2 * k] = make_uint4((uint32_t)dst[k],
+                                __float_as_uint(cv.dcurve_c[at + k]),
+                                __float_as_uint(cv.dcurve_a[at + k]),
+                                __float_as_uint(cv.dcurve_b[at + k]));
+        row[2 * k + 1] = make_uint4(
+            ph_j, __float_as_uint(cos_turns(phase_x(ph_j - half))),
+            __float_as_uint(sin_turns(xj)), __float_as_uint(cos_turns(xj)));
+      }
+    }
+  }
 
   // pluck: partial k sounds iff k*inc < 2^31, which holds for k <= ka;
   // the denominator is summed serially in k order by every lane
@@ -421,41 +553,77 @@ setup_kernel(Columns cols, Curves cv, const float* __restrict__ harm,
 }
 
 // ---------------------------------------------------------------------------
-// Render: one voice's contribution to the thread's kFrames frames.
+// Render: one voice's contribution to the thread's NF frames.
 // ---------------------------------------------------------------------------
 
-template <int WID, bool CURVES>
-__device__ __forceinline__ void add_voice(
-    const uint32_t* c, const uint32_t* __restrict__ partials,
-    const float* __restrict__ harm, const float* __restrict__ table, int H,
-    bool fm, int modes, const Curves& cv, size_t v, const int (&n)[kFrames],
-    float sr_r, float (&acc_l)[kFrames], float (&acc_r)[kFrames]) {
+// Curve k's active segment at each of the thread's frames m, as an index
+// into the voice-tile's window: the count of starts <= m over the window
+// in shared memory (its first entry is the tile's first segment, so the
+// count runs over the others), or, where the tile has no window, the
+// search of the whole row in global memory.  STRIDE entries a segment.
+template <int STRIDE, int NF>
+__device__ __forceinline__ void segment_at(
+    const Window& win, int k, const int32_t* st, int S, bool sorted,
+    const int (&m)[NF], int (&at)[NF]) {
+  const int width = win.width[k];
+  if (width > 0) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) at[f] = 0;
+    for (int w = 1; w < width; ++w) {
+      const int start = (int)win.s[k * kWin + STRIDE * w].x;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) at[f] += start <= m[f] ? 1 : 0;
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) at[f] = seg_index(st, S, m[f], sorted);
+  }
+}
+
+// entry i of curve k's window or, without a window, of the voice's whole
+// row `g` of the per-segment buffer
+__device__ __forceinline__ uint4 entry(const Window& win, int k,
+                                       const uint4* g, int i) {
+  return win.width[k] > 0 ? win.s[k * kWin + i] : g[i];
+}
+
+// A voice's contribution in three parts.  The first and the last do not
+// depend on the waveform, so the curve kernel, whose first part is long,
+// holds them once and switches only over the second (voice_wave); the
+// curve-free kernel holds all three once per waveform (eval_voice).
+
+// Part 1: the note-relative frame m, the phase p and the instantaneous
+// increment inst at each of the thread's frames, under glide, FM and the
+// pitch and depth curves, and the amplitude curve's gain -> whether the
+// voice has an amplitude curve.
+template <bool CURVES, int NF>
+__device__ __forceinline__ bool voice_phase(
+    const uint32_t* c, bool fm, int modes, const Curves& cv,
+    const Segments& sg, const Window& win, size_t v,
+    const int (&n)[NF], int (&m)[NF], uint32_t (&p)[NF],
+    uint32_t (&inst)[NF], float (&gain)[NF]) {
   const uint32_t inc = c[K_INC], phase0 = c[K_PHASE0];
   const uint32_t start = c[K_START], flags = c[K_FLAGS];
-  uint32_t p[kFrames], inst[kFrames];
-  int m[kFrames];                                   // note-relative frame
 #pragma unroll
-  for (int f = 0; f < kFrames; ++f) {
+  for (int f = 0; f < NF; ++f) {
     m[f] = (int)((uint32_t)n[f] - start);
     p[f] = phase0 + (uint32_t)n[f] * inc;
     inst[f] = inc;
   }
   const bool chirp = c[K_WAVE] != 12u;              // pluck keeps one pitch
-  if (CURVES && (modes & kUseBend) && (flags & kBend)
-      && (chirp || WID == 9 || WID == 10)) {
+  if (CURVES && win.width[0] >= 0) {
     // pitch curve: the glide chirp per segment, anchored at the segment's
     // exact phase (reference _phases and _inst_inc)
-    const int32_t* st = cv.bend_start + v * cv.S;
-    const bool sorted = (flags & kBendSorted) != 0;
+    int at[NF];
+    segment_at<1, NF>(win, 0, cv.bend_start + v * cv.S, cv.S,
+                  (flags & kBendSorted) != 0, m, at);
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
-      const int j = seg_index(st, cv.S, m[f], sorted);
-      const uint32_t ph = (uint32_t)cv.bend_phase[v * cv.S + j];
-      const uint32_t bi = (uint32_t)cv.bend_inc[v * cv.S + j];
-      const uint32_t bd = (uint32_t)cv.bend_d[v * cv.S + j];
-      const uint32_t mrel = (uint32_t)m[f] - (uint32_t)st[j];
-      if (chirp) p[f] = phase0 + ph + mrel * bi + bd * tri_u32(mrel);
-      inst[f] = bi + (uint32_t)max((int)mrel, 0) * bd;
+    for (int f = 0; f < NF; ++f) {
+      const uint4 e = entry(win, 0, sg.bend + v * cv.S, at[f]);
+      // start, phase, inc, d
+      const uint32_t mrel = (uint32_t)m[f] - e.x;
+      if (chirp) p[f] = phase0 + e.y + mrel * e.z + e.w * tri_u32(mrel);
+      inst[f] = e.z + (uint32_t)max((int)mrel, 0) * e.w;
     }
   }
   const int G = (int)c[K_GLIDE_FRAMES];
@@ -464,7 +632,7 @@ __device__ __forceinline__ void add_voice(
     const uint32_t inc0 = c[K_GLIDE_INC0], d = c[K_GLIDE_D];
     const uint32_t Gu = (uint32_t)G, phase_g = c[K_PHASE_G], inc_g = c[K_INC_G];
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
+    for (int f = 0; f < NF; ++f) {
       const uint32_t mu = (uint32_t)m[f];
       if (chirp) {
         const uint32_t during = inc0 * mu + d * tri_u32(mu);
@@ -474,30 +642,34 @@ __device__ __forceinline__ void add_voice(
       inst[f] = inc0 + (uint32_t)min(max(m[f], 0), G) * d;
     }
   }
-  const bool dc = CURVES && (modes & kUseDmod) && (flags & kDc);
+  const bool dc = CURVES && win.width[2] >= 0;
   if (dc || ((fm || (CURVES && (modes & kUseDmod))) && (flags & kFmOn))) {
     // exact discrete FM integral: delta = inc * depth * S_n, or under a
-    // depth curve the reference's _dmod_delta (eight trig evaluations)
+    // depth curve the reference's _dmod_delta: of its eight trig
+    // evaluations the three at the segment's first frame come from the
+    // setup kernel, five are left per frame
     const uint32_t finc = c[K_FM_INC], fp0 = c[K_FM_PHASE0];
     const uint32_t half = finc >> 1;
     const float c0 = f32_of(c, K_FM_C0), rr = f32_of(c, K_FM_R);
     const float scale = f32_of(c, K_FM_SCALE);
-    const int32_t* st = cv.dcurve_start + v * cv.KD;
-    const bool sorted = (flags & kDcSorted) != 0;
+    const float r2 = rr * rr;
+    int at[NF];
+    if (dc)
+      segment_at<2, NF>(win, 2, cv.dcurve_start + v * cv.KD, cv.KD,
+                    (flags & kDcSorted) != 0, m, at);
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
+    for (int f = 0; f < NF; ++f) {
       const uint32_t fp = fp0 + (uint32_t)n[f] * finc;
       float delta;
       if (dc) {
-        const int j = seg_index(st, cv.KD, m[f], sorted);
-        const float cj = cv.dcurve_c[v * cv.KD + j];
-        const float a = cv.dcurve_a[v * cv.KD + j];
-        const float b = cv.dcurve_b[v * cv.KD + j];
-        const uint32_t ph_j = fp0 + (start + (uint32_t)st[j]) * finc;
-        const float r2 = rr * rr;
-        const float s1 = (cos_turns(phase_x(ph_j - half))
+        // (start, c, a, b) and (ph_j, cos(x(ph_j - half)), sin(x(ph_j)),
+        // cos(x(ph_j)))
+        const uint4* g = sg.depth + v * cv.KD * 2;
+        const uint4 lo = entry(win, 2, g, 2 * at[f]);
+        const uint4 hi = entry(win, 2, g, 2 * at[f] + 1);
+        const float s1 = (__uint_as_float(hi.y)
                           - cos_turns(phase_x(fp - half))) * rr;
-        int K = (int)((uint32_t)m[f] - (uint32_t)st[j] - 1u);
+        int K = (int)((uint32_t)m[f] - lo.x - 1u);
         K = K > 0 ? K : 0;                          // L-1, clamped
         const uint32_t Ku = (uint32_t)K;
         const float xK = phase_x(Ku * finc);
@@ -505,9 +677,10 @@ __device__ __forceinline__ void add_voice(
         const float Kf = (float)K;
         const float A = sin_turns(xK) * r2 - Kf * cos_turns(xKh) * rr;
         const float B = Kf * sin_turns(xKh) * rr - (1.0f - cos_turns(xK)) * r2;
-        const float xj = phase_x(ph_j);
-        const float s2 = sin_turns(xj) * B + cos_turns(xj) * A;
-        delta = __uint2float_rn(inc) * (cj + a * s1 + b * s2);
+        const float s2 = __uint_as_float(hi.z) * B + __uint_as_float(hi.w) * A;
+        delta = __uint2float_rn(inc) * (__uint_as_float(lo.y)
+                                        + __uint_as_float(lo.z) * s1
+                                        + __uint_as_float(lo.w) * s2);
       } else {
         const float s_n = (c0 - cos_turns(phase_x(fp - half))) * rr;
         delta = scale * s_n;
@@ -518,50 +691,64 @@ __device__ __forceinline__ void add_voice(
     }
   }
   // amplitude curve: gain g0 + f32(max(m - start_j, 0)) * dg
-  float gain[kFrames];
-  const bool amp_curve = CURVES && (modes & kUseAmp) && (flags & kAmpCurve);
+  const bool amp_curve = CURVES && win.width[1] >= 0;
   if (amp_curve) {
-    const int32_t* st = cv.acurve_start + v * cv.KA;
-    const bool sorted = (flags & kAmpSorted) != 0;
+    int at[NF];
+    segment_at<1, NF>(win, 1, cv.acurve_start + v * cv.KA, cv.KA,
+                  (flags & kAmpSorted) != 0, m, at);
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
-      const int j = seg_index(st, cv.KA, m[f], sorted);
-      const int k = (int)((uint32_t)m[f] - (uint32_t)st[j]);
-      gain[f] = cv.acurve_g0[v * cv.KA + j]
-              + (float)(k > 0 ? k : 0) * cv.acurve_dg[v * cv.KA + j];
+    for (int f = 0; f < NF; ++f) {
+      const uint4 e = entry(win, 1, sg.amp + v * cv.KA, at[f]);
+      // start, g0, dg
+      const int k = (int)((uint32_t)m[f] - e.x);
+      gain[f] = __uint_as_float(e.y)
+              + (float)(k > 0 ? k : 0) * __uint_as_float(e.z);
     }
   }
+  return amp_curve;
+}
 
-  float w[kFrames];
+// Part 2: the waveform WID at phase p (and, for polyBLEP, increment inst);
+// with SKIP, harmonics of weight 0 are not evaluated
+template <int WID, bool SKIP, int NF>
+__device__ __forceinline__ void voice_wave(
+    const uint32_t* c, const uint32_t* __restrict__ partials,
+    const float* __restrict__ harm, const float* __restrict__ table, int H,
+    const int (&n)[NF], const int (&m)[NF],
+    const uint32_t (&p)[NF], const uint32_t (&inst)[NF],
+    float (&w)[NF]) {
   if constexpr (WID == 8 || WID == 12) {
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) w[f] = 0.0f;
+    for (int f = 0; f < NF; ++f) w[f] = 0.0f;
   }
   if constexpr (WID == 8) {
+    // a harmonic of weight 0 adds +-0 to w, which starts at +0 and so is
+    // never -0: skipping it changes no bit
     for (int k = 1; k <= H; ++k) {
       const float h = harm[k - 1];
+      if (SKIP && h == 0.0f) continue;
 #pragma unroll
-      for (int f = 0; f < kFrames; ++f)
+      for (int f = 0; f < NF; ++f)
         w[f] = w[f] + h * sin_turns(phase_x(p[f] * (uint32_t)k));
     }
   } else if constexpr (WID == 12) {
     // Karplus-Strong in spectral form (spec: goldref/spec.py)
-    float nrel[kFrames];
+    float nrel[NF];
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) nrel[f] = (float)(m[f] > 0 ? m[f] : 0);
+    for (int f = 0; f < NF; ++f) nrel[f] = (float)(m[f] > 0 ? m[f] : 0);
     const int ka = (int)c[K_PLUCK_KA];
     for (int k = 1; k <= ka; ++k, partials += 3) {
       const float ud = __uint_as_float(partials[0]);
       const uint32_t phi = partials[1];
       const float alpha = __uint_as_float(partials[2]);
 #pragma unroll
-      for (int f = 0; f < kFrames; ++f)
+      for (int f = 0; f < NF; ++f)
         w[f] = w[f] + ud * expf(nrel[f] * alpha)
                     * sin_turns(phase_x(p[f] * (uint32_t)k + phi));
     }
   } else {
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
+    for (int f = 0; f < NF; ++f) {
       const float x = phase_x(p[f]);
       if constexpr (WID == 0) {
         w[f] = sin_turns(x);
@@ -609,7 +796,15 @@ __device__ __forceinline__ void add_voice(
       }
     }
   }
+}
 
+// Part 3: the ADSR envelope (times the amplitude curve's gain), amplitude,
+// bias and pan, added to the thread's accumulators
+template <int NF>
+__device__ __forceinline__ void voice_mix(
+    const uint32_t* c, const int (&m)[NF], const float (&w)[NF],
+    const float (&gain)[NF], bool amp_curve, float sr_r,
+    float (&acc_l)[NF], float (&acc_r)[NF]) {
   const float amp = f32_of(c, K_AMP), bias = f32_of(c, K_BIAS);
   const float lg = f32_of(c, K_LG), rg = f32_of(c, K_RG);
   const float a = f32_of(c, K_A), t2 = f32_of(c, K_T2), t3 = f32_of(c, K_T3);
@@ -617,7 +812,7 @@ __device__ __forceinline__ void add_voice(
   const float a_r = f32_of(c, K_A_R), d_r = f32_of(c, K_D_R);
   const float r_r = f32_of(c, K_R_R);
 #pragma unroll
-  for (int f = 0; f < kFrames; ++f) {
+  for (int f = 0; f < NF; ++f) {
     const float t = (float)m[f] * sr_r;
     float g = t < a ? t * a_r
             : t < t2 ? 1.0f + (sl - 1.0f) * (t - a) * d_r
@@ -633,19 +828,183 @@ __device__ __forceinline__ void add_voice(
   }
 }
 
+// One voice of the tile's list, by its waveform (block-uniform).  The
+// curve kernel switches over voice_wave alone: with the curve code once
+// per waveform its program would be some ten times as long, fetched once
+// a voice-tile, and fetching the code would bound it.
+template <bool CURVES, int NF>
+__device__ __forceinline__ void eval_voice(
+    int code, const uint32_t* c, const uint32_t* __restrict__ consts, int C,
+    const float* __restrict__ harm, int harm_stride,
+    const float* __restrict__ table, int H, int modes, const Curves& cv,
+    const Segments& sg, const Window& win, int vj, const int (&n)[NF],
+    float sr_r, float (&acc_l)[NF], float (&acc_r)[NF]) {
+  const uint32_t* partials = consts + (size_t)vj * C + kBase;
+  const float* hrow = harm + (size_t)vj * harm_stride;
+  const float* trow = table + (size_t)vj * kTableLen;
+  const bool fm = (code & 0x100) != 0;
+  const int wid = code & 0xff;
+  int m[NF];
+  uint32_t p[NF], inst[NF];
+  float gain[NF], w[NF];
+  bool amp_curve = false;
+  if constexpr (CURVES)
+    amp_curve = voice_phase<true, NF>(c, fm, modes, cv, sg, win, (size_t)vj, n,
+                                  m, p, inst, gain);
+#define VOICE(W)                                                           \
+  if constexpr (!CURVES)                                                   \
+    voice_phase<false, NF>(c, fm, modes, cv, sg, win, (size_t)vj, n, m,  \
+                           p, inst, gain);                                 \
+  voice_wave<W, CURVES, NF>(c, partials, hrow, trow, H, n, m, p, inst, w); \
+  if constexpr (!CURVES)                                                   \
+    voice_mix(c, m, w, gain, false, sr_r, acc_l, acc_r)
+  switch (wid) {
+    case 0: VOICE(0); break;
+    case 1: VOICE(1); break;
+    case 2: VOICE(2); break;
+    case 3: VOICE(3); break;
+    case 4: VOICE(4); break;
+    case 5: VOICE(5); break;
+    case 6: VOICE(6); break;
+    case 7: VOICE(7); break;
+    case 8: VOICE(8); break;
+    case 9: VOICE(9); break;
+    case 10: VOICE(10); break;
+    case 11: VOICE(11); break;
+    case 12: VOICE(12); break;
+    default: VOICE(-1); break;
+  }
+#undef VOICE
+  if constexpr (CURVES)
+    voice_mix(c, m, w, gain, amp_curve, sr_r, acc_l, acc_r);
+}
+
+// The curve kernel's window pass for one listed voice and one curve k
+// (0 bend, 1 amplitude, 2 depth), by one thread: where the voice carries
+// the curve, find the segment at the tile's first note-relative frame
+// (upper bound over the sorted starts), read that entry and the kWin after
+// it from the per-segment buffer, and count those that start by the tile's
+// last frame.  Up to kWin segments are staged in `dst` and the width
+// returned; 0 (the tile searches the whole row per frame, counted in
+// nwin[1]) for a wider span, a row that is not sorted, or note-relative
+// frames that wrap i32 inside the tile; -1 where the voice does not carry
+// the curve.
+__device__ __forceinline__ int stage_window(
+    int k, const uint32_t* c, int wid, int modes, const Curves& cv,
+    const Segments& sg, size_t v, uint32_t n_first, uint32_t n_last,
+    uint4* dst, int* nwin) {
+  const uint32_t flags = c[K_FLAGS];
+  const int32_t* st;
+  const uint4* row;
+  int S;
+  bool need, sorted;
+  if (k == 0) {
+    need = (modes & kUseBend) && (flags & kBend)
+           && (c[K_WAVE] != 12u || wid == 9 || wid == 10);
+    sorted = (flags & kBendSorted) != 0;
+    S = cv.S;
+    st = cv.bend_start + v * S;
+    row = sg.bend + v * S;
+  } else if (k == 1) {
+    need = (modes & kUseAmp) && (flags & kAmpCurve);
+    sorted = (flags & kAmpSorted) != 0;
+    S = cv.KA;
+    st = cv.acurve_start + v * S;
+    row = sg.amp + v * S;
+  } else {
+    need = (modes & kUseDmod) && (flags & kDc);
+    sorted = (flags & kDcSorted) != 0;
+    S = cv.KD;
+    st = cv.dcurve_start + v * S;
+    row = sg.depth + v * S * 2;
+  }
+  if (!need) return -1;
+  atomicAdd(&nwin[0], 1);
+  const int stride = k == 2 ? 2 : 1;
+  const int m_first = (int)(n_first - c[K_START]);
+  const int m_last = (int)(n_last - c[K_START]);
+  int width = 0;
+  if (sorted && m_first <= m_last) {
+    int cnt = 0, hi = S;
+#pragma unroll 1
+    while (cnt < hi) {
+      const int mid = (cnt + hi) >> 1;
+      if (st[mid] <= m_first) cnt = mid + 1; else hi = mid;
+    }
+    const int first = max(cnt - 1, 0);
+    uint4 e[kWin + 1];
+#pragma unroll
+    for (int w = 0; w <= kWin; ++w)
+      e[w] = row[(size_t)min(first + w, S - 1) * stride];
+    width = 1;
+#pragma unroll
+    for (int w = 1; w <= kWin; ++w)
+      width += (first + w < S && (int)e[w].x <= m_last) ? 1 : 0;
+    if (width > kWin) {
+      width = 0;
+    } else {
+#pragma unroll
+      for (int w = 0; w < kWin; ++w) dst[w * stride] = e[w];
+      if (k == 2) {
+#pragma unroll
+        for (int w = 0; w < kWin; ++w)
+          dst[2 * w + 1] = row[(size_t)min(first + w, S - 1) * 2 + 1];
+      }
+    }
+  }
+  if (width == 0) atomicAdd(&nwin[1], 1);
+  return width;
+}
+
+// the render's arguments (see voicebank_render below)
+struct Render {
+  const uint32_t* consts;
+  int C;
+  const float* harm;
+  int harm_stride;
+  const float* table;
+  Groups groups;
+  Curves cv;
+  const uint32_t* seg;
+  int H, n0, nframes;
+  float sr_r;
+  int modes;
+  const int32_t* idx;
+  int K, chunk_frames, V;
+  float2* out;
+  int* counts;
+};
+
+// one block's tile of the render
 template <bool CURVES>
-__global__ void __launch_bounds__(kThreads)
-render_kernel(const uint32_t* __restrict__ consts, int C,
-              const float* __restrict__ harm, int harm_stride,
-              const float* __restrict__ table, Groups groups, Curves cv,
-              int H, int n0, int nframes, float sr_r, int modes,
-              const int32_t* __restrict__ idx, int K, int chunk_frames, int V,
-              float2* __restrict__ out, int* __restrict__ voice_tiles) {
-  __shared__ uint32_t s_const[kThreads][kBase];
+__device__ __forceinline__ void render_tile(const Render& r) {
+  const uint32_t* __restrict__ consts = r.consts;
+  const float* __restrict__ harm = r.harm;
+  const float* __restrict__ table = r.table;
+  const uint32_t* __restrict__ seg = r.seg;
+  const int32_t* __restrict__ idx = r.idx;
+  float2* __restrict__ out = r.out;
+  int* __restrict__ counts = r.counts;
+  const Groups& groups = r.groups;
+  const Curves& cv = r.cv;
+  const int C = r.C, harm_stride = r.harm_stride, H = r.H, n0 = r.n0;
+  const int nframes = r.nframes, modes = r.modes, K = r.K, V = r.V;
+  const int chunk_frames = r.chunk_frames;
+  const float sr_r = r.sr_r;
+  constexpr int kThreads = CURVES ? kCurveThreads : kPlainThreads;
+  constexpr int kFrames = kTile / kThreads;     // frames per thread
+  constexpr int kWarps = kThreads / 32;
+  // the curve kernel stages its list kBatch voices at a time, so that the
+  // windows fit beside the constants
+  constexpr int kStaged = CURVES ? kBatch : kThreads;
+  __shared__ uint32_t s_const[kStaged][kBase];
   __shared__ int s_voice[kThreads];
   __shared__ int s_wid[kThreads];       // wave id | 0x100 if the group has FM
   __shared__ int s_count[kWarps];
+  // the block's share of the curve kernel's counters (counts[1..])
+  __shared__ int s_nwin[kCounts - 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (CURVES && tid < kCounts - 1) s_nwin[tid] = 0;
   const int i0 = blockIdx.x * kTile;
   const int ilast = min(i0 + kTile, nframes) - 1;
   const uint32_t n_first = (uint32_t)(n0 + i0), n_last = (uint32_t)(n0 + ilast);
@@ -704,47 +1063,81 @@ render_kernel(const uint32_t* __restrict__ consts, int C,
       s_wid[pos] = code;
     }
     __syncthreads();
-    for (int e = tid; e < total * kBase; e += kThreads) {
-      const int j = e / kBase, k = e - j * kBase;
-      s_const[j][k] = consts[(size_t)s_voice[j] * C + k];
-    }
-    __syncthreads();
-    for (int j = 0; j < total; ++j) {
-      const int vj = s_voice[j];
-      const uint32_t* c = s_const[j];
-      const uint32_t* partials = consts + (size_t)vj * C + kBase;
-      const float* hrow = harm + (size_t)vj * harm_stride;
-      const float* trow = table + (size_t)vj * kTableLen;
-      const bool fm = (s_wid[j] & 0x100) != 0;
-#define VOICE(W) add_voice<W, CURVES>(c, partials, hrow, trow, H, fm, modes, cv, \
-                              (size_t)vj, n, sr_r, acc_l, acc_r)
-      switch (s_wid[j] & 0xff) {
-        case 0: VOICE(0); break;
-        case 1: VOICE(1); break;
-        case 2: VOICE(2); break;
-        case 3: VOICE(3); break;
-        case 4: VOICE(4); break;
-        case 5: VOICE(5); break;
-        case 6: VOICE(6); break;
-        case 7: VOICE(7); break;
-        case 8: VOICE(8); break;
-        case 9: VOICE(9); break;
-        case 10: VOICE(10); break;
-        case 11: VOICE(11); break;
-        case 12: VOICE(12); break;
-        default: VOICE(-1); break;
+    if constexpr (CURVES) {
+      // the list kBatch voices at a time: their constants and, by one
+      // thread per (voice, curve), their windows of curve segments
+      __shared__ uint4 s_seg[kBatch][4 * kWin];   // bend, amp, depth x 2
+      __shared__ int s_width[kBatch][3];
+      const Segments sg = segment_rows(const_cast<uint32_t*>(seg), V, cv);
+      for (int b0 = 0; b0 < total; b0 += kBatch) {
+        const int nb = min(kBatch, total - b0);
+        for (int e = tid; e < nb * kBase; e += kThreads) {
+          const int j = e / kBase, k = e - j * kBase;
+          s_const[j][k] = consts[(size_t)s_voice[b0 + j] * C + k];
+        }
+        for (int e = tid; e < nb * 3; e += kThreads) {
+          const int j = e / 3, k = e - j * 3;
+          const int vj = s_voice[b0 + j];
+          s_width[j][k] = stage_window(k, consts + (size_t)vj * C,
+                                       s_wid[b0 + j] & 0xff, modes, cv, sg,
+                                       (size_t)vj, n_first, n_last,
+                                       s_seg[j] + k * kWin, s_nwin);
+        }
+        __syncthreads();
+        for (int j = 0; j < nb; ++j) {
+          const int vj = s_voice[b0 + j];
+          Window win;
+          win.s = s_seg[j];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) win.width[k] = s_width[j][k];
+          eval_voice<true, kFrames>(s_wid[b0 + j], s_const[j], consts, C,
+                                    harm, harm_stride, table, H, modes, cv,
+                                    sg, win, vj, n, sr_r, acc_l, acc_r);
+        }
+        __syncthreads();                // the next batch reuses s_*
       }
-#undef VOICE
+    } else {
+      for (int e = tid; e < total * kBase; e += kThreads) {
+        const int j = e / kBase, k = e - j * kBase;
+        s_const[j][k] = consts[(size_t)s_voice[j] * C + k];
+      }
+      __syncthreads();
+      for (int j = 0; j < total; ++j)
+        eval_voice<false, kFrames>(s_wid[j], s_const[j], consts, C, harm,
+                                   harm_stride, table, H, modes, cv,
+                                   Segments(), Window(), s_voice[j], n, sr_r,
+                                   acc_l, acc_r);
+      __syncthreads();                  // the next chunk reuses s_*
     }
     evaluated += total;
-    __syncthreads();                    // the next chunk reuses s_*
   }
 #pragma unroll
   for (int f = 0; f < kFrames; ++f) {
     const int i = i0 + f * kThreads + tid;
     if (i < nframes) out[i] = make_float2(acc_l[f], acc_r[f]);
   }
-  if (tid == 0 && evaluated > 0) atomicAdd(voice_tiles, evaluated);
+  if (tid == 0 && evaluated > 0) atomicAdd(counts, evaluated);
+  if (CURVES && tid < kCounts - 1 && s_nwin[tid] > 0)
+    atomicAdd(counts + 1 + tid, s_nwin[tid]);
+}
+
+// The two render kernels: the curve-free one keeps the registers the
+// compiler gives it (48, 10 blocks an SM); the curve kernel is held to
+// kCurveBlocks blocks an SM, since it runs faster with more warps in
+// flight than with more registers each.
+template <bool CURVES>
+__global__ void render_kernel(const __grid_constant__ Render r);
+
+template <>
+__global__ void __launch_bounds__(kPlainThreads)
+render_kernel<false>(const __grid_constant__ Render r) {
+  render_tile<false>(r);
+}
+
+template <>
+__global__ void __launch_bounds__(kCurveThreads, kCurveBlocks)
+render_kernel<true>(const __grid_constant__ Render r) {
+  render_tile<true>(r);
 }
 
 Curves make_curves(const void* const* p, const int* dims) {
@@ -769,24 +1162,29 @@ Curves make_curves(const void* const* p, const int* dims) {
 }  // namespace
 
 // The layout the wrapper must agree with: words before the pluck partials,
-// frames per tile.
-extern "C" void voicebank_info(int* base_words, int* tile) {
+// frames per tile, segments per window, counters.
+extern "C" void voicebank_info(int* base_words, int* tile, int* window,
+                               int* counts) {
   *base_words = kBase;
   *tile = kTile;
+  *window = kWin;
+  *counts = kCounts;
 }
 
 // Launch the setup kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // `cols` is a host array of kCols device pointers (the VoiceParams columns
 // in enum Col order), `curves` one of kCurveCols (the curve arrays in
 // struct Curves order) and `dims` their widths (S, KA, KD); `consts` is
-// [V, C] with C = kBase + 3 * max(H, 1); the kernel also sets *voice_tiles
-// to 0.
+// [V, C] with C = kBase + 3 * max(H, 1); `seg` is the per-segment buffer
+// (struct Segments: 4 * V * (S + KA + 2 * KD) words, 16-byte aligned) or
+// null for a bank without curves; the kernel also sets the kCounts
+// counters at `counts` to 0.
 extern "C" int voicebank_setup(const void* const* cols,
                                const void* const* curves, const int* dims,
                                const float* harm, int harm_stride,
                                const float* table, int V, int H, float sr_r,
-                               uint32_t* consts, int C, int* voice_tiles,
-                               void* stream) {
+                               uint32_t* consts, int C, uint32_t* seg,
+                               int* counts, void* stream) {
   if (V <= 0 || H < 0 || C != kBase + 3 * (H > 1 ? H : 1)
       || dims[0] < 1 || dims[1] < 1 || dims[2] < 1)
     return (int)cudaErrorInvalidValue;
@@ -795,14 +1193,15 @@ extern "C" int voicebank_setup(const void* const* cols,
   setup_kernel<<<(V + kSetupWarps - 1) / kSetupWarps, 32 * kSetupWarps, 0,
                  (cudaStream_t)stream>>>(cs, make_curves(curves, dims), harm,
                                          harm_stride, table, V, H, sr_r,
-                                         consts, C, voice_tiles);
+                                         consts, C, seg, counts);
   return (int)cudaGetLastError();
 }
 
 // Launch the render kernel on `stream`; returns cudaGetLastError() after
 // the launch (0 = ok).  `groups` is a host array of ngroups (wid, has_fm,
-// start, count) rows; `consts` is the setup kernel's output; `modes` holds
-// the kGlide/kUseBend/kUseAmp/kUseDmod bits.  With `idx` (device [nchunks,
+// start, count) rows; `consts`, `seg` and `counts` are the setup kernel's
+// outputs (`seg` may be null if `modes` has no curve bit); `modes` holds the
+// kGlide/kUseBend/kUseAmp/kUseDmod bits.  With `idx` (device [nchunks,
 // K] int32 rows of voice indices, V = an empty slot; one group;
 // chunk_frames a multiple of kTile and n0 one of chunk_frames; the wrapper
 // checks that the rows cover the window) the tile at absolute frame n
@@ -811,11 +1210,14 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
                                 const float* harm, int harm_stride,
                                 const float* table, const int32_t* groups,
                                 int ngroups, const void* const* curves,
-                                const int* dims, int H, int n0, int nframes,
-                                float sr_r, int modes, const int32_t* idx,
-                                int K, int chunk_frames, int V, float* out,
-                                int* voice_tiles, void* stream) {
+                                const int* dims, const uint32_t* seg, int H,
+                                int n0, int nframes, float sr_r, int modes,
+                                const int32_t* idx, int K, int chunk_frames,
+                                int V, float* out, int* counts,
+                                void* stream) {
+  const bool curves_on = (modes & (kUseBend | kUseAmp | kUseDmod)) != 0;
   if (ngroups < 1 || ngroups > kMaxGroups || nframes <= 0
+      || (curves_on && seg == nullptr)
       || (idx && (ngroups != 1 || K < 1 || chunk_frames <= 0
                   || chunk_frames % kTile != 0 || n0 % chunk_frames != 0)))
     return (int)cudaErrorInvalidValue;
@@ -830,11 +1232,13 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
     gs.nslots += gs.count[g];
   }
   const int blocks = (nframes + kTile - 1) / kTile;
-  auto kernel = modes & (kUseBend | kUseAmp | kUseDmod) ? render_kernel<true>
-                                                        : render_kernel<false>;
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      consts, C, harm, harm_stride, table, gs, make_curves(curves, dims), H,
-      n0, nframes, sr_r, modes, idx, K, chunk_frames, V,
-      reinterpret_cast<float2*>(out), voice_tiles);
+  const Render r = {consts, C, harm, harm_stride, table, gs,
+                    make_curves(curves, dims), seg, H, n0, nframes, sr_r,
+                    modes, idx, K, chunk_frames, V,
+                    reinterpret_cast<float2*>(out), counts};
+  if (curves_on)
+    render_kernel<true><<<blocks, kCurveThreads, 0, (cudaStream_t)stream>>>(r);
+  else
+    render_kernel<false><<<blocks, kPlainThreads, 0, (cudaStream_t)stream>>>(r);
   return (int)cudaGetLastError();
 }

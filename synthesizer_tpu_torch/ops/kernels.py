@@ -5,10 +5,12 @@ versions.
 render_stereo_pallas``.  For CUDA tensors it launches the two hand-written
 kernels in ``csrc/voicebank_render.cu`` (CUDA C++ for ``sm_90a``, built by
 ``nvcc`` at first use into ``build/`` and loaded with ``ctypes``): the
-per-voice setup kernel (``voice_setup``, plain version ``voice_constants``)
-and the tiled render kernel that skips silent voice-tiles (plain version of
-its test: ``active_voice_tiles``).  The render takes the pitch, amplitude
-and FM-depth curves (``use_bend``/``use_amp``/``use_dmod``) and, for the
+per-voice setup kernel (``voice_setup``, plain versions ``voice_constants``
+and, for its per-segment pass over the curves, ``curve_constants``) and the
+tiled render kernel that skips silent voice-tiles (plain version of its
+test: ``active_voice_tiles``) and looks a curve's segments up once per
+voice and tile (plain version: ``tile_segment_windows``).  The render takes
+the pitch, amplitude and FM-depth curves (``use_bend``/``use_amp``/``use_dmod``) and, for the
 sparse render, per-chunk rows of candidate voices (``idx``).  For CPU
 tensors it runs ``render_stereo_reference``, the plain ``render_block``
 over the same layout and rows.  There is no fallback between the two: a
@@ -28,13 +30,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..models.voicebank import (_I32_MAX, _U32, BANK_TABLE_LEN, I32_FIELDS,
                                 U32_FIELDS, BankLayout, VoiceParams, _noise,
-                                _noise_u32, _tri_u32, render_block)
+                                _noise_u32, _phase_x, _seg_idx, _tri_u32,
+                                _wrap_i32, render_block)
+from .trig import cos_turns, sin_turns
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "voicebank_render.cu"
 #: build products go under the checkout's ``build/`` (listed in .gitignore)
@@ -80,6 +85,18 @@ MODE_GLIDE, MODE_BEND, MODE_AMP, MODE_DMOD = 1, 2, 4, 8
 CULL_MAX = 2.0 ** 32
 #: frames per render block: the unit in which silent voices are skipped
 TILE = 512
+#: segments of one curve that a tile's window in shared memory holds; a
+#: (voice, tile, curve) that spans more is searched in global memory
+WINDOW = 4
+#: int32 counters a render leaves behind its constants: voice-tiles
+#: evaluated and, from the curve kernel, curve windows looked up (one per
+#: evaluated voice-tile and curve the voice carries) and those that search
+#: the whole row per frame
+COUNTS = 3
+#: the curves in the order of the per-segment buffer, and the words of one
+#: segment's entry (``CurveSegments``)
+CURVES = ("bend", "amp", "depth")
+SEGMENT_WORDS = (4, 4, 8)
 MAX_GROUPS = 16
 _REFERENCE_BLOCK = 131072
 _EPS = float(np.float32(1e-30))
@@ -94,12 +111,14 @@ def const_width(num_harmonics: int) -> int:
 
 def build_library() -> tuple:
     """Compile ``csrc/voicebank_render.cu`` (once per source hash) ->
-    (path of the shared library, compiler log; empty when cached)."""
+    (path of the shared library, compiler log: kept beside the library, so
+    a later call finds ptxas' resource lines too)."""
     key = hashlib.sha256(_SRC.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"voicebank_render_{key}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
-        return lib, ""
+        return lib, log.read_text() if log.exists() else ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -107,6 +126,7 @@ def build_library() -> tuple:
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    log.write_text(res.stdout + res.stderr)
     os.replace(tmp, lib)
     return lib, res.stdout + res.stderr
 
@@ -114,12 +134,13 @@ def build_library() -> tuple:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()[0]))
-    base, tile = ctypes.c_int(), ctypes.c_int()
-    lib.voicebank_info(ctypes.byref(base), ctypes.byref(tile))
-    if (base.value, tile.value) != (CONST_BASE, TILE):
-        raise RuntimeError(f"{_SRC.name} has {base.value} constant words and "
-                           f"{tile.value}-frame tiles, the wrapper expects "
-                           f"{CONST_BASE} and {TILE}")
+    info = [ctypes.c_int() for _ in range(4)]
+    lib.voicebank_info(*(ctypes.byref(x) for x in info))
+    got = tuple(x.value for x in info)
+    if got != (CONST_BASE, TILE, WINDOW, COUNTS):
+        raise RuntimeError(f"{_SRC.name} has (constant words, tile frames, "
+                           f"window segments, counters) = {got}, the wrapper "
+                           f"expects {(CONST_BASE, TILE, WINDOW, COUNTS)}")
     lib.voicebank_setup.argtypes = [
         ctypes.POINTER(ctypes.c_void_p),                # column pointers (host)
         ctypes.POINTER(ctypes.c_void_p),                # curve pointers (host)
@@ -129,7 +150,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,                     # V, num_harmonics
         ctypes.c_float,                                 # f32(1/samplerate)
         ctypes.c_void_p, ctypes.c_int,                  # consts [V, C], C
-        ctypes.c_void_p,                                # voice-tile count
+        ctypes.c_void_p,                                # per-segment buffer
+        ctypes.c_void_p,                                # counters [COUNTS]
         ctypes.c_void_p]                                # cudaStream_t
     lib.voicebank_render.argtypes = [
         ctypes.c_void_p, ctypes.c_int,                  # consts [V, C], C
@@ -138,6 +160,7 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int,   # groups (host) [G, 4]
         ctypes.POINTER(ctypes.c_void_p),                # curve pointers (host)
         ctypes.POINTER(ctypes.c_int),                   # S, KA, KD (host)
+        ctypes.c_void_p,                                # per-segment buffer
         ctypes.c_int,                                   # num_harmonics
         ctypes.c_int, ctypes.c_int,                     # n0, nframes
         ctypes.c_float,                                 # f32(1/samplerate)
@@ -145,7 +168,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,    # idx, K, chunk_frames
         ctypes.c_int,                                   # V
         ctypes.c_void_p,                                # out [nframes, 2] f32
-        ctypes.c_void_p,                                # voice-tile count
+        ctypes.c_void_p,                                # counters [COUNTS]
         ctypes.c_void_p]                                # cudaStream_t
     lib.voicebank_setup.restype = lib.voicebank_render.restype = ctypes.c_int
     return lib
@@ -245,35 +268,50 @@ def _launch(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def voice_setup(vp: VoiceParams, samplerate: int, num_harmonics: int):
-    """Launch the setup kernel on CUDA tensors -> (constants [V, C] int32,
-    voice-tile count int32 [1], set to 0).  Counted in
-    ``voice_setup.launches``.  Plain version: ``voice_constants``."""
+class VoiceSetup(NamedTuple):
+    """What the setup kernel writes: the constants [V, C] int32, the
+    render's counters int32 [COUNTS] (set to 0), and the flat per-segment
+    buffer of the curves (``segment_views``), or None without curves."""
+    consts: torch.Tensor
+    counts: torch.Tensor
+    seg: Optional[torch.Tensor]
+
+
+def voice_setup(vp: VoiceParams, samplerate: int, num_harmonics: int,
+                segments: bool = False) -> VoiceSetup:
+    """Launch the setup kernel on CUDA tensors, with its per-segment pass
+    if ``segments``.  Counted in ``voice_setup.launches``.  Plain versions:
+    ``voice_constants`` and ``curve_constants``."""
     if vp.device.type != "cuda":
         raise ValueError(f"voice_setup takes CUDA tensors, got {vp.device}")
     _check_params(vp, num_harmonics)
-    return _setup(vp, samplerate, num_harmonics)
+    return _setup(vp, samplerate, num_harmonics, segments)
 
 
 def _setup(vp: VoiceParams, samplerate: int, num_harmonics: int,
-           curves=None):
+           segments: bool, curves=None) -> VoiceSetup:
     """voice_setup without the checks, for render_stereo (which has made
     them and passes its curve pointer table and widths)."""
     V = vp.wave.shape[0]
     C = const_width(num_harmonics)
     if curves is None:
         curves = _column_pointers(vp, CURVE_COLUMNS), _curve_dims(vp)
-    buf = torch.empty(V * C + 1, dtype=torch.int32, device=vp.device)
-    consts, count = buf[:V * C].view(V, C), buf[V * C:]
+    buf = torch.empty(V * C + COUNTS, dtype=torch.int32, device=vp.device)
+    consts, counts = buf[:V * C].view(V, C), buf[V * C:]
+    seg = None
+    if segments:
+        words = sum(k * w for k, w in zip(curves[1], SEGMENT_WORDS))
+        seg = torch.empty(V * words, dtype=torch.int32, device=vp.device)
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(_library().voicebank_setup(
             _column_pointers(vp), *curves, vp.harm_amps.data_ptr(),
             vp.harm_amps.shape[1], vp.table.data_ptr(), V, num_harmonics,
-            _sr_r(samplerate), consts.data_ptr(), C, count.data_ptr(),
+            _sr_r(samplerate), consts.data_ptr(), C,
+            0 if seg is None else seg.data_ptr(), counts.data_ptr(),
             stream), "voicebank_setup")
     voice_setup.launches += 1
-    return consts, count
+    return VoiceSetup(consts, counts, seg)
 
 
 voice_setup.launches = 0
@@ -301,8 +339,10 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
     CUDA tensors: one launch of the setup kernel and one of the render
     kernel, counted in ``voice_setup.launches`` and
     ``render_stereo.launches``; ``render_stereo.voice_tiles`` is then the
-    device int32 [1] count of voice-tiles the render evaluated.  CPU
-    tensors: the plain version."""
+    device int32 [1] count of voice-tiles the render evaluated and
+    ``render_stereo.windows`` the int32 [2] counts of curve windows it
+    looked up and of those that searched the whole row per frame
+    (``tile_segment_windows``).  CPU tensors: the plain version."""
     flags = dict(use_glide=use_glide, use_bend=use_bend, use_amp=use_amp,
                  use_dmod=use_dmod, idx=idx, chunk_frames=chunk_frames)
     if vp.device.type == "cpu":
@@ -317,7 +357,10 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
     H = layout.num_harmonics
     V = vp.wave.shape[0]
     curves = _column_pointers(vp, CURVE_COLUMNS), _curve_dims(vp)
-    consts, count = _setup(vp, samplerate, H, curves)
+    modes = _modes(use_glide, use_bend, use_amp, use_dmod)
+    consts, counts, seg = _setup(
+        vp, samplerate, H, bool(modes & (MODE_BEND | MODE_AMP | MODE_DMOD)),
+        curves)
     groups = [int(x) for g in layout.groups for x in g]
     out = torch.empty((nframes, 2), dtype=torch.float32, device=vp.device)
     with torch.cuda.device(vp.device):
@@ -326,19 +369,19 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
             consts.data_ptr(), consts.shape[1], vp.harm_amps.data_ptr(),
             vp.harm_amps.shape[1], vp.table.data_ptr(),
             (ctypes.c_int32 * len(groups))(*groups), len(layout.groups),
-            *curves, H, n0,
-            nframes, _sr_r(samplerate),
-            _modes(use_glide, use_bend, use_amp, use_dmod),
-            0 if idx is None else idx.data_ptr(),
+            *curves, 0 if seg is None else seg.data_ptr(), H, n0, nframes,
+            _sr_r(samplerate), modes, 0 if idx is None else idx.data_ptr(),
             0 if idx is None else idx.shape[1], int(chunk_frames), V,
-            out.data_ptr(), count.data_ptr(), stream), "voicebank_render")
+            out.data_ptr(), counts.data_ptr(), stream), "voicebank_render")
     render_stereo.launches += 1
-    render_stereo.voice_tiles = count
+    render_stereo.voice_tiles = counts[:1]
+    render_stereo.windows = counts[1:3]
     return out
 
 
 render_stereo.launches = 0
 render_stereo.voice_tiles = None
+render_stereo.windows = None
 
 
 def render_stereo_reference(vp: VoiceParams, n0: int, *, nframes: int,
@@ -503,6 +546,18 @@ def voice_constants(vp: VoiceParams, samplerate: int,
     return torch.cat([base, partials.reshape(V, 3 * K)], dim=1).contiguous()
 
 
+def _tile_ends(start: torch.Tensor, n0: int, nframes: int, tile: int):
+    """-> (i0 [ntiles], m_first, m_last [V, ntiles]): each tile's first
+    window-relative frame, and the note-relative frames int32(n - start) of
+    its first and last frame, wrapped as the kernel's u32 subtraction."""
+    ntiles = -(-nframes // tile)
+    i0 = torch.arange(ntiles, dtype=torch.int64, device=start.device) * tile
+    ilast = torch.clamp_max(i0 + tile, nframes) - 1
+    start = start.to(torch.int64)[:, None]
+    return (i0, _wrap_i32((n0 + i0)[None, :] - start),
+            _wrap_i32((n0 + ilast)[None, :] - start))
+
+
 def active_voice_tiles(vp: VoiceParams, n0: int, nframes: int, *,
                        samplerate: int, layout: BankLayout,
                        tile: int = TILE, idx=None,
@@ -520,15 +575,8 @@ def active_voice_tiles(vp: VoiceParams, n0: int, nframes: int, *,
     V = vp.wave.shape[0]
     c = voice_constants(vp, samplerate, layout.num_harmonics)
     col = {name: c[:, j] for j, name in enumerate(CONST_COLUMNS)}
-    ntiles = -(-nframes // tile)
-    i0 = torch.arange(ntiles, dtype=torch.int64, device=dev) * tile
-    ilast = torch.clamp_max(i0 + tile, nframes) - 1
-
-    def rel(n):            # int32(n - start), wrapped as the kernel's u32 sub
-        m = (n0 + n)[None, :] - col["start"].to(torch.int64)[:, None]
-        return ((m + 2 ** 31) & _U32) - 2 ** 31
-
-    m_first, m_last = rel(i0), rel(ilast)
+    i0, m_first, m_last = _tile_ends(col["start"], n0, nframes, tile)
+    ntiles = i0.shape[0]
     sr_r = _sr_r(samplerate)
     t4 = col["t4"].view(torch.float32)[:, None]
     flags = col["flags"][:, None]
@@ -549,3 +597,102 @@ def active_voice_tiles(vp: VoiceParams, n0: int, nframes: int, *,
         cand[rows[ok], tiles[ok]] = True
         walked = walked & cand
     return ~silent & walked
+
+
+class CurveSegments(NamedTuple):
+    """The per-segment constants of a bank's curves, int32 words (u32 and
+    f32 values as their bit patterns); rows of voices without the curve's
+    flag hold nothing the render reads.
+
+    bend [V, S, 4]: start, bend_phase, bend_inc, bend_d.
+    amp [V, KA, 4]: start, g0, dg, 0.
+    depth [V, KD, 8]: start, c, a, b, then the LFO phase ph_j at the
+    segment's first frame, cos_turns(x(ph_j - fm_inc // 2)), sin_turns(x(ph_j))
+    and cos_turns(x(ph_j)): the three trig values of the depth integral that
+    do not depend on the frame."""
+    bend: torch.Tensor
+    amp: torch.Tensor
+    depth: torch.Tensor
+
+
+def segment_views(buf: torch.Tensor, V: int, S: int, KA: int,
+                  KD: int) -> CurveSegments:
+    """The setup kernel's flat per-segment buffer as ``CurveSegments``."""
+    sizes = [V * k * w for k, w in zip((S, KA, KD), SEGMENT_WORDS)]
+    parts = torch.split(buf[:sum(sizes)], sizes)
+    return CurveSegments(*(p.view(V, k, w) for p, k, w in
+                           zip(parts, (S, KA, KD), SEGMENT_WORDS)))
+
+
+def curve_constants(vp: VoiceParams) -> CurveSegments:
+    """The plain version of the setup kernel's per-segment pass: every
+    value is the same expression in the same order as the per-frame code of
+    ``_phases`` / ``_dmod_delta`` evaluated at the segment's first frame.
+    Rows of voices without the curve's flag are zero."""
+    zero = torch.zeros((), dtype=torch.int32, device=vp.device)
+
+    def rows(has, *words):
+        return torch.where(has[:, None, None], torch.stack(words, dim=2), zero)
+
+    bend = rows(vp.bend_start[:, 0] == 0, vp.bend_start,
+                _u32_bits(vp.bend_phase), _u32_bits(vp.bend_inc),
+                _u32_bits(vp.bend_d))
+    amp = rows(vp.acurve_start[:, 0] == 0, vp.acurve_start,
+               _f32_bits(vp.acurve_g0), _f32_bits(vp.acurve_dg),
+               torch.zeros_like(vp.acurve_start))
+    inc = vp.fm_inc[:, None]
+    half = inc >> 1
+    st = vp.dcurve_start.to(torch.int64)
+    ph_j = (vp.fm_phase0[:, None] + ((vp.start[:, None] + st) & _U32) * inc) & _U32
+    xj = _phase_x(ph_j)
+    depth = rows((vp.dcurve_start[:, 0] == 0) & (vp.fm_inc != 0),
+                 vp.dcurve_start, _f32_bits(vp.dcurve_c),
+                 _f32_bits(vp.dcurve_a), _f32_bits(vp.dcurve_b),
+                 _u32_bits(ph_j),
+                 _f32_bits(cos_turns(_phase_x((ph_j - half) & _U32))),
+                 _f32_bits(sin_turns(xj)), _f32_bits(cos_turns(xj)))
+    return CurveSegments(bend, amp, depth)
+
+
+def curve_voices(vp: VoiceParams, layout: BankLayout, *,
+                 use_bend: bool = False, use_amp: bool = False,
+                 use_dmod: bool = False) -> torch.Tensor:
+    """bool [3, V] in the order of ``CURVES``: the voices whose bend,
+    amplitude and depth curve the render evaluates (the bank's flag, the
+    voice's flag, and for bend a waveform that is not pluck, tested with
+    the waveform of the group that holds the voice)."""
+    V = vp.wave.shape[0]
+    wid = vp.wave.clone()
+    for (gw, _, start, count) in layout.groups:
+        if gw >= 0:
+            wid[start:start + count] = gw
+    pitched = (vp.wave != 12) | (wid == 9) | (wid == 10)
+    return torch.stack([
+        (vp.bend_start[:, 0] == 0) & pitched & bool(use_bend),
+        (vp.acurve_start[:, 0] == 0) & torch.full((V,), bool(use_amp),
+                                                  device=vp.device),
+        (vp.dcurve_start[:, 0] == 0) & (vp.fm_inc != 0) & bool(use_dmod)])
+
+
+def tile_segment_windows(vp: VoiceParams, n0: int, nframes: int, *,
+                         tile: int = TILE, window: int = WINDOW) -> dict:
+    """The render kernel's per-tile segment windows as plain PyTorch ->
+    {curve: (first, last, fallback)}, each [V, ntiles] (int64, int64,
+    bool), for the curves of ``CURVES``.  On tile j (frames [n0 + j*tile,
+    n0 + min((j+1)*tile, nframes))) the active segment of every frame of
+    voice v lies in [first, last]: ``_seg_idx`` at the tile's first and
+    last note-relative frame.  ``fallback`` is True where the kernel
+    searches the whole row per frame instead of its shared-memory window:
+    the window holds more than ``window`` segments, the row's starts are
+    not sorted, or the note-relative frames wrap i32 inside the tile
+    (there first..last is the whole row)."""
+    _, m_first, m_last = _tile_ends(vp.start, n0, nframes, tile)
+    out = {}
+    for name, st in zip(CURVES, (vp.bend_start, vp.acurve_start,
+                                 vp.dcurve_start)):
+        whole = (~(st[:, 1:] >= st[:, :-1]).all(dim=1)[:, None]
+                 | (m_first > m_last))
+        first = torch.where(whole, 0, _seg_idx(st, m_first))
+        last = torch.where(whole, st.shape[1] - 1, _seg_idx(st, m_last))
+        out[name] = (first, last, whole | (last - first >= window))
+    return out

@@ -99,10 +99,12 @@ def test_kernel_columns_match_source():
     for c, name in zip(consts, K.CONST_COLUMNS):
         assert c == "K_" + name.upper()
     assert consts.index("K_AMP") == K.CONST_COLUMNS.index("amp")
-    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
-    frames = int(re.search(r"kFrames = (\d+);", src).group(1))
-    assert "kTile = kThreads * kFrames;" in src
-    assert threads * frames == K.TILE and threads % 32 == 0
+    # one tile size, two block shapes: each kernel's threads divide the tile
+    assert int(re.search(r"kTile = (\d+);", src).group(1)) == K.TILE
+    assert "kFrames = kTile / kThreads;" in src
+    for name in ("kPlainThreads", "kCurveThreads"):
+        threads = int(re.search(rf"{name} = (\d+);", src).group(1))
+        assert K.TILE % threads == 0 and threads % 32 == 0
     for flag, value in (("kSafe", K.FLAG_SAFE),
                         ("kPluckSafe", K.FLAG_PLUCK_SAFE),
                         ("kFmOn", K.FLAG_FM_ON)):
