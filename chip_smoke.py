@@ -5,9 +5,11 @@
 
 Builds the port's two Hopper kernels (``voicebank_setup`` and
 ``voicebank_render``, one source in ``synthesizer_tpu_torch/csrc``, nvcc
-into ``build/``), drives the two paths the port has -- config 5, the
+into ``build/``), drives the three paths the port has -- config 5, the
 64-voice 60 s song, through ``VoiceBank.render_song`` and ``to_int16`` to a
-WAV file, and a General-MIDI file through ``midi.render_midi`` -- and holds
+WAV file; a General-MIDI file through ``midi.render_midi``; and a sound made
+with ``WaveSynth``, shaped with ``Sample`` ops and written as a WAV (plain
+PyTorch on the card: this path has no hand-written kernel) -- and holds
 both kernels against their plain PyTorch versions on the card:
 
 1. device: the card's name and power limit, torch and CUDA versions;
@@ -59,7 +61,25 @@ both kernels against their plain PyTorch versions on the card:
     device time with and without the rows, and its bound; the histogram
     of window widths, the share of (voice, tile, curve) lookups that
     search the whole row, and the time of the setup kernel's per-segment
-    pass.
+    pass;
+11. pcm: every function of ``ops.pcm`` on seeded int8 / int16 / int32
+    tensors of 1 M elements with the extremes in them, on the card and on
+    the CPU through the same functions: the integer and single-product ops
+    bit-identical, ``to_mono`` within 1 LSB, ``rms_mean_square`` within a
+    relative 1e-6 and run-to-run bit-exact on the card;
+12. wavesynth at full width: config 1 of ``bench.py``
+    (``WaveSynth().sine(440.0, 2.0)`` at 44.1 kHz, 16 bit) and config 4 (its
+    FM + amplitude-modulation + echo patch as 30 chunks of 1470 frames
+    through ``block_stream`` and as one offline render): streaming ==
+    offline and card == CPU bit for bit, the noise digest, two Biquad
+    patches card against CPU within their budgets, and each one's time by
+    CUDA events and by wall clock (median of 10);
+13. sample: the chain sine -> amplify -> fadein -> fadeout -> stereo ->
+    mix_at -> pan -> write_wav on the card, its bytes equal to the CPU
+    chain's; config 5's main path through ``Sample.from_torch(...)
+    .get_frame_array()`` into one pinned buffer with the pinned sha256;
+    and the main path's wall clock and ``Memcpy DtoH`` time with a
+    pageable copy against the pinned one.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -69,6 +89,7 @@ exits non-zero at once.
 
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -83,6 +104,7 @@ import numpy as np
 
 SR = 44100
 FAILURES = []
+STARTED = time.perf_counter()
 #: sha256 of config 5's int16 output from the plain path on the CPU:
 #: python -c "import hashlib; from synthesizer_tpu_torch import bench_song as b;
 #:   k, vp, n = b.song_bank(device='cpu');
@@ -130,6 +152,11 @@ def check(ok, what):
         FAILURES.append(what)
 
 
+def head(title):
+    """A phase's heading, with the seconds since the script started."""
+    print(f"{title}  (+{time.perf_counter() - STARTED:.1f} s)", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -140,7 +167,9 @@ def main():
     from synthesizer_tpu_torch.models.voicebank import (Voice, VoiceBank,
                                                         pack_voices)
     from synthesizer_tpu_torch.ops import kernels as K
-    from synthesizer_tpu_torch.utils.wavio import read_wav, write_wav
+    from synthesizer_tpu_torch.sample import Sample
+    from synthesizer_tpu_torch.utils.device import pinned_like
+    from synthesizer_tpu_torch.utils.wavio import read_wav
 
     dev = torch.device("cuda")
 
@@ -153,13 +182,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi: no output"
-    print("[1] device")
+    head("[1] device")
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build --------------------------------------------------------
-    print("[2] build")
+    head("[2] build")
     t0 = time.perf_counter()
     path, log = K.build_library()
     K._library()
@@ -297,7 +326,7 @@ def main():
     render_err = 0.0
 
     # -- 3. per-wave battery ---------------------------------------------
-    print("[3] per-wave battery (kernel vs plain, 1 s)")
+    head("[3] per-wave battery (kernel vs plain, 1 s)")
     rng = np.random.default_rng(5)
     waves = ["sine", "triangle", "square", "sawtooth", "pulse", "semicircle",
              "pointy", "white_noise", "harmonics", "sawtooth_bl", "square_bl",
@@ -364,7 +393,7 @@ def main():
 
     # -- 4. cull battery -------------------------------------------------
     T = K.TILE
-    print(f"[4] cull battery ({T}-frame tiles)")
+    head(f"[4] cull battery ({T}-frame tiles)")
     setup_err = 0.0
 
     def edge_bank(shift, grouped, amp_curve=()):
@@ -462,8 +491,9 @@ def main():
               f"4 s)", b5, vp5, b5._kernel_layout(vp5), 0, total5)
 
     # -- 5. config 5 at full width ---------------------------------------
-    print("[5] config 5: 64 voices, 60 s, chunk 131072, nharm 8")
+    head("[5] config 5: 64 voices, 60 s, chunk 131072, nharm 8")
     bank, vp, total = bench_song.song_bank(device=dev)
+    config5 = (bank, vp, total)     # later phases rebind the three names
     layout = bank._kernel_layout(vp)
     print(f"  layout: {len(layout.groups)} groups {layout.groups}")
     K.voice_setup.launches = 0
@@ -476,10 +506,11 @@ def main():
     launches = {"voicebank_setup": K.voice_setup.launches,
                 "voicebank_render": K.render_stereo.launches}
     tiles5 = int(K.render_stereo.voice_tiles.item())
-    pcm_np = pcm.cpu().numpy()
+    song_smp = Sample.from_torch(pcm, SR, 2, name="config5")
+    pcm_np = song_smp.get_frame_array()
     with tempfile.TemporaryDirectory() as td:
         wav = os.path.join(td, "config5.wav")
-        write_wav(wav, pcm_np, SR, 2, 2)
+        song_smp.write_wav(wav)
         back, rate, width, nch = read_wav(wav)
     check(all(n > 0 for n in launches.values()),
           f"main path launched {launches} ({main_s:.3f} s host time for the "
@@ -523,7 +554,7 @@ def main():
           f"path's {CONFIG5_SHA256[:16]}...")
 
     # -- 6. scale --------------------------------------------------------
-    print("[6] scale")
+    head("[6] scale")
     b2, vp2, total2 = bench_song.song_bank(1024, 10.0, device=dev)
     l2 = b2._kernel_layout(vp2)
     k2 = b2.render_song(vp2, total2)
@@ -543,7 +574,7 @@ def main():
     del b5, vp5, k2, p2, plain, chunks, streamed
 
     # -- 7. timing -------------------------------------------------------
-    print(f"[7] timing on config 5 ({card})")
+    head(f"[7] timing on config 5 ({card})")
     from torch.profiler import ProfilerActivity, profile
 
     def events_ms(fn, reps):
@@ -573,12 +604,14 @@ def main():
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3 / reps
         by_name = {}
+        profiled.launches = 0.0     # device operations a call, copies included
         for ev in prof.key_averages():
             if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
                 continue
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / reps
+            profiled.launches += ev.count / reps
         return by_name, sum(by_name.values()), wall
 
     def pick(by_name, word):
@@ -590,8 +623,13 @@ def main():
     def chunk():
         bank.render_chunk(vp, 10 * bank.chunk_frames)
 
+    # the int16 result crosses to the host through Sample.get_frame_array
+    # into one pinned buffer, allocated once (phase 13 holds it against a
+    # pageable copy)
+    pinned = pinned_like(pcm)
+
     def main_path():
-        bank.to_int16(bank.render_song(vp, total)).cpu()
+        bench_song.song_sample(*config5).get_frame_array(out=pinned)
 
     def setup_only():
         K.voice_setup(vp, SR, layout.num_harmonics)
@@ -633,8 +671,8 @@ def main():
         main_path()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t) * 1e3)
-    print(f"  main path to_int16(render_song).cpu(), host wall clock: "
-          f"{spread(wall)}")
+    print(f"  main path Sample.from_torch(to_int16(render_song))"
+          f".get_frame_array(out=pinned), host wall clock: {spread(wall)}")
     prof_main, busy, pwall = profiled(main_path, 5)
     print(f"  main path under the profiler: {pwall:.6f} ms wall a call, "
           f"device busy {busy:.6f} ms ({100 * busy / pwall:.1f}%), idle "
@@ -721,7 +759,7 @@ def main():
         return (opsx, nbytes) + bound(opsx, nbytes)
 
     # -- 8. curves battery ----------------------------------------------
-    print("[8] curves battery (kernel vs plain, 1 s, every wave x {bend, "
+    head("[8] curves battery (kernel vs plain, 1 s, every wave x {bend, "
           "amp, depth, all})")
     crng = np.random.default_rng(8)
 
@@ -894,7 +932,7 @@ def main():
             window_case(name, bank, vp, layout, 0, 16 * T + 5, "none")
 
     # -- 9. sparse rows -----------------------------------------------------
-    print("[9] sparse rows: bench.py's sparse workload (600 notes, 300 s, "
+    head("[9] sparse rows: bench.py's sparse workload (600 notes, 300 s, "
           "seed 5, chunk 131072)")
     sv = bench_song.sparse_voices()
     vps, lys = pack_voices(sv, SR, num_harmonics=8, sort_by_wave=True,
@@ -958,7 +996,7 @@ def main():
     del flat_s, sparse_s, plain_s
 
     # -- 10. the MIDI path ----------------------------------------------------
-    print("[10] MIDI path: seeded GM file, ~3000 notes, 180 s, 16 channels")
+    head("[10] MIDI path: seeded GM file, ~3000 notes, 180 s, 16 channels")
     from synthesizer_tpu_torch import midi as M
     t = time.perf_counter()
     data = bench_song.gm_file(3000, 180.0, 0)
@@ -967,23 +1005,27 @@ def main():
     K.voice_setup.launches = 0
     K.render_stereo.launches = 0
     t = time.perf_counter()
-    midi_pcm = M.render_midi(data, device=dev).cpu()
+    midi_smp = M.render_midi(data, device=dev)
+    midi_pcm = midi_smp.get_frame_array()
     midi_first_s = time.perf_counter() - t
     midi_launches = {"voicebank_setup": K.voice_setup.launches,
                      "voicebank_render": K.render_stereo.launches}
     check(all(n > 0 for n in midi_launches.values()),
           f"MIDI path launched {midi_launches} ({midi_first_s:.3f} s host "
           f"time, first call)")
-    again = M.render_midi(data, device=dev).cpu()
-    check(torch.equal(again, midi_pcm), "the whole file rendered twice, "
+    again = M.render_midi(data, device=dev).get_frame_array()
+    check(np.array_equal(again, midi_pcm), "the whole file rendered twice, "
           "identical bytes")
-    midi_sha = sha16(midi_pcm)
+    del again       # its pinned buffer goes back to PyTorch's host cache
+    midi_sha = hashlib.sha256(midi_pcm.tobytes()).hexdigest()
     print(f"  sha256(int16) {midi_sha}")
-    mp = midi_pcm.numpy().astype(np.int64)
+    mp = midi_pcm.astype(np.int64)
     clip = float((np.abs(mp) >= 32767).mean())
-    check(midi_pcm.dtype == torch.int16 and midi_pcm.shape[1] == 2
+    check(isinstance(midi_smp, Sample) and midi_smp.samplerate == SR
+          and midi_smp.samplewidth == 2 and midi_smp.device.type == "cuda"
+          and midi_pcm.dtype == np.int16 and midi_pcm.shape[1] == 2
           and np.abs(mp).max() > 1000,
-          f"MIDI output int16 {tuple(midi_pcm.shape)}, peak "
+          f"MIDI output a Sample, int16 {tuple(midi_pcm.shape)}, peak "
           f"{np.abs(mp).max()}, {100 * clip:.4f}% of samples at full scale")
 
     # the same path step by step, each step synchronised and timed
@@ -1014,8 +1056,9 @@ def main():
     tiles_m = int(K.render_stereo.voice_tiles.item())
     windows_m = K.render_stereo.windows
     q16 = step("to_int16", lambda: VoiceBank.to_int16(f32m[:total_m]))
-    host16 = step("copy", lambda: q16.cpu())
-    check(torch.equal(host16, midi_pcm), "step by step == render_midi, "
+    host16 = step("copy", lambda: Sample.from_torch(
+        q16, SR, 2).get_frame_array())
+    check(np.array_equal(host16, midi_pcm), "step by step == render_midi, "
           "bit-exact")
     print("  steps (ms, synchronised): " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()))
@@ -1082,7 +1125,7 @@ def main():
           f"{midi_plain_ms:.3f} ms wall")
 
     def midi_path():
-        M.render_midi(data, device=dev).cpu()
+        M.render_midi(data, device=dev).get_frame_array()
 
     midi_wall = []
     for _ in range(5):
@@ -1090,7 +1133,8 @@ def main():
         midi_path()
         torch.cuda.synchronize()
         midi_wall.append((time.perf_counter() - t) * 1e3)
-    print(f"  render_midi(...).cpu(), host wall clock: {spread(midi_wall)}")
+    print(f"  render_midi(...).get_frame_array(), host wall clock: "
+          f"{spread(midi_wall)}")
     prof_midi, busy_m, pwall_m = profiled(midi_path, 3)
     midi_render_ms = max(pick(prof_midi, "render_kernel"), 1e-9)
     midi_setup_ms = max(pick(prof_midi, "setup_kernel"), 1e-9)
@@ -1176,6 +1220,266 @@ def main():
             "midi_steps_ms": steps,
             "sparse_workload_render_ms": sparse_kernel_ms,
             "sparse_workload_flat_render_ms": flat_kernel_ms}
+
+
+    # -- 11. pcm ---------------------------------------------------------------
+    head("[11] pcm: ops/pcm.py on 1 M samples, the card against the CPU")
+    from synthesizer_tpu_torch.ops import pcm as P
+    NEL = 1 << 20
+    prng = np.random.default_rng(11)
+
+    def lsb_between(a, b):
+        return int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    for width in (1, 2, 4):
+        lo, hi = P.MINVAL[width], P.MAXVAL[width]
+        ext = [lo, hi, -1, 0, 1, lo + 1, hi - 1]
+
+        def samples():
+            a = prng.integers(lo, hi + 1, size=NEL, dtype=np.int64)
+            a[:49] = np.repeat(ext, 7)
+            return a
+
+        a_np, b_np = samples(), samples()
+        b_np[:49] = np.tile(ext, 7)          # every pair of extremes meets
+        npdt = {1: np.int8, 2: np.int16, 4: np.int32}[width]
+        a_c = torch.from_numpy(a_np.astype(npdt))
+        b_c = torch.from_numpy(b_np.astype(npdt))
+        g_c = torch.from_numpy(prng.uniform(-2.0, 2.0, NEL // 2)
+                               .astype(np.float32))[:, None]
+        f_c = torch.from_numpy(np.concatenate([
+            prng.uniform(-1.5, 1.5, NEL - 8) * (hi + 1.0),
+            [3.0e9, -3.0e9, 2147483520.0, 2147483648.0, -2147483648.0,
+             -2147483904.0, hi + 0.5, lo - 0.5]]).astype(np.float32))
+        a_g, b_g, g_g, f_g = (t.to(dev) for t in (a_c, b_c, g_c, f_c))
+        exact = {
+            "sat_add": lambda a, b, g, f: P.sat_add(a, b),
+            "bias_wrap": lambda a, b, g, f: torch.stack(
+                [P.bias_wrap(a, k) for k in (1, -1, 100, hi, lo, 40000)]),
+            **{f"lin2lin_{nw}": (lambda a, b, g, f, nw=nw: P.lin2lin(a, nw))
+               for nw in (1, 2, 4)},
+            "floor_clamp": lambda a, b, g, f: P.floor_clamp(
+                f, width, P.DTYPES[width]),
+            "mul_floor": lambda a, b, g, f: torch.stack(
+                [P.mul_floor(a, k) for k in (0.5, -1.0, 1.7, 1.0 / 3.0,
+                                             -3.0e9)]),
+            "gain_apply": lambda a, b, g, f: P.gain_apply(
+                a.reshape(-1, 2), g),
+            "to_stereo": lambda a, b, g, f: P.to_stereo(a[:, None], 0.7, -1.3),
+            "peak": lambda a, b, g, f: torch.stack(
+                [P.peak(a), P.peak(a[100:] // 3), P.peak(a[:0])]),
+        }
+        bad = [name for name, fn in exact.items()
+               if not torch.equal(fn(a_g, b_g, g_g, f_g).cpu(),
+                                  fn(a_c, b_c, g_c, f_c))]
+        check(not bad and P.width_of(a_g) == width,
+              f"pcm width {width}: {sorted(exact)} on the card bit-identical "
+              f"to the CPU{'' if not bad else ', EXCEPT ' + str(bad)}")
+        mono_tol = 1 if width <= 2 else 256   # one f32 ulp below 2^31
+        mono = max(lsb_between(P.to_mono(a_g.reshape(-1, 2), lf, rf),
+                               P.to_mono(a_c.reshape(-1, 2), lf, rf))
+                   for lf, rf in ((1.0, 1.0), (0.3, 0.9), (-1.0, 0.25)))
+        check(mono <= mono_tol, f"pcm width {width}: to_mono card vs CPU "
+              f"{mono} (tolerance {mono_tol}: 1 LSB)")
+        ms_g = P.rms_mean_square(a_g)
+        ms_c = float(P.rms_mean_square(a_c))
+        rel = abs(float(ms_g) - ms_c) / max(ms_c, 1e-30)
+        check(rel <= 1e-6 and torch.equal(ms_g, P.rms_mean_square(a_g)),
+              f"pcm width {width}: rms_mean_square relative difference "
+              f"{rel:.3g} (<= 1e-6), run-to-run bit-exact on the card")
+        vu_g = P.vu_levels(a_g.reshape(-1, 2)).cpu()
+        vu_c = P.vu_levels(a_c.reshape(-1, 2))
+        check(torch.equal(vu_g[:2], vu_c[:2]) and bool(
+            ((vu_g[2:] - vu_c[2:]).abs() <= 1e-6 * vu_c[2:]).all()),
+            f"pcm width {width}: vu_levels peaks equal, mean squares within "
+            f"1e-6")
+    del a_g, b_g, g_g, f_g
+
+    # -- 12. wavesynth ---------------------------------------------------------
+    head(f"[12] wavesynth at full width: bench.py's configs 1 and 4 ({card})")
+    from synthesizer_tpu_torch import WaveSynth, oscillators
+    from synthesizer_tpu_torch.models import graph as G
+    from synthesizer_tpu_torch.models import spec as S
+
+    def timed(fn, reps=10):
+        """-> (median ms by CUDA events, median ms by wall clock) of fn,
+        each call synchronised; one warm-up call first."""
+        fn()
+        torch.cuda.synchronize()
+        ev, wl = [], []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            wl.append((time.perf_counter() - t) * 1e3)
+            ev.append(start.elapsed_time(end))
+        return ev, wl
+
+    ws_g, ws_c = WaveSynth(SR, 2, device=dev), WaveSynth(SR, 2, device="cpu")
+    sine_g = ws_g.sine(440.0, 2.0)
+    sine_c = ws_c.sine(440.0, 2.0)
+    check(sine_g.device.type == "cuda" and sine_g.nframes == 2 * SR
+          and sine_g.nchannels == 1 and sine_g.samplewidth == 2
+          and np.array_equal(sine_g.get_frame_array(),
+                             sine_c.get_frame_array())
+          and int(np.abs(sine_c.get_frame_array().astype(np.int64)).max())
+          > 32000,
+          "config 1, WaveSynth().sine(440.0, 2.0): card == CPU bit for bit, "
+          f"{sine_g.nframes} frames")
+    noise_node = S.Osc("white_noise", SR, 0.5, seed=42)
+    noise_g = G.render_patch(noise_node, 10000, SR, device=dev)
+    noise_sha = hashlib.sha256(
+        noise_g.cpu().numpy().tobytes()).hexdigest()[:16]
+    check(noise_sha == "7d5f6f9b694b18a5" and torch.equal(
+        noise_g.cpu(), G.render_patch(noise_node, 10000, SR, device="cpu")),
+        f"noise digest on the card {noise_sha} == 7d5f6f9b694b18a5, == CPU")
+    patch4 = S.Echo(
+        S.AmpMod(S.Osc("sawtooth", 330.0, 0.7,
+                       fm_lfo=S.Osc("sine", 5.0, 0.01)),
+                 S.Osc("sine", 2.0, amplitude=0.4, bias=0.6)),
+        0.05, 4, 0.07, 0.6)
+    CH, NCH = 1470, 30
+
+    def stream4(device):
+        out = []
+        for blk in G.block_stream(patch4, SR, CH, device=device):
+            out.append(blk)
+            if len(out) == NCH:
+                return np.concatenate(out)
+
+    def offline4(device):
+        return G.render_patch(patch4, CH * NCH, SR, device=device)
+
+    st_g, off_g = stream4(dev), offline4(dev).cpu().numpy()
+    off_c = offline4("cpu").numpy()
+    check(st_g.shape == (CH * NCH,) and np.array_equal(st_g, off_g),
+          f"config 4: {NCH} chunks of {CH} through block_stream == one "
+          f"offline render, bit for bit (peak {np.abs(off_g).max():.4f})")
+    check(np.array_equal(off_g, off_c) and np.array_equal(
+        stream4("cpu"), off_c), "config 4: card == CPU bit for bit, "
+        "streaming and offline")
+    ints = []
+    for smp in ws_g.oscillator_gen(oscillators.Oscillator(patch4, SR), CH):
+        ints.append(smp.torch_frames)
+        if len(ints) == NCH:
+            break
+    check(torch.equal(torch.cat(ints)[:, 0],
+                      G.to_int_device(offline4(dev), 2)),
+          "config 4: oscillator_gen chunks (on the card) == the offline "
+          "render quantized")
+    src_b = S.Osc("sawtooth", 330.0, 0.8)
+    for bname, node, tol in (
+            ("lowpass 1000 Hz q 0.7071", S.Biquad(src_b, "lowpass", 1000.0,
+                                                  0.7071), 2),
+            ("swept lowpass 800 Hz q 0.7071", S.Biquad(
+                S.Osc("sawtooth", 110.0, 0.8), "lowpass", 800.0, 0.7071,
+                cutoff_lfo=S.Osc("sine", 0.5, amplitude=2.0)), 3)):
+        bq_g = G.render_patch(node, SR // 2, SR, 2048, device=dev).cpu()
+        bq_c = G.render_patch(node, SR // 2, SR, 2048, device="cpu")
+        d = float((torch.round(bq_g.double() * 32767)
+                   - torch.round(bq_c.double() * 32767)).abs().max())
+        check(bool(torch.isfinite(bq_g).all()) and d <= tol
+              and float(bq_g.abs().max()) > 0.1,
+              f"Biquad {bname}: card vs CPU {d:.0f} LSB (budget {tol})")
+    for tname, fn in (
+            ("config 1: WaveSynth.sine(440, 2.0), 88200 frames",
+             lambda: ws_g.sine(440.0, 2.0)),
+            ("config 1 to the host (get_frame_array)",
+             lambda: ws_g.sine(440.0, 2.0).get_frame_array()),
+            (f"config 4: {NCH} chunks of {CH} through block_stream, to the "
+             f"host", lambda: stream4(dev)),
+            (f"config 4: one offline render_patch, {CH * NCH} frames",
+             lambda: offline4(dev))):
+        ev, wl = timed(fn)
+        _, busy12, pwall12 = profiled(fn, 3)
+        print(f"  {tname}: CUDA events {spread(ev)}; wall clock {spread(wl)}; "
+              f"under the profiler {profiled.launches:.0f} device operations "
+              f"a call, device busy {busy12:.6f} ms of {pwall12:.6f} ms wall "
+              f"({100 * busy12 / pwall12:.1f}%)")
+
+    # -- 13. sample ------------------------------------------------------------
+    head(f"[13] sample: a chain to a WAV, and the pinned host copy ({card})")
+    def chain(ws):
+        other = ws.triangle(660.0, 0.5, amplitude=0.4).stereo(0.8, 0.5)
+        smp = (ws.sine(440.0, 2.0).amplify(0.7).fadein(0.3).fadeout(0.5, 0.1)
+               .stereo().mix_at(0.75, other).pan(-0.3))
+        bio = io.BytesIO()
+        smp.write_wav(bio)
+        return smp, bio.getvalue()
+
+    smp_g, wav_g = chain(ws_g)
+    smp_c, wav_c = chain(ws_c)
+    check(smp_g.device.type == "cuda" and wav_g == wav_c
+          and len(wav_g) == 44 + 2 * SR * 4,
+          f"chain sine -> amplify -> fadein -> fadeout -> stereo -> mix_at "
+          f"-> pan -> write_wav: {len(wav_g)} bytes on the card == the CPU "
+          f"chain's")
+    ev, wl = timed(lambda: chain(ws_g))
+    print(f"  the chain, render to WAV bytes: CUDA events {spread(ev)}; wall "
+          f"clock {spread(wl)}")
+    song5 = bench_song.song_sample(*config5)
+    host5 = song5.get_frame_array(out=pinned)
+    sha5 = hashlib.sha256(host5.tobytes()).hexdigest()
+    check(pinned.is_pinned() and sha5 == CONFIG5_SHA256
+          and np.array_equal(song5.get_frame_array(), host5),
+          f"config 5 through Sample.from_torch(...).get_frame_array(out="
+          f"pinned): sha256 {sha5[:16]}... == {CONFIG5_SHA256[:16]}...; the "
+          f"sample's own pinned buffer holds the same bytes")
+
+    def main_pageable():
+        bank5, vp5, total5 = config5
+        bank5.to_int16(bank5.render_song(vp5, total5)).cpu()
+
+    def main_own_buffer():
+        bench_song.song_sample(*config5).get_frame_array()
+
+    copies = {"pageable (.cpu())": main_pageable,
+              "pinned, one buffer (out=)": main_path,
+              "pinned, a buffer per call (caching allocator)":
+              main_own_buffer}
+    copy_stats = {k: {"wall": [], "dtoh": [], "busy": [], "pwall": []}
+                  for k in copies}
+    # two rounds in mirrored order, so that a drift of the host's clock
+    # falls on each side alike
+    order = list(copies) + list(copies)[::-1]
+    for name in order:
+        fn = copies[name]
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(10):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            copy_stats[name]["wall"].append((time.perf_counter() - t) * 1e3)
+        by_name, busy, pwall = profiled(fn, 5)
+        copy_stats[name]["dtoh"].append(pick(by_name, "Memcpy DtoH"))
+        copy_stats[name]["busy"].append(busy)
+        copy_stats[name]["pwall"].append(pwall)
+    nbytes5 = pinned.numel() * pinned.element_size()
+    for name, st in copy_stats.items():
+        dtoh = statistics.mean(st["dtoh"])
+        print(f"  main path, {name}: wall clock {spread(st['wall'])}; under "
+              f"the profiler Memcpy DtoH {dtoh:.6f} ms a call "
+              f"({nbytes5 / max(dtoh, 1e-9) / 1e6:.1f} GB/s for {nbytes5} B), "
+              f"device busy {statistics.mean(st['busy']):.6f} ms of "
+              f"{statistics.mean(st['pwall']):.6f} ms wall")
+    t = time.perf_counter()
+    fresh = torch.empty(6 * nbytes5, dtype=torch.uint8, pin_memory=True)
+    alloc_ms = (time.perf_counter() - t) * 1e3
+    print(f"  a fresh pinned buffer of {fresh.numel()} B (no cached block of "
+          f"its size): {alloc_ms:.3f} ms of host time to allocate; the "
+          f"buffers above are reused or come from PyTorch's pinned cache")
+    del fresh
+    dtoh_page = statistics.mean(copy_stats["pageable (.cpu())"]["dtoh"])
+    dtoh_pin = statistics.mean(
+        copy_stats["pinned, one buffer (out=)"]["dtoh"])
+    check(dtoh_page > 0.0 and dtoh_pin > 0.0,
+          f"the profiler shows the copies: Memcpy DtoH pageable "
+          f"{dtoh_page:.6f} ms, pinned {dtoh_pin:.6f} ms")
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [

@@ -11,7 +11,18 @@ fused render as two hand-written Hopper kernels, a per-voice setup and a
 render that skips silent voice-tiles and takes the curves and the sparse
 rows (``ops.kernels`` and ``csrc/voicebank_render.cu``); the MIDI path
 (``midi``: SMF parse and write, GM mapping, ``render_midi``); the
-turn-unit trig helpers, the DDS host helpers, ``params``, the
-``sequencer.SynthDef`` and WAV output.  Its entry points run on the card
-unless the caller passes ``device="cpu"``.
+turn-unit trig helpers, ``params``, the ``sequencer.SynthDef`` and WAV
+output; and the WaveSynth -> Sample -> WAV path: the patch spec
+(``models.spec``), its lowering (``models.graph``), the ``oscillators``,
+``WaveSynth`` (``synth``), the PCM primitives (``ops.pcm``) and the
+``Sample`` core (``sample``), whose ``get_frame_array`` copies a result to
+the host through pinned memory.  Its entry points run on the card unless
+the caller passes ``device="cpu"``.
 """
+
+from . import oscillators, params
+from .sample import Sample
+from .synth import WaveSynth, key_freq, note_freq
+
+__all__ = ["Sample", "WaveSynth", "key_freq", "note_freq", "oscillators",
+           "params"]

@@ -21,7 +21,7 @@ import torch
 
 from .midi import MidiNote, write_midi
 from .models.voicebank import Voice, VoiceBank, pack_voices
-from .utils.wavio import write_wav
+from .sample import Sample
 
 #: config 5 (bench.py): 64 voices, 60 s at 44.1 kHz, chunk 131072, nharm 8
 SAMPLERATE = 44100
@@ -189,6 +189,13 @@ def song_bank(nvoices: int = NVOICES, duration: float = DURATION,
     return bank, vp, int(duration * SAMPLERATE)
 
 
+def song_sample(bank: VoiceBank, vp, total: int) -> Sample:
+    """The main path up to the device: render, quantize, wrap as a
+    ``Sample`` (whose ``get_frame_array`` is the copy to the host)."""
+    return Sample.from_torch(bank.to_int16(bank.render_song(vp, total)),
+                             SAMPLERATE, 2, name="config5")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m synthesizer_tpu_torch",
@@ -200,9 +207,10 @@ def main(argv=None) -> int:
         return 1
     bank, vp, total = song_bank()
     t0 = time.perf_counter()
-    pcm = bank.to_int16(bank.render_song(vp, total)).cpu().numpy()
+    song = song_sample(bank, vp, total)
+    song.get_frame_array()          # the pinned host copy, timed with it
     secs = time.perf_counter() - t0
-    write_wav(args.out, pcm, SAMPLERATE, 2, 2)
+    song.write_wav(args.out)
     print(f"{total / SAMPLERATE:.1f} s of audio in {secs:.3f} s on "
           f"{torch.cuda.get_device_name(0)} (first call, kernel build "
           f"included) -> {args.out}")

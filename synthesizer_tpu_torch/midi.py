@@ -77,6 +77,7 @@ import torch
 
 from .models.voicebank import (Voice, VoiceBank, _device, audible_ranges,
                                pack_voices)
+from .sample import Sample
 from .sequencer import SynthDef
 from . import params
 
@@ -606,9 +607,9 @@ def render_midi(source: Union[str, bytes],
                 instruments: Optional[Dict[int, SynthDef]] = None,
                 samplerate: int = 0, tail_seconds: float = 0.3,
                 mesh=None, sparse: bool = True,
-                device="cuda") -> torch.Tensor:
-    """Render a MIDI file (path or bytes) in one batched bank render ->
-    int16 stereo [frames, 2] on ``device`` (the card unless the caller
+                device="cuda") -> Sample:
+    """Render a MIDI file (path or bytes) in one batched bank render -> a
+    16-bit stereo ``Sample`` on ``device`` (the card unless the caller
     passes ``device="cpu"``).  The bend/controller grace follows the
     instruments' releases (:func:`release_grace_for`)."""
     return render_notes(
@@ -649,8 +650,8 @@ def render_notes(notes: Sequence[MidiNote],
                  instruments: Optional[Dict[int, SynthDef]] = None,
                  samplerate: int = 0, tail_seconds: float = 0.3,
                  mesh=None, sparse: bool = True,
-                 device="cuda") -> torch.Tensor:
-    """Render pre-parsed note events -> int16 stereo [frames, 2] on
+                 device="cuda") -> Sample:
+    """Render pre-parsed note events -> a 16-bit stereo ``Sample`` on
     ``device``.
 
     ``sparse`` (default True): long sparse files render over per-chunk
@@ -665,7 +666,8 @@ def render_notes(notes: Sequence[MidiNote],
     dev = _device(device)
     sr = samplerate or params.norm_samplerate
     if not notes:
-        return torch.zeros((0, 2), dtype=torch.int16, device=dev)
+        return Sample.from_torch(
+            torch.zeros((0, 2), dtype=torch.int16, device=dev), sr, 2)
     voices = midi_to_voices(notes, instruments)
     total = song_frames(voices, sr, tail_seconds)
     if sparse:
@@ -680,13 +682,15 @@ def render_notes(notes: Sequence[MidiNote],
                                      ranges=note_ranges(voices, V, sr))
         if plan is not None:
             fn, idx, pad_start, nchunks = plan
-            return VoiceBank.to_int16(fn(vp_flat, idx, pad_start,
-                                         nchunks)[:total])
+            stereo = fn(vp_flat, idx, pad_start, nchunks)[:total]
+            return Sample.from_torch(VoiceBank.to_int16(stereo), sr, 2,
+                                     name="midi")
     vp, layout = pack_voices(voices, sr, num_harmonics=8, sort_by_wave=True,
                              device=dev)
     bank = VoiceBank.for_voices(voices, sr, num_harmonics=8, layout=layout,
                                 nvoices=layout.nvoices, device=dev)
-    return bank.to_int16(bank.render_song(vp, total))
+    return Sample.from_torch(bank.to_int16(bank.render_song(vp, total)), sr,
+                             2, name="midi")
 
 
 # ---------------------------------------------------------------------------

@@ -55,9 +55,15 @@ import torch
 
 from . import spec as S
 from ..ops.trig import cos_turns, sin_turns
-
-_TWO_NEG32 = float(np.float32(2.0 ** -32))
-_U32 = 0xFFFFFFFF
+from ..ops.wave import TWO_NEG32 as _TWO_NEG32
+from ..ops.wave import U32 as _U32
+from ..ops.wave import blep as _blep
+from ..ops.wave import f32_to_i32 as _f32_to_i32
+from ..ops.wave import noise_u32, noise_values
+from ..ops.wave import phase_x as _phase_x
+from ..ops.wave import semicircle as _semicircle
+from ..ops.wave import triangle as _triangle
+from ..utils.device import resolve as _device
 
 WAVE_IDS = {
     "sine": 0, "triangle": 1, "square": 2, "sawtooth": 3, "pulse": 4,
@@ -156,16 +162,6 @@ U32_FIELDS = frozenset({"base_inc", "phase0", "fm_inc", "fm_phase0", "seed",
 I32_FIELDS = frozenset({"wave", "start", "gate", "noise_hold",
                          "glide_frames", "bend_start", "acurve_start",
                          "dcurve_start"})
-
-
-def _device(device) -> torch.device:
-    """``device`` as a torch.device.  The port's entry points default to the
-    card; without one they raise rather than run on the CPU unasked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                           "the CPU")
-    return dev
 
 
 def voice_params_from_numpy(fields: Mapping[str, np.ndarray],
@@ -578,56 +574,17 @@ def _pack_flat(voices: Sequence[Voice], samplerate: int,
 # ---------------------------------------------------------------------------
 # Waveform evaluation (plain PyTorch twin of the reference's render_block).
 # Phases are int64 tensors in [0, 2^32) ("u32"); every add and multiply of
-# u32 values is followed by ``& _U32``.
+# u32 values is followed by ``& _U32``.  The per-phase primitives are
+# ``ops.wave``'s, shared with the patch graph.
 # ---------------------------------------------------------------------------
-
-def _phase_x(p: torch.Tensor) -> torch.Tensor:
-    return p.to(torch.float32) * _TWO_NEG32
-
-
-def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> i32 truncating toward zero and saturating at the i32 range,
-    as XLA converts (a plain ``.to(torch.int32)`` wraps out-of-range
-    values on the CPU).  Returned as int64."""
-    return x.to(torch.int64).clamp(-2 ** 31, 2 ** 31 - 1)
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 sqrt on every device.  PyTorch's vectorized
-    f32 sqrt on the CPU is not (it differs in the last bit on about 0.5%
-    of inputs); the f64 square root rounded once to f32 is, and matches
-    CUDA's sqrtf."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
-
-
-def _triangle(x):
-    return torch.where(x < 0.25, 4.0 * x,
-                       torch.where(x < 0.75, 2.0 - 4.0 * x, 4.0 * x - 4.0))
-
 
 def _noise_u32(idx, seed):
     """Counter hash (u32).  idx [v, N] or [1, N], seed [v]."""
-    x = (idx * 0x9E3779B9 + seed[:, None]) & _U32
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _U32
-    x = x ^ (x >> 15)
-    x = (x * 0x846CA68B) & _U32
-    return x ^ (x >> 16)
+    return noise_u32(idx, seed[:, None])
 
 
 def _noise(idx, seed):
-    x = _noise_u32(idx, seed)
-    return (x >> 8).to(torch.float32) * float(2.0 ** -23) - 1.0
-
-
-def _blep(t, dt):
-    """polyBLEP residual (formula: goldref.osc.poly_blep)."""
-    u0 = t / dt
-    lo = (u0 + u0) - u0 * u0 - 1.0
-    u1 = (t - 1.0) / dt
-    hi = u1 * u1 + (u1 + u1) + 1.0
-    return torch.where(t < dt, lo,
-                       torch.where(t > 1.0 - dt, hi, torch.zeros_like(t)))
+    return noise_values(idx, seed[:, None])
 
 
 def _one_wave(wid: int, p, vp: VoiceParams, n, num_harmonics: int,
@@ -651,11 +608,7 @@ def _one_wave(wid: int, p, vp: VoiceParams, n, num_harmonics: int,
         wu = (vp.pulse_width[:, None] * 4294967296.0).to(torch.int64)
         return torch.where(p < wu, one, -one)
     if wid == 5:
-        y_up = 4.0 * x - 1.0
-        y_dn = 4.0 * x - 3.0
-        up = _sqrt(torch.clamp_min(1.0 - y_up * y_up, 0.0))
-        dn = -_sqrt(torch.clamp_min(1.0 - y_dn * y_dn, 0.0))
-        return torch.where(x < 0.5, up, dn)
+        return _semicircle(x)
     if wid == 6:
         t = _triangle(x)
         return t * t * t

@@ -27,6 +27,14 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.models.spec",
                  "synthesizer_tpu_torch.ops.kernels",
                  "synthesizer_tpu_torch.ops.trig",
+                 "synthesizer_tpu_torch.ops.pcm",
+                 "synthesizer_tpu_torch.ops.effects",
+                 "synthesizer_tpu_torch.ops.wave",
+                 "synthesizer_tpu_torch.models.graph",
+                 "synthesizer_tpu_torch.sample",
+                 "synthesizer_tpu_torch.oscillators",
+                 "synthesizer_tpu_torch.synth",
+                 "synthesizer_tpu_torch.utils.device",
                  "synthesizer_tpu_torch.utils.wavio",
                  "synthesizer_tpu_torch.bench_song",
                  "synthesizer_tpu_torch.midi",
@@ -34,6 +42,22 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.sequencer",
                  "synthesizer_tpu_torch.__main__"):
         assert want in names
+
+
+def test_port_sources_name_no_jax():
+    """No module of the port (and not chip_smoke.py) has an import statement
+    that names jax or the JAX package, at top level or inside a function."""
+    files = sorted((ROOT / "synthesizer_tpu_torch").rglob("*.py"))
+    assert len(files) >= 20
+    for path in files + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            assert not [m for m in mods if _is_jax(m)], (path, mods)
 
 
 def _is_jax(name):

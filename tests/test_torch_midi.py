@@ -15,6 +15,7 @@ from synthesizer_tpu.sequencer import SynthDef as JSynthDef
 from synthesizer_tpu_torch import bench_song
 from synthesizer_tpu_torch import midi as TM
 from synthesizer_tpu_torch.models import voicebank as T
+from synthesizer_tpu_torch.sample import Sample
 from synthesizer_tpu_torch.sequencer import SynthDef as TSynthDef
 
 torch.set_num_threads(1)
@@ -129,10 +130,16 @@ def test_render_notes_matches_reference(gm_notes, sparse, monkeypatch):
         return orig(self, *a, **k)
 
     monkeypatch.setattr(T.VoiceBank, "_render_rows", spy)
-    got = TM.render_notes(gm_notes, sparse=sparse, device="cpu")
+    smp = TM.render_notes(gm_notes, sparse=sparse, device="cpu")
     assert bool(calls) == sparse                    # the route taken
-    want = JM.render_notes(_to_jax_notes(gm_notes),
-                           sparse=sparse).get_frame_array()
+    ref = JM.render_notes(_to_jax_notes(gm_notes), sparse=sparse)
+    want = ref.get_frame_array()
+    # a Sample, as the reference returns, with the same metadata
+    assert isinstance(smp, Sample)
+    assert (smp.name, smp.samplerate, smp.samplewidth, smp.nchannels,
+            smp.nframes) == (ref.name, ref.samplerate, ref.samplewidth,
+                             ref.nchannels, ref.nframes)
+    got = smp.torch_frames
     assert got.dtype == torch.int16 and got.device.type == "cpu"
     assert tuple(got.shape) == want.shape
     d = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
@@ -149,16 +156,37 @@ def test_render_midi_bytes_and_routes(tmp_path):
     inst = {0: TSynthDef(wave="sine", amplitude=0.3)}
     a = TM.render_midi(str(path), inst, device="cpu")
     b = TM.render_midi(data, inst, device="cpu")
-    assert torch.equal(a, b) and a.abs().max() > 1000
+    assert isinstance(a, Sample) and a == b
+    assert a.torch_frames.abs().max() > 1000
     want = JM.render_midi(data, {0: JSynthDef(wave="sine", amplitude=0.3)})
-    d = np.abs(a.numpy().astype(np.int32)
+    d = np.abs(a.get_frame_array().astype(np.int32)
                - want.get_frame_array().astype(np.int32))
     assert d.max() <= 1
+    # the Sample wraps the bank's int16 tensor unchanged: the flat route by
+    # hand gives the same frames, and so does the sparse one
+    parsed = TM.parse_midi(data, release_grace=TM.release_grace_for(inst))
+    voices = TM.midi_to_voices(parsed, inst)
+    total = TM.song_frames(voices, a.samplerate)
+    vp, layout = T.pack_voices(voices, a.samplerate, num_harmonics=8,
+                               sort_by_wave=True, device="cpu")
+    bank = T.VoiceBank.for_voices(voices, a.samplerate, num_harmonics=8,
+                                  layout=layout, nvoices=layout.nvoices,
+                                  device="cpu")
+    tensor = bank.to_int16(bank.render_song(vp, total))
+    flat = TM.render_midi(data, inst, sparse=False, device="cpu")
+    assert torch.equal(flat.torch_frames, tensor)
+    assert torch.equal(a.torch_frames, tensor)
+    # and it goes out as a WAV through the Sample
+    out = tmp_path / "t.wav"
+    a.write_wav(str(out))
+    assert Sample(str(out), device="cpu") == a
 
 
 def test_empty_mesh_and_device():
     empty = TM.render_notes([], device="cpu")
-    assert empty.shape == (0, 2) and empty.dtype == torch.int16
+    assert isinstance(empty, Sample)
+    assert (empty.nframes, empty.nchannels, empty.samplewidth) == (0, 2, 2)
+    assert empty.torch_frames.dtype == torch.int16
     notes = [TM.MidiNote(0.0, 0.2, 60, 100, 0)]
     with pytest.raises(NotImplementedError, match="mesh"):
         TM.render_notes(notes, mesh=object(), device="cpu")

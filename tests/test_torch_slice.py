@@ -137,3 +137,34 @@ def test_bank_rejects_params_on_another_device(song):
                                   device="meta")
     with pytest.raises(ValueError, match="bank on meta"):
         bank.render_chunk(vp, 0)
+
+
+def test_bank_golden_checksum_drift_alarm():
+    """The bank of tests/test_golden_checksums.py::test_bank_render_checksum
+    through the port.  The digest pins the port's own CPU bytes (a drift
+    alarm: a PyTorch upgrade may shift a float path by an ulp; look, then
+    update); the contract is the second half: within 1 LSB of the
+    reference's render of the same bank."""
+    import hashlib
+
+    def bank_of(M, **cpu):
+        vs = [M.Voice("harmonics", 110.0, amplitude=0.3,
+                      harmonics=[1, 0.5, 0.25], duration=0.2),
+              M.Voice("square_bl", 220.0, amplitude=0.3, duration=0.2,
+                      pan=0.5),
+              M.Voice("sine", 440.0, amplitude=0.3, duration=0.2,
+                      fm_frequency=6.0, fm_depth=0.02)]
+        vp, lay = M.pack_voices(vs, SR, num_harmonics=4, sort_by_wave=True,
+                                **cpu)
+        bank = M.VoiceBank.for_voices(vs, SR, chunk_frames=2048,
+                                      num_harmonics=4, layout=lay,
+                                      nvoices=lay.nvoices, **cpu)
+        return np.asarray(bank.to_int16(bank.render_song(vp, SR // 4)))
+
+    got = bank_of(T, device="cpu")
+    want = bank_of(J)
+    assert got.shape == want.shape == (SR // 4, 2)
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1
+    sha = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()[:16]
+    assert sha == "dfa1fbf3c42c6f55"
