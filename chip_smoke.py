@@ -5,11 +5,12 @@
 
 Builds the port's two Hopper kernels (``voicebank_setup`` and
 ``voicebank_render``, one source in ``synthesizer_tpu_torch/csrc``, nvcc
-into ``build/``), drives the three paths the port has -- config 5, the
+into ``build/``), drives the four paths the port has -- config 5, the
 64-voice 60 s song, through ``VoiceBank.render_song`` and ``to_int16`` to a
 WAV file; a General-MIDI file through ``midi.render_midi``; and a sound made
-with ``WaveSynth``, shaped with ``Sample`` ops and written as a WAV (plain
-PyTorch on the card: this path has no hand-written kernel) -- and holds
+with ``WaveSynth``, shaped with ``Sample`` ops and written as a WAV; and
+``Sample``'s resampling and effects ops (plain PyTorch on the card: these
+paths have no hand-written kernel) -- and holds
 both kernels against their plain PyTorch versions on the card:
 
 1. device: the card's name and power limit, torch and CUDA versions;
@@ -79,7 +80,22 @@ both kernels against their plain PyTorch versions on the card:
     chain's; config 5's main path through ``Sample.from_torch(...)
     .get_frame_array()`` into one pinned buffer with the pinned sha256;
     and the main path's wall clock and ``Memcpy DtoH`` time with a
-    pageable copy against the pinned one.
+    pageable copy against the pinned one;
+14. resample at full width: the MIDI render (7,905,280 stereo frames)
+    through the exact ratecv and the windowed-sinc resampler at 44100 ->
+    48000 and 48000 -> 44100, card == CPU bit for bit, streamed in chunks
+    of 1470 and 65536 == whole, and on a 1 s excerpt in chunks of 1, 7, 160
+    and 997; the ratecv at 22050 -> 44100 and 44100 -> 44101 at widths 1, 2
+    and 4 on 1 M frames; times by CUDA events, wall clock and profiler;
+15. config 3 of ``bench.py`` (16 sines rendered at 22050 Hz, resampled to
+    44100, amplified, faded, made stereo and mixed) on the card == on the
+    CPU bit for bit, and its wall clock (median of 10);
+16. effects: 21 ``Sample`` ops (the 20 of the effects rack, the compressor
+    also with a sidechain and a soft knee) on a 10 s excerpt of the render,
+    card against CPU within each op's ``goldref.effects`` budget and two
+    card runs bit-identical; then a mastering chain (high-pass, EQ,
+    compressor, reverb, limiter, ``normalize_lufs``) on the whole render,
+    timed step by step, its loudness and true peak card against CPU.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -155,6 +171,235 @@ def check(ok, what):
 def head(title):
     """A phase's heading, with the seconds since the script started."""
     print(f"{title}  (+{time.perf_counter() - STARTED:.1f} s)", flush=True)
+
+
+#: (name, op on a Sample, what it returns, card-vs-CPU budget): frames in
+#: LSB at 16 bit (goldref.effects), meter values in LU / dB
+def _fx_ops(key, ir):
+    return [
+        ("compress", lambda s: s.compress(-18.0, 4.0, 0.003, 0.08, 3.0), 2),
+        ("compress sidechain= knee_db=", lambda s: s.compress(
+            -24.0, 6.0, knee_db=6.0, sidechain=key), 2),
+        ("reverb", lambda s: s.reverb(), 4),
+        ("chorus", lambda s: s.chorus(), 2),
+        ("filter lowpass 1000", lambda s: s.filter("lowpass", 1000.0), 4),
+        ("eq", lambda s: s.eq(4.0, -6.0, 3.0, 150.0, 900.0, 1.4, 5000.0), 4),
+        ("gate", lambda s: s.gate(-30.0, 60.0), 2),
+        ("feedback_echo", lambda s: s.feedback_echo(0.25, 0.5), 1),
+        ("tremolo", lambda s: s.tremolo(), 1),
+        ("autopan", lambda s: s.autopan(), 1),
+        ("stereo_width", lambda s: s.stereo_width(1.7), 1),
+        ("limit", lambda s: s.limit(-6.0), 2),
+        ("phaser", lambda s: s.phaser(), 10),
+        ("convolve", lambda s: s.convolve(ir), 8),
+        ("granulate", lambda s: s.granulate(5.0), 2),
+        ("stretch", lambda s: s.stretch(1.3), 64),
+        ("pitch_shift", lambda s: s.pitch_shift(3.0), 64),
+        ("normalize_lufs", lambda s: s.normalize_lufs(-14.0), 1),
+        ("loudness_lufs", lambda s: s.loudness_lufs(), 0.01),
+        ("loudness_stats", lambda s: s.loudness_stats(), 0.01),
+        ("true_peak_dbtp", lambda s: s.true_peak_dbtp(), 0.01),
+    ]
+
+
+def resample_and_effects(dev, card, render, spread, timed, profiled):
+    """Phases 14-16: the resamplers, config 3 and the effects rack on the
+    card, each against the same code on the CPU.  ``render`` is the MIDI
+    path's int16 [n, 2] result on the card."""
+    import torch
+    from synthesizer_tpu_torch import bench_song
+    from synthesizer_tpu_torch.ops import loudness as LD
+    from synthesizer_tpu_torch.ops import pcm as P
+    from synthesizer_tpu_torch.ops import resample as RS
+    from synthesizer_tpu_torch.sample import Sample
+
+    def described(fn, reps=10):
+        """Run fn under CUDA events and the wall clock (medians of reps)
+        and under the profiler (3 calls) -> a line's worth of text."""
+        ev, wl = timed(fn, reps)
+        _, busy, pwall = profiled(fn, 3)
+        return (f"CUDA events {spread(ev)}; wall clock {spread(wl)}; "
+                f"{profiled.launches:.0f} device operations a call, device "
+                f"busy {busy:.6f} of {pwall:.6f} ms "
+                f"({100 * busy / pwall:.1f}%)"), statistics.median(wl)
+
+    def lsb(a, b):
+        return int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64))
+                   .abs().max()) if a.numel() else 0
+
+    # -- 14. resample ------------------------------------------------------
+    head(f"[14] resample at full width: the MIDI render, {render.shape[0]} "
+         f"stereo frames ({card})")
+    x_g = render
+    x_c = render.cpu()
+    n = x_g.shape[0]
+
+    def linear(a, b):
+        return lambda x: RS.resample_tensor(x, a, b)
+
+    def hq(a, b):
+        g = math.gcd(a, b)
+        M, L = a // g, b // g
+        return lambda x: RS.hq_resample(x, L, M, RS.nframes_out(
+            x.shape[0], M, L))
+
+    def stream(kind, a, b, x, chunk):
+        if kind == "linear":
+            rs = RS.StreamingResampler(a, b, x.shape[1], x.dtype, x.device)
+        else:
+            rs = RS.StreamingHQResampler(a, b, x.shape[1], x.dtype, x.device)
+        out = [rs.push(x[i:i + chunk])[0] for i in range(0, x.shape[0], chunk)]
+        if kind == "hq":
+            out.append(rs.flush()[0])
+        return torch.cat(out)
+
+    excerpt = x_g[60 * SR:61 * SR]
+    for a, b in ((44100, 48000), (48000, 44100)):
+        for kind, make in (("linear", linear), ("hq", hq)):
+            fn = make(a, b)
+            y_g = fn(x_g)
+            y_c = fn(x_c)
+            check(y_g.device.type == "cuda" and torch.equal(y_g.cpu(), y_c),
+                  f"{kind} {a} -> {b}: {y_g.shape[0]} frames, card == CPU bit "
+                  f"for bit")
+            text, _ = described(lambda: fn(x_g))
+            print(f"  {kind} {a} -> {b} on the card: {text}")
+            for chunk in (1470, 65536):
+                t = time.perf_counter()
+                same = torch.equal(stream(kind, a, b, x_g, chunk), y_g)
+                check(same, f"{kind} {a} -> {b}: streamed in chunks of "
+                      f"{chunk} == whole, bit for bit "
+                      f"({time.perf_counter() - t:.2f} s)")
+            whole = fn(excerpt)
+            t = time.perf_counter()
+            bad = [c for c in (1, 7, 160, 997)
+                   if not torch.equal(stream(kind, a, b, excerpt, c), whole)]
+            check(not bad, f"{kind} {a} -> {b} on a 1 s excerpt: streamed in "
+                  f"chunks of 1, 7, 160 and 997 == whole, bit for bit"
+                  f"{'' if not bad else ', EXCEPT ' + str(bad)} "
+                  f"({time.perf_counter() - t:.2f} s)")
+    one_m = x_g[:1 << 20]
+    for width in (1, 2, 4):
+        xw = P.lin2lin(one_m, width)
+        for a, b in ((22050, 44100), (44100, 44101)):
+            fn = linear(a, b)
+            y_g = fn(xw)
+            check(torch.equal(y_g.cpu(), fn(xw.cpu())),
+                  f"linear {a} -> {b}, width {width}, {xw.shape[0]} frames: "
+                  f"card == CPU bit for bit")
+            if width == 2:
+                text, _ = described(lambda: fn(xw))
+                print(f"  linear {a} -> {b} on 1 M frames: {text}")
+
+    # -- 15. config 3 --------------------------------------------------------
+    head(f"[15] config 3 of bench.py: 16 tracks resampled and mixed ({card})")
+    c3_g = bench_song.config3(SR, dev)
+    c3_c = bench_song.config3(SR, "cpu")
+    a3 = c3_g.get_frame_array()
+    check(c3_g.device.type == "cuda" and np.array_equal(
+        a3, c3_c.get_frame_array()) and a3.shape == (c3_c.nframes, 2)
+        and int(np.abs(a3.astype(np.int64)).max()) > 1000,
+        f"config 3: {a3.shape[0]} frames ({c3_g.duration:.3f} s), card == "
+        f"CPU bit for bit, peak {int(np.abs(a3.astype(np.int64)).max())}")
+    text, wall3 = described(
+        lambda: bench_song.config3(SR, dev).get_frame_array())
+    print(f"  config 3 to the host: {text}; {c3_g.duration / wall3 * 1e3:.1f}x "
+          f"realtime by the median wall clock")
+
+    # -- 16. effects ---------------------------------------------------------
+    head(f"[16] effects: each op on a 10 s excerpt, card against CPU; a "
+         f"mastering chain on the whole render ({card})")
+    ex_g = x_g[40 * SR:50 * SR].clone()
+    key_g = x_g[80 * SR:90 * SR].clone()
+    ir_np = np.random.default_rng(16).standard_normal((SR // 10, 1)) \
+        * np.exp(-np.arange(SR // 10) / 800.0)[:, None] * 8000.0
+    ir_g = torch.from_numpy(ir_np.astype(np.int16)).to(dev)
+    ops_g = _fx_ops(Sample.from_torch(key_g, SR, 2),
+                    Sample.from_torch(ir_g, SR, 2))
+    ops_c = _fx_ops(Sample.from_torch(key_g.cpu(), SR, 2),
+                    Sample.from_torch(ir_g.cpu(), SR, 2))
+    for (name, op, budget), (_, op_c, _) in zip(ops_g, ops_c):
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs.append(op(Sample.from_torch(ex_g, SR, 2)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        ref = op_c(Sample.from_torch(ex_g.cpu(), SR, 2))
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        if isinstance(ref, Sample):
+            a, b = runs[0].torch_frames, runs[1].torch_frames
+            d = lsb(a, ref.torch_frames) if a.shape == ref.torch_frames.shape \
+                else float("inf")
+            again = torch.equal(a, b)
+            unit = "LSB"
+        elif isinstance(ref, dict):
+            d = max(abs(runs[0][k] - ref[k]) if runs[0][k] != ref[k] else 0.0
+                    for k in ref)
+            again, unit = runs[0] == runs[1], "LU"
+        else:
+            d = abs(runs[0] - ref) if runs[0] != ref else 0.0
+            again, unit = runs[0] == runs[1], "dB"
+        check(d <= budget and again,
+              f"{name}: card vs CPU {d:.6g} {unit} (budget {budget}), two "
+              f"card runs bit-identical; {ms:.3f} ms on the card, "
+              f"{cpu_ms:.3f} ms on the CPU")
+
+    def chain(s, steps=None):
+        """filter -> eq -> compress -> reverb -> limit -> normalize_lufs;
+        with ``steps`` each stage is synchronised and timed into it."""
+        stages = (("filter highpass 30", lambda s: s.filter("highpass", 30.0)),
+                  ("eq", lambda s: s.eq(2.0, -1.5, 2.5)),
+                  ("compress", lambda s: s.compress(-18.0, 3.0, 0.01, 0.15,
+                                                    2.0)),
+                  ("reverb", lambda s: s.reverb(0.5, 0.5, 0.15, 0.9, 1.0,
+                                                1.5)),
+                  ("limit", lambda s: s.limit(-1.0)),
+                  ("normalize_lufs -14", lambda s: s.normalize_lufs(-14.0)))
+        for name, op in stages:
+            t = time.perf_counter()
+            op(s)
+            if steps is not None:
+                torch.cuda.synchronize()
+                steps[name] = (time.perf_counter() - t) * 1e3
+        return s
+
+    steps = {}
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    start.record()
+    out = chain(Sample.from_torch(x_g, SR, 2), steps)
+    tp = out.true_peak_dbtp()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    print(f"  the chain on {n} frames ({n / SR:.1f} s): CUDA events "
+          f"{start.elapsed_time(end):.3f} ms, wall clock {wall:.3f} ms; "
+          f"synchronised steps (ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in steps.items()))
+    y = out.torch_frames
+    li_g = LD.loudness_integrated(y, SR)
+    li_c = LD.loudness_integrated(y.cpu(), SR)
+    tp_c = 20.0 * math.log10(LD.true_peak_norm(y.cpu()))
+    check(y.shape == (n + int(1.5 * SR), 2) and li_g < -14.0 + 0.1
+          and tp <= -1.0 + 0.1 and abs(li_g - li_c) <= 0.01
+          and abs(tp - tp_c) <= 0.01,
+          f"mastering chain: {y.shape[0]} frames, {li_g:.4f} LUFS on the "
+          f"card, {li_c:.4f} on the CPU (budget 0.01); true peak "
+          f"{tp:.4f} dBTP, {tp_c:.4f} on the CPU")
+    # under the profiler on the 10 s excerpt: a whole-render pass records
+    # about a million device operations, whose trace takes minutes to read
+    by_name, busy, pwall = profiled(
+        lambda: chain(Sample.from_torch(ex_g, SR, 2)), 1, cpu=False)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    print(f"  the chain on the 10 s excerpt under the profiler: "
+          f"{profiled.launches:.0f} device operations, device busy "
+          f"{busy:.3f} of {pwall:.3f} ms ({100 * busy / pwall:.1f}%); most "
+          f"device time: " + "; ".join(f"{ms:.3f} ms {k[:60]}"
+                                         for k, ms in top))
 
 
 def main():
@@ -591,13 +836,14 @@ def main():
         return (f"median {statistics.median(xs):.6f} ms (min {min(xs):.6f}, "
                 f"max {max(xs):.6f}, n={len(xs)})")
 
-    def profiled(fn, reps):
+    def profiled(fn, reps, cpu=True):
         """Device time by kernel over reps calls -> ({name: ms per call},
-        device-busy ms per call, wall ms per call)."""
+        device-busy ms per call, wall ms per call).  ``cpu=False`` records
+        the device's activity only (for calls of a million launches)."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * cpu
+                     + [ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(reps):
                 fn()
@@ -1480,6 +1726,9 @@ def main():
     check(dtoh_page > 0.0 and dtoh_pin > 0.0,
           f"the profiler shows the copies: Memcpy DtoH pageable "
           f"{dtoh_page:.6f} ms, pinned {dtoh_pin:.6f} ms")
+
+    resample_and_effects(dev, card, midi_smp.torch_frames, spread, timed,
+                         profiled)
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [

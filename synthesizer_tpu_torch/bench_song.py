@@ -5,7 +5,8 @@ config 5 on the GPU to a WAV file.
 twin of ``__graft_entry__._demo_voices`` (same voices, same fields), so the
 port renders exactly what the reference renders.  ``sparse_voices`` is the
 sparse-render workload of ``bench.py`` (600 notes over 300 s, seed 5), and
-``gm_file`` a seeded General-MIDI file for the MIDI path.
+``gm_file`` a seeded General-MIDI file for the MIDI path; ``config3`` is
+config 3 of ``bench.py``, the chainable ``Sample`` API with resampling.
 
     python -m synthesizer_tpu_torch out.wav
 """
@@ -194,6 +195,23 @@ def song_sample(bank: VoiceBank, vp, total: int) -> Sample:
     ``Sample`` (whose ``get_frame_array`` is the copy to the host)."""
     return Sample.from_torch(bank.to_int16(bank.render_song(vp, total)),
                              SAMPLERATE, 2, name="config5")
+
+
+def config3(samplerate: int = SAMPLERATE, device="cuda", tracks: int = 16,
+            track_sec: float = 2.0, gap: float = 1.0) -> Sample:
+    """Config 3 of ``bench.py`` (the chainable ``Sample`` API): ``tracks``
+    sines of ``track_sec`` seconds rendered at 22050 Hz, each resampled to
+    ``samplerate``, amplified, faded in and out, made stereo and mixed in at
+    ``gap``-second offsets into one stereo ``Sample``."""
+    from .synth import WaveSynth
+    synth = WaveSynth(samplerate=22050, samplewidth=2, device=device)
+    total = Sample.from_raw_frames(b"", 2, samplerate, 2, device=device)
+    for t in range(tracks):
+        s = synth.sine(100.0 + 50 * t, track_sec, amplitude=0.4)
+        s.resample(samplerate).amplify(0.5 + 0.02 * t) \
+         .fadein(0.02).fadeout(0.05).stereo()
+        total.mix_at(gap * t, s)
+    return total
 
 
 def main(argv=None) -> int:

@@ -1,4 +1,4 @@
-"""Device-resident ``Sample`` PCM buffer (port of
+"""Device-resident ``Sample`` PCM buffer and ``LevelMeter`` (port of
 ``synthesizer_tpu.sample``).
 
 A PCM sample with immutable metadata and a rebindable buffer whose
@@ -22,13 +22,19 @@ host.  On a CUDA sample it copies into pinned host memory
 (``utils.device.to_host``) and caches the read-only view until the buffer
 is rebound; on a CPU sample it is a view of the tensor.
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-queue item it waits for): the effects-backed ops and the loudness methods,
-``LevelMeter``, the resampling methods, and the compressed-audio writers.
+**Effects and resampling.**  The effects rack (``ops/effects.py``), the
+loudness meters (``ops/loudness.py``) and both resamplers
+(``ops/resample.py``) run on the sample's device.  A key, impulse-response
+or modulator ``Sample`` is used as it stands: there is no sub-program to
+fuse.
+
+Not ported yet: the compressed-audio writers, which raise
+``NotImplementedError`` naming the ROADMAP queue item they wait for.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Iterator, Optional
 
@@ -36,7 +42,11 @@ import numpy as np
 import torch
 
 from . import params
+from .ops import coeffs as C
+from .ops import effects as dfx
+from .ops import loudness as dl
 from .ops import pcm as dpcm
+from .ops import resample as dresample
 from .ops import wave as W
 from .utils import wavio
 from .utils.device import resolve as _device
@@ -48,8 +58,6 @@ MAXVAL = dpcm.MAXVAL
 MINVAL = dpcm.MINVAL
 
 _WAITS_FOR = {
-    8: "ops/resample.py",
-    10: "the effects rack (ops/effects.py, effects.py, ops/loudness.py)",
     11: "the host codecs (utils/codecs.py, flac.py, libav.py)",
 }
 
@@ -510,28 +518,294 @@ class Sample:
             x = torch.cat([x[:dk], mixed, x[dk + m:]], dim=0)
         return self._set(x)
 
-    # -- effects rack: not ported yet ------------------------------------------------------------
+    # -- effects rack (beyond the reference; contract: goldref.effects) --------------------------
 
-    compress = _waits("compress", 10)
-    reverb = _waits("reverb", 10)
-    chorus = _waits("chorus", 10)
-    filter = _waits("filter", 10)
-    eq = _waits("eq", 10)
-    loudness_lufs = _waits("loudness_lufs", 10)
-    loudness_stats = _waits("loudness_stats", 10)
-    true_peak_dbtp = _waits("true_peak_dbtp", 10)
-    normalize_lufs = _waits("normalize_lufs", 10)
-    gate = _waits("gate", 10)
-    feedback_echo = _waits("feedback_echo", 10)
-    tremolo = _waits("tremolo", 10)
-    autopan = _waits("autopan", 10)
-    stereo_width = _waits("stereo_width", 10)
-    limit = _waits("limit", 10)
-    phaser = _waits("phaser", 10)
-    convolve = _waits("convolve", 10)
-    granulate = _waits("granulate", 10)
-    stretch = _waits("stretch", 10)
-    pitch_shift = _waits("pitch_shift", 10)
+    def compress(self, threshold_db: float = -20.0, ratio: float = 4.0,
+                 attack: float = 0.005, release: float = 0.1,
+                 makeup_db: float = 0.0, knee_db: float = 0.0,
+                 sidechain: Optional["Sample"] = None) -> "Sample":
+        """Peak compressor / limiter (``ratio=math.inf``): the detector and
+        attack smoother are log-depth scans (ops.effects); spec/tolerance:
+        goldref.effects.compressor_gains.  ``knee_db`` > 0 softens the
+        static curve over a knee_db-wide window (0 keeps the hard knee).
+        With ``sidechain`` the detector listens to the KEY sample, as it
+        stands (ducking); past the key's end the gain releases to 1."""
+        alpha, decay = C.compressor_coeffs(self._samplerate, attack, release)
+        slope = 1.0 if math.isinf(ratio) else 1.0 - 1.0 / ratio
+        makeup = float(np.exp2(np.float32(makeup_db) / np.float32(6.0206)))
+        if not 0.0 <= knee_db <= 24.0:
+            raise ValueError("compress knee_db must be in [0, 24]")
+        knee = knee_db if knee_db > 0.0 else None
+        x = self._frames
+        if sidechain is None:
+            g = dfx.compressor_gains_from_coeffs(x, threshold_db, slope,
+                                                 alpha, decay, knee=knee)
+        else:
+            if sidechain._samplerate != self._samplerate:
+                raise ValueError("sidechain samplerate mismatch")
+            key = W.div(self._of(sidechain).to(torch.float32),
+                        MAXVAL[sidechain._samplewidth])
+            a = torch.amax(torch.abs(key), dim=1)
+            n = x.shape[0]
+            a = a[:n] if a.shape[0] >= n else torch.cat(
+                [a, torch.zeros(n - a.shape[0], dtype=torch.float32,
+                                device=a.device)])
+            g = dfx.compressor_gains_from_level(a, threshold_db, slope,
+                                                alpha, decay, knee=knee)
+        return self._set(dpcm.gain_apply(x, (g * makeup)[:, None]))
+
+    def reverb(self, roomsize: float = 0.7, damping: float = 0.5,
+               wet: float = 0.33, dry: float = 0.7, width: float = 1.0,
+               tail: float = 1.5) -> "Sample":
+        """Freeverb-style reverb (lag-aligned comb stage, see ops.effects);
+        extends the sample by ``tail`` seconds of decay.  Spec/tolerance:
+        goldref.effects.reverb."""
+        feedback, damp, wet1, wet2 = C.reverb_params(roomsize, damping, wet,
+                                                   width)
+        return self._set(dfx.reverb_from_params(
+            self._frames, self._samplerate, feedback, damp, wet1, wet2, dry,
+            self._n(tail)))
+
+    def chorus(self, rate: float = 0.5, depth: float = 0.002,
+               delay: float = 0.02, voices: int = 3, wet: float = 0.4,
+               dry: float = 1.0) -> "Sample":
+        """Multi-voice chorus (LFO-modulated fractional delays).
+        Spec/tolerance: goldref.effects.chorus."""
+        return self._set(dfx.chorus(self._frames, self._samplerate,
+                                    float(rate), float(depth), float(delay),
+                                    int(voices), wet, dry))
+
+    def filter(self, kind: str, cutoff: float, q: float = 0.7071,
+               gain_db: float = 0.0) -> "Sample":
+        """Resonant RBJ biquad on the PCM (parallel companion-matrix scan —
+        ops.effects.companion_scan); spec/tolerance:
+        goldref.effects.biquad_filter.  Kinds: lowpass/highpass/bandpass,
+        plus the gain kinds lowshelf/highshelf/peaking (``gain_db``)."""
+        if kind in ("lowshelf", "highshelf", "peaking"):
+            coeffs = C.eq_band_coeffs(kind, cutoff, gain_db, q,
+                                    self._samplerate)
+        else:
+            coeffs = C.biquad_coeffs(kind, cutoff, q, self._samplerate)
+        return self._biquad(coeffs)
+
+    def _biquad(self, coeffs) -> "Sample":
+        """One biquad, routed by conditioning: coefficient sets with
+        near-unit poles (ops.coeffs.wants_ff_scan) run the float-float scan
+        with (hi, lo) coefficient pairs, the rest the plain f32 scan."""
+        x = self._frames
+        w = self._samplewidth
+        s = W.div(x.to(torch.float32), MAXVAL[w])
+        if C.wants_ff_scan(coeffs):
+            y, _ = dfx.biquad_apply_ff(s, tuple(C.ff_split(c) for c in coeffs))
+        else:
+            y, _ = dfx.biquad_apply(s, coeffs)
+        return self._set(dfx.to_int_samples(y, w))
+
+    def eq(self, low_db: float = 0.0, mid_db: float = 0.0,
+           high_db: float = 0.0, low_freq: float = 120.0,
+           mid_freq: float = 1000.0, mid_q: float = 1.0,
+           high_freq: float = 8000.0) -> "Sample":
+        """Three-band parametric EQ: low shelf, peaking mid, high shelf.
+        Each NONZERO band is one RBJ biquad, as chained ``filter()`` calls;
+        zero-gain bands do nothing.  Spec/tolerance: goldref.effects.eq."""
+        for kind, f, g, q in (("lowshelf", low_freq, low_db, 0.7071),
+                              ("peaking", mid_freq, mid_db, mid_q),
+                              ("highshelf", high_freq, high_db, 0.7071)):
+            if g != 0.0:
+                self._biquad(C.eq_band_coeffs(kind, f, g, q, self._samplerate))
+        return self
+
+    def loudness_lufs(self) -> float:
+        """Integrated programme loudness (LUFS, ITU-R BS.1770-4):
+        K-weighted hop energies on the device, the two-stage gate on the
+        host (ops/loudness.py).  -inf for silence or programmes shorter
+        than one 400 ms block.  Spec/tolerance:
+        goldref.effects.loudness_lufs."""
+        return dl.loudness_integrated(self._frames, self._samplerate)
+
+    def loudness_stats(self) -> dict:
+        """The EBU R128 meter set in one pass: ``integrated`` (LUFS),
+        ``lra`` (LU), ``momentary_max`` and ``short_term_max`` (LUFS).
+        Spec/tolerance: goldref.effects.loudness_stats."""
+        return dl.loudness_stats(self._frames, self._samplerate)
+
+    def true_peak_dbtp(self) -> float:
+        """True peak (dBTP, BS.1770-4 Annex 2, 4x polyphase oversampling);
+        -inf for silence.  Spec/tolerance: goldref.effects.true_peak_dbtp."""
+        tp = dl.true_peak_norm(self._frames)
+        return float("-inf") if tp <= 0.0 else 20.0 * math.log10(tp)
+
+    def normalize_lufs(self, target_lufs: float = -14.0,
+                       true_peak_db: float = -1.0) -> "Sample":
+        """Loudness-normalize to a target (default -14 LUFS): gain = target
+        - measured, capped so that the true peak stays <= ``true_peak_db``
+        dBTP, applied as one ``amplify``.  Silence is returned unchanged."""
+        li = dl.loudness_integrated(self._frames, self._samplerate)
+        if not math.isfinite(li):
+            return self
+        gain_db = target_lufs - li
+        tp = dl.true_peak_norm(self._frames)
+        if tp > 0.0:
+            gain_db = min(gain_db, true_peak_db - 20.0 * math.log10(tp))
+        return self.amplify(float(10.0 ** (gain_db / 20.0)))
+
+    def gate(self, threshold_db: float = -50.0, range_db: float = 80.0,
+             attack: float = 0.001, release: float = 0.05) -> "Sample":
+        """Noise gate (decaying-max detector + one-pole smoother as
+        parallel scans); spec/tolerance: goldref.effects.gate_gains."""
+        alpha, decay, floor_gain = C.gate_coeffs(self._samplerate, attack,
+                                               release, range_db)
+        x = self._frames
+        g = dfx.gate_gains_from_coeffs(x, threshold_db, floor_gain, alpha,
+                                       decay, e0=0.0, z0=floor_gain)
+        return self._set(dpcm.gain_apply(x, g[:, None]))
+
+    def feedback_echo(self, delay: float, feedback: float = 0.4,
+                      wet: float = 0.5, dry: float = 1.0,
+                      tail: Optional[float] = None) -> "Sample":
+        """Feedback delay line: first echo at ``delay`` seconds with
+        amplitude ``wet``, the k-th at k*delay with wet*feedback^(k-1).
+        Extends the sample by ``tail`` seconds, or by the 1-LSB rule of
+        ops.coeffs.echo_tail_frames.  Spec/budget:
+        goldref.effects.feedback_echo."""
+        if not 0.0 <= feedback <= 0.95:
+            raise ValueError("feedback must be in [0, 0.95]")
+        D = max(1, self._n(delay))
+        tail_frames = C.echo_tail_frames(self._samplerate, delay, feedback,
+                                       wet, tail)
+        return self._set(dfx.feedback_echo(self._frames, D, feedback, wet,
+                                           dry, tail_frames))
+
+    def _lfo_grid(self, grid: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(grid, np.float32)).to(self.device)
+
+    def tremolo(self, rate: float = 5.0, depth: float = 0.5,
+                start_frame: int = 0) -> "Sample":
+        """LFO amplitude modulation: per-frame gains in [1-depth, 1] from
+        the house integer-DDS sine LFO, derived on the host at absolute
+        frames [start_frame, ...) (ops.coeffs.tremolo_gain_grid).
+        Spec/budget: goldref.effects.tremolo."""
+        if not 0.0 <= depth <= 1.0:
+            raise ValueError("tremolo depth must be in [0, 1]")
+        if not 0.0 < rate <= 20.0:
+            raise ValueError("tremolo rate must be in (0, 20] Hz")
+        P = C.static_phase(int(start_frame), self.nframes, self._samplerate,
+                         rate)
+        return self._set(dfx.tremolo(
+            self._frames, self._lfo_grid(C.tremolo_gain_grid(P, depth))))
+
+    def autopan(self, rate: float = 0.5, depth: float = 1.0,
+                start_frame: int = 0) -> "Sample":
+        """LFO auto-panner: per-frame pan positions depth*sin through the
+        house equal-gain pan law, derived on the host at absolute frames
+        (ops.coeffs.autopan_pan_grid).  Stereo only.  Spec/budget:
+        goldref.effects.autopan."""
+        if self.nchannels != 2:
+            raise ValueError("autopan needs a stereo sample")
+        if not 0.0 <= depth <= 1.0:
+            raise ValueError("autopan depth must be in [0, 1]")
+        if not 0.0 < rate <= 20.0:
+            raise ValueError("autopan rate must be in (0, 20] Hz")
+        P = C.static_phase(int(start_frame), self.nframes, self._samplerate,
+                         rate)
+        return self._set(dfx.autopan(
+            self._frames, self._lfo_grid(C.autopan_pan_grid(P, depth))))
+
+    def stereo_width(self, amount: float) -> "Sample":
+        """Mid/side stereo-width control (0 = mono, 1 = unity, up to 4 =
+        wider).  Spec/budget: goldref.effects.stereo_width."""
+        if self.nchannels != 2:
+            raise ValueError("stereo_width needs a stereo sample")
+        if not 0.0 <= amount <= 4.0:
+            raise ValueError("width amount must be in [0, 4]")
+        return self._set(dfx.stereo_width(self._frames, amount))
+
+    def limit(self, ceiling_db: float = -1.0, release: float = 0.05,
+              lookahead: float = 0.005) -> "Sample":
+        """Lookahead brickwall limiter: the gain dips ``lookahead`` seconds
+        before a peak (window max + box attack ramp), releases as a
+        decaying max in dB, and a hard integer clamp at the ceiling makes it
+        a true brickwall.  Length preserved.  Spec/tolerance:
+        goldref.effects.limiter_gains."""
+        if not -60.0 <= ceiling_db <= 0.0:
+            raise ValueError("limiter ceiling_db must be in [-60, 0]")
+        L = max(1, self._n(lookahead))
+        decay = C.compressor_coeffs(self._samplerate, 0.0, release)[1]
+        cint = C.limiter_ceiling(ceiling_db, self._samplewidth)
+        return self._set(dfx.limiter(self._frames, ceiling_db, decay, L,
+                                     cint))
+
+    def phaser(self, rate: float = 0.5, depth: float = 1.0,
+               min_freq: float = 300.0, max_freq: float = 3000.0,
+               stages: int = 4, q: float = 0.7071, wet: float = 0.5,
+               dry: float = 1.0) -> "Sample":
+        """LFO-swept allpass cascade: ``stages`` identical RBJ allpasses
+        sweep exponentially between ``min_freq`` and ``max_freq`` under the
+        house integer-DDS LFO, with per-frame coefficient grids from the
+        host (ops.coeffs.phaser_coeff_grids).  Sweep floors below ~120 Hz
+        run the float-float scan (ops.coeffs.phaser_wants_ff).
+        Spec/budget: goldref.effects.phaser."""
+        if not 1 <= int(stages) <= 12:
+            raise ValueError("phaser stages must be in [1, 12]")
+        if min_freq < 30.0 or max_freq <= min_freq:
+            raise ValueError("phaser needs 30 <= min_freq < max_freq")
+        ff = C.phaser_wants_ff(min_freq)
+        x = self._frames
+        grids = C.phaser_coeff_grids(
+            0, x.shape[0], self._samplerate, rate, depth, min_freq,
+            max_freq, q, dtype=np.float64 if ff else np.float32)
+        z = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+        if ff:
+            grids = tuple(tuple(self._lfo_grid(part) for part in C.ff_split(g))
+                          for g in grids)
+            states = tuple((z,) * 6 for _ in range(int(stages)))
+        else:
+            grids = tuple(self._lfo_grid(g) for g in grids)
+            states = tuple((z,) * 4 for _ in range(int(stages)))
+        s = W.div(x.to(torch.float32), MAXVAL[self._samplewidth])
+        y, _ = dfx.phaser_apply(s, grids, states, ff)
+        out = float(np.float32(dry)) * s + float(np.float32(wet)) * y
+        return self._set(dfx.to_int_samples(out, self._samplewidth))
+
+    def convolve(self, ir: "Sample", wet: float = 1.0,
+                 dry: float = 0.0) -> "Sample":
+        """Convolve with an impulse-response sample (f32 FFT product; a
+        mono IR applies to all channels); extends by len(ir)-1 frames.
+        Spec/tolerance: goldref.effects.convolve."""
+        if ir._samplerate != self._samplerate:
+            raise ValueError("impulse response samplerate mismatch")
+        if ir.nchannels not in (1, self.nchannels):
+            raise ValueError("impulse response channel mismatch")
+        if ir.nframes == 0:
+            raise ValueError("empty impulse response")
+        ir_norm = W.div(self._of(ir).to(torch.float32),
+                        MAXVAL[ir._samplewidth])
+        return self._set(dfx.convolve(self._frames, ir_norm, wet, dry))
+
+    def granulate(self, duration: float, grain: float = 0.05,
+                  density: float = 25.0, jitter: float = 0.02,
+                  amplitude: float = 0.7, seed: int = 0) -> "Sample":
+        """Granular resynthesis onto a ``duration``-second canvas (one
+        gather, the grains added in a fixed order); spec/tolerance:
+        goldref.effects.granulate."""
+        return self._set(dfx.granulate(
+            self._frames, self._samplerate, float(duration), float(grain),
+            float(density), float(jitter), amplitude, int(seed)))
+
+    def stretch(self, factor: float, frame: int = 2048,
+                hop: int = 512) -> "Sample":
+        """Phase-vocoder time stretch (duration x factor, pitch kept);
+        spec/tolerance: goldref.effects.stretch."""
+        return self._set(dfx.stretch(self._frames, float(factor),
+                                     int(frame), int(hop)))
+
+    def pitch_shift(self, semitones: float, frame: int = 2048,
+                    hop: int = 512, quality: str = "linear") -> "Sample":
+        """Shift pitch by equal-tempered semitones, duration preserved:
+        stretch(r) + speed(r), r = 2**(semitones/12).  ``quality='hq'``
+        runs the speed leg through the windowed-sinc resampler."""
+        r = 2.0 ** (semitones / 12.0)
+        return self.stretch(r, frame, hop).speed(r, quality=quality)
 
     # -- format conversion -----------------------------------------------------------------------
 
@@ -552,10 +826,56 @@ class Sample:
             self._samplewidth = 2
         return self
 
-    resample = _waits("resample", 8)
-    speed = _waits("speed", 8)
-    _ratecv = _waits("_ratecv", 8)
-    _hq_resample = _waits("_hq_resample", 8)
+    def resample(self, samplerate: int, quality: str = "linear") -> "Sample":
+        """Resample to a new rate (pitch preserved).  quality='linear'
+        (default) is the reference's exact audioop ratecv interpolator,
+        bit-exact; quality='hq' is the windowed-sinc polyphase resampler
+        (ops.resample.hq_resample; spec and <= 1 LSB budget:
+        goldref.effects.hq_resample) with the SAME output length."""
+        if samplerate == self._samplerate:
+            return self
+        if quality == "hq":
+            self._hq_resample(self._samplerate, samplerate)
+        elif quality == "linear":
+            self._ratecv(self._samplerate, samplerate)
+        else:
+            raise ValueError(f"unknown resample quality {quality!r}")
+        self._samplerate = samplerate
+        return self
+
+    def speed(self, speed: float, quality: str = "linear") -> "Sample":
+        """Change playback speed (and pitch), keeping the samplerate.
+        quality='hq' snaps the ratio to the nearest rational with both
+        terms <= ops.resample.HQ_MAX_FACTOR (ops.resample.bounded_ratio)."""
+        if speed == 1.0:
+            return self
+        if quality == "hq":
+            self._hq_resample(int(self._samplerate * speed),
+                              self._samplerate, snap=True)
+        elif quality == "linear":
+            self._ratecv(int(self._samplerate * speed), self._samplerate)
+        else:
+            raise ValueError(f"unknown resample quality {quality!r}")
+        return self
+
+    def _hq_resample(self, inrate: int, outrate: int,
+                     snap: bool = False) -> "Sample":
+        g = math.gcd(inrate, outrate)
+        M, L = inrate // g, outrate // g
+        if max(L, M) > dresample.HQ_MAX_FACTOR:
+            if not snap:
+                # an irreducible pair is a caller error, not a snap case
+                raise ValueError(
+                    f"quality='hq' supports rational rate ratios up to "
+                    f"{dresample.HQ_MAX_FACTOR} after gcd reduction; "
+                    f"got {L}/{M}")
+            L, M = dresample.bounded_ratio(outrate, inrate)
+        nout = dresample.nframes_out(self.nframes, M, L)
+        return self._set(dresample.hq_resample(self._frames, L, M, nout))
+
+    def _ratecv(self, inrate: int, outrate: int) -> "Sample":
+        return self._set(dresample.resample_tensor(self._frames, inrate,
+                                                   outrate))
 
     def mono(self, left_factor: float = 1.0, right_factor: float = 1.0) -> "Sample":
         if self.nchannels == 1:
@@ -630,11 +950,8 @@ class Sample:
     # -- misc ------------------------------------------------------------------------------------------
 
     def normalize(self) -> "Sample":
-        """Convert to the global normalization targets (params module).  A
-        sample at another rate than ``params.norm_samplerate`` needs
-        ``resample``, which is not ported yet."""
-        if self._samplerate != params.norm_samplerate:
-            self.resample(params.norm_samplerate)
+        """Convert to the global normalization targets (params module)."""
+        self.resample(params.norm_samplerate)
         if self._samplewidth != params.norm_samplewidth:
             if params.norm_samplewidth == 2:
                 self.make_16bit(maximize_amplitude=False)
@@ -676,10 +993,137 @@ def _modulator_gains(modulator, n: int, device) -> torch.Tensor:
     return g[:n]
 
 
-class LevelMeter:
-    """Peak / RMS level meter.  Not ported yet: it comes with the effects
-    slice (its loudness readout needs ``ops/loudness.py``).  The reductions
-    it runs per chunk, ``ops.pcm.vu_levels``, are ported."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("LevelMeter", 10)
+
+class LevelMeter:
+    """Peak / RMS dB level meter with decay (VU meter).
+
+    Call :meth:`update` once per chunk; levels are in dB relative to full
+    scale, floored at ``lowest``.  The level decays at 30 dB/s between
+    updates and the peak markers hold for 0.4 s before falling.  The
+    per-chunk peak/RMS reductions of a ``Sample`` run on its device
+    (``ops.pcm.vu_levels``, one host copy a chunk); host chunks
+    (:meth:`update_frames`) are reduced with numpy.
+    """
+
+    DECAY_DB_PER_SEC = 30.0
+    PEAK_HOLD_SEC = 0.4
+
+    def __init__(self, rms_mode: bool = False, lowest: float = -60.0,
+                 loudness: bool = False):
+        """``loudness=True`` adds a live EBU R128 readout: ``momentary`` /
+        ``short_term`` LUFS (and their maxima) track every chunk fed
+        through :meth:`update` / :meth:`update_frames`, via
+        ``ops.loudness.StreamingLoudness``."""
+        if not lowest < 0:
+            raise ValueError("lowest must be below 0 dB")
+        self.rms_mode = rms_mode
+        self.lowest = float(lowest)
+        self.level_left = self.level_right = lowest
+        self.peak_left = self.peak_right = lowest
+        self._peak_left_hold = self._peak_right_hold = 0.0
+        self._want_loudness = bool(loudness)
+        self.loudness_meter = None      # built lazily (needs samplerate)
+
+    def reset(self) -> None:
+        self.level_left = self.level_right = self.lowest
+        self.peak_left = self.peak_right = self.lowest
+        self._peak_left_hold = self._peak_right_hold = 0.0
+        self.loudness_meter = None
+
+    @property
+    def momentary_lufs(self) -> float:
+        return (self.loudness_meter.momentary if self.loudness_meter
+                else float("-inf"))
+
+    @property
+    def short_term_lufs(self) -> float:
+        return (self.loudness_meter.short_term if self.loudness_meter
+                else float("-inf"))
+
+    def _loudness(self, samplerate: int, nchannels: int):
+        if self.loudness_meter is None:
+            self.loudness_meter = dl.StreamingLoudness(samplerate, nchannels)
+        return self.loudness_meter
+
+    def update(self, sample: Sample):
+        """Process one sample/chunk; returns (level_l, peak_l, level_r,
+        peak_r)."""
+        data = sample.torch_frames
+        if self._want_loudness:
+            # the original channel layout (a dual-mono expansion would
+            # read +3 LU high)
+            self._loudness(sample.samplerate, sample.nchannels).update(data)
+        if sample.nchannels == 1:
+            data = torch.cat([data, data], dim=1)
+        pl, pr, msl, msr = dpcm.vu_levels(data).tolist()
+        return self._advance(pl, pr, msl, msr, float(sample.maxvalue),
+                             sample.duration)
+
+    def update_frames(self, frames: np.ndarray, samplerate: int,
+                      maxvalue: float = 32767.0):
+        """Host-side metering of int16 chunks that are already in host
+        memory (a realtime mixer's buffers): no device round trip, the live
+        loudness readout included."""
+        a = np.asarray(frames)
+        if a.ndim == 1:
+            a = a[:, None]
+        if self._want_loudness:
+            self._loudness(samplerate, a.shape[1]).update_host(a, maxvalue)
+        if a.shape[1] == 1:
+            a = np.repeat(a, 2, axis=1)
+        a = np.ascontiguousarray(a, np.int16)
+        l, r = a[:, 0].astype(np.float64), a[:, 1].astype(np.float64)
+        n = len(a)
+        pl = float(np.abs(a[:, 0].astype(np.int32)).max(initial=0))
+        pr = float(np.abs(a[:, 1].astype(np.int32)).max(initial=0))
+        msl = float((l * l).mean()) if n else 0.0
+        msr = float((r * r).mean()) if n else 0.0
+        return self._advance(pl, pr, msl, msr, maxvalue, n / samplerate)
+
+    def _advance(self, pl, pr, msl, msr, maxvalue, dt):
+        if self.rms_mode:
+            ampl_l = math.sqrt(max(msl, 0.0)) / maxvalue
+            ampl_r = math.sqrt(max(msr, 0.0)) / maxvalue
+        else:
+            ampl_l = pl / maxvalue
+            ampl_r = pr / maxvalue
+        decay = self.DECAY_DB_PER_SEC * dt
+        db_l = 20.0 * math.log10(ampl_l) if ampl_l > 0 else self.lowest
+        db_r = 20.0 * math.log10(ampl_r) if ampl_r > 0 else self.lowest
+        db_l = max(db_l, self.lowest)
+        db_r = max(db_r, self.lowest)
+        self.level_left = max(db_l, self.level_left - decay)
+        self.level_right = max(db_r, self.level_right - decay)
+        self._peak_left_hold += dt
+        self._peak_right_hold += dt
+        if db_l >= self.peak_left:
+            self.peak_left = db_l
+            self._peak_left_hold = 0.0
+        elif self._peak_left_hold > self.PEAK_HOLD_SEC:
+            self.peak_left = max(self.peak_left - decay, db_l)
+        if db_r >= self.peak_right:
+            self.peak_right = db_r
+            self._peak_right_hold = 0.0
+        elif self._peak_right_hold > self.PEAK_HOLD_SEC:
+            self.peak_right = max(self.peak_right - decay, db_r)
+        return (self.level_left, self.peak_left, self.level_right,
+                self.peak_right)
+
+    def print(self, bar_width: int = 60):
+        """Render a console VU bar (like the reference's console meter)."""
+        db_mixed = (self.level_left + self.level_right) / 2
+        peak_mixed = (self.peak_left + self.peak_right) / 2
+        db_level = int(bar_width - bar_width * db_mixed / self.lowest)
+        peak_indicator = int(bar_width - bar_width * peak_mixed / self.lowest)
+        db_meter = ("#" * db_level).ljust(bar_width)
+        db_meter = db_meter[:peak_indicator] + ":" + db_meter[peak_indicator:]
+        lufs = ""
+        if self.loudness_meter is not None:
+            # fixed width: the \r-overwritten console line must not vary
+            m = self.loudness_meter.momentary
+            s = self.loudness_meter.short_term
+            ms = f"{m:6.1f}" if math.isfinite(m) else "  ----"
+            ss = f"{s:6.1f}" if math.isfinite(s) else "  ----"
+            lufs = f"  M {ms} S {ss} LUFS"
+        print(f"{int(db_mixed):d} dB |{db_meter}| 0 dB{lufs}", end="\r")

@@ -29,6 +29,9 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.ops.trig",
                  "synthesizer_tpu_torch.ops.pcm",
                  "synthesizer_tpu_torch.ops.effects",
+                 "synthesizer_tpu_torch.ops.coeffs",
+                 "synthesizer_tpu_torch.ops.loudness",
+                 "synthesizer_tpu_torch.ops.resample",
                  "synthesizer_tpu_torch.ops.wave",
                  "synthesizer_tpu_torch.models.graph",
                  "synthesizer_tpu_torch.sample",

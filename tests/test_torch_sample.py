@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+import goldref.sample as gs
 import synthesizer_tpu as J
 import synthesizer_tpu_torch as T
 from synthesizer_tpu import oscillators as JO
 from synthesizer_tpu_torch import oscillators as TO
 from synthesizer_tpu_torch import params as tparams
+from synthesizer_tpu.sample import LevelMeter as JLevelMeter
 from synthesizer_tpu_torch.sample import LevelMeter
 
 torch.set_num_threads(2)
@@ -332,11 +334,6 @@ def test_from_patch_renders_at_construction():
 
 
 WAITING = {
-    8: ["resample", "speed"],
-    10: ["tremolo", "autopan", "compress", "reverb", "chorus", "filter", "eq",
-         "loudness_lufs", "loudness_stats", "true_peak_dbtp",
-         "normalize_lufs", "gate", "feedback_echo", "stereo_width", "limit",
-         "phaser", "convolve", "granulate", "stretch", "pitch_shift"],
     11: ["write_flac", "write_mp3", "write_ogg", "write_opus", "write_m4a"],
 }
 
@@ -354,15 +351,38 @@ def test_waiting_op_raises_and_names_its_queue_item(item, name):
 
 def test_other_waiting_paths():
     s = TK.make(100, sr=22050)
-    with pytest.raises(NotImplementedError, match=r"resample.*item 8\)"):
-        s.normalize()                   # not at params.norm_samplerate
-    assert tparams.norm_samplerate == SR
     for ext, item in ((".flac", 11), (".mp3", 11), (".ogg", 11),
                       (".opus", 11), (".m4a", 11)):
         with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
             s.write_audio("x" + ext)
-    with pytest.raises(NotImplementedError, match=r"LevelMeter.*item 10\)"):
-        LevelMeter()
+
+
+def test_nothing_else_waits():
+    """Only the compressed-audio writers wait; every other public method of
+    the reference's Sample and LevelMeter exists in the port."""
+    waiting = {n for names in WAITING.values() for n in names}
+    for cls_j, cls_t in ((J.Sample, T.Sample),
+                         (JLevelMeter, LevelMeter)):
+        for name in dir(cls_j):
+            if name.startswith("_") or name in waiting:
+                continue
+            if name in ("jax_frames", "from_jax"):
+                continue                # the JAX array surface
+            assert hasattr(cls_t, name), name
+
+
+@pytest.mark.parametrize("nch,width,sr", [(1, 2, 22050), (2, 1, 48000),
+                                          (2, 4, 32000)])
+def test_normalize_resamples(nch, width, sr):
+    """normalize() on a sample at another rate resamples it (the exact
+    ratecv) on the way to the normalization targets."""
+    js = JK.make(nch=nch, width=width, sr=sr)
+    ts = TK.make(nch=nch, width=width, sr=sr)
+    js.normalize(), ts.normalize()
+    assert (ts.samplerate, ts.samplewidth, ts.nchannels, ts.nframes) == \
+           (SR, 2, 2, js.nframes)
+    assert tparams.norm_samplerate == SR
+    np.testing.assert_array_equal(ts.get_frame_array(), js.get_frame_array())
 
 
 def test_entry_points_default_to_the_card():
@@ -376,3 +396,192 @@ def test_entry_points_default_to_the_card():
                      TK.osc.Sine(440.0).spec, 10, SR, 2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The effects rack, loudness and resampling through Sample, against the f64
+# oracle (goldref.sample.Sample) within each op's goldref.effects budget
+# ---------------------------------------------------------------------------
+
+def _tones(n, nch, seed):
+    """A chord of three partials with a little noise (the phase vocoder's
+    budget is stated for tonal input)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)[:, None] / SR
+    sig = sum(0.2 * np.sin(2 * np.pi * f * t + ph) for f, ph in
+              ((220.0, 0.0), (330.0, 0.5), (495.0 * (1 + 0.01 * seed), 1.0)))
+    sig = sig + 0.02 * rng.standard_normal((n, nch))
+    return np.rint(sig * 32767).astype(np.int16)
+
+
+def _gold(n=3000, nch=2, seed=0, sr=SR):
+    return gs.Sample(_tones(n, nch, seed), sr, 2, nch)
+
+
+def _port(n=3000, nch=2, seed=0, sr=SR):
+    return T.Sample.from_raw_frames(_tones(n, nch, seed).tobytes(), 2, sr,
+                                    nch, device="cpu")
+
+
+#: name -> (op on a fresh stereo 16-bit sample s, maker of a second sample
+#: of the same kind, budget in LSB; None: max(8, 1e-4 * peak))
+FX = {
+    "compress": (lambda s, mk: s.compress(-18.0, 4.0, 0.003, 0.08, 3.0), 2),
+    "compress_soft_knee": (lambda s, mk: s.compress(-24.0, 6.0,
+                                                    knee_db=6.0), 2),
+    "compress_sidechain": (lambda s, mk: s.compress(
+        -30.0, 8.0, sidechain=mk(2000, 1, 5)), 2),
+    "reverb": (lambda s, mk: s.reverb(0.7, 0.5, 0.33, 0.7, 1.0, 0.05), 4),
+    "chorus": (lambda s, mk: s.chorus(0.5, 0.002, 0.02, 3, 0.4, 1.0), 2),
+    "filter": (lambda s, mk: s.filter("lowpass", 1000.0), 4),
+    "filter_highpass_30": (lambda s, mk: s.filter("highpass", 30.0), 4),
+    "eq": (lambda s, mk: s.eq(4.0, -6.0, 3.0, 150.0, 900.0, 1.4, 5000.0), 4),
+    "gate": (lambda s, mk: s.gate(-30.0, 60.0, 0.001, 0.01), 2),
+    "feedback_echo": (lambda s, mk: s.feedback_echo(0.01, 0.5, 0.5, 1.0,
+                                                    0.02), 1),
+    "tremolo": (lambda s, mk: s.tremolo(5.0, 0.5, 100), 1),
+    "autopan": (lambda s, mk: s.autopan(2.0, 0.8), 1),
+    "stereo_width": (lambda s, mk: s.stereo_width(1.7), 1),
+    "limit": (lambda s, mk: s.limit(-6.0, 0.05, 0.002), 2),
+    "phaser": (lambda s, mk: s.phaser(0.8, 1.0, 300.0, 3000.0, 4), 10),
+    "phaser_low_floor": (lambda s, mk: s.phaser(0.8, 1.0, 60.0, 2000.0, 4,
+                                                1.0), 2),
+    "convolve": (lambda s, mk: s.convolve(mk(300, 1, 9), 1.0, 0.3), None),
+    "granulate": (lambda s, mk: s.granulate(0.1, 0.02, 80.0, 0.01, 0.7,
+                                            3), 2),
+    "stretch": (lambda s, mk: s.stretch(1.3), 64),
+    "pitch_shift": (lambda s, mk: s.pitch_shift(3.0), 64),
+    "speed_hq": (lambda s, mk: s.speed(1.1, "hq"), 1),
+    "resample_hq": (lambda s, mk: s.resample(48000, "hq"), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FX))
+def test_fx_op_matches_oracle(name):
+    op, budget = FX[name]
+    ts, gold = _port(), _gold()
+    if name == "phaser_low_floor":          # the oracle's f64 grids
+        gold.phaser(0.8, 1.0, 60.0, 2000.0, 4, 1.0, grids_dtype=np.float64)
+    else:
+        op(gold, lambda n, nch, seed: _gold(n, nch, seed))
+    assert op(ts, lambda n, nch, seed: _port(n, nch, seed)) is ts
+    got = ts.get_frame_array()
+    assert (ts.samplerate, ts.nchannels, ts.nframes) == \
+           (gold.samplerate, gold.nchannels, gold.frames.shape[0])
+    if budget is None:
+        budget = max(8, 1e-4 * np.abs(gold.frames).max())
+    assert np.abs(got.astype(np.int64)
+                  - gold.frames.astype(np.int64)).max() <= budget
+
+
+@pytest.mark.parametrize("name", sorted(FX))
+def test_fx_op_leaves_a_copy_alone(name):
+    op, _ = FX[name]
+    a = _port()
+    before = a.get_frame_array().copy()
+    b = a.copy()
+    op(b, lambda n, nch, seed: _port(n, nch, seed))
+    np.testing.assert_array_equal(a.get_frame_array(), before)
+
+
+def test_loudness_through_sample():
+    t = np.arange(2 * SR) / SR
+    sig = (0.3 * np.sin(2 * np.pi * 220 * t)
+           + 0.05 * np.random.default_rng(1).standard_normal(2 * SR))
+    a = np.rint(np.stack([sig, np.roll(sig, 7)], 1) * 20000).astype(np.int16)
+    ts = T.Sample.from_raw_frames(a.tobytes(), 2, SR, 2, device="cpu")
+    gold = gs.Sample(a.copy(), SR, 2, 2)
+    assert abs(ts.loudness_lufs() - gold.loudness_lufs()) < 0.01
+    assert abs(ts.true_peak_dbtp() - gold.true_peak_dbtp()) < 0.01
+    st, gst = ts.loudness_stats(), gold.loudness_stats()
+    for k in ("integrated", "lra", "momentary_max", "short_term_max"):
+        assert st[k] == gst[k] or abs(st[k] - gst[k]) < 0.02, k
+    assert ts.normalize_lufs(-18.0) is ts
+    assert abs(ts.loudness_lufs() + 18.0) < 0.1
+    loud = T.Sample.from_raw_frames((a * 1.5).astype(np.int16).tobytes(), 2,
+                                    SR, 2, device="cpu")
+    loud.normalize_lufs(-6.0, true_peak_db=-1.0)
+    assert loud.true_peak_dbtp() <= -1.0 + 0.1
+    silent = T.Sample.from_raw_frames(bytes(4 * SR), 2, SR, 2, device="cpu")
+    assert silent.loudness_lufs() == float("-inf")
+    assert silent.true_peak_dbtp() == float("-inf")
+    assert silent.normalize_lufs() is silent
+
+
+def test_fx_validation():
+    s = _port(100)
+    for call in (lambda: s.compress(knee_db=30.0),
+                 lambda: s.compress(sidechain=_port(100, sr=22050)),
+                 lambda: s.feedback_echo(0.01, feedback=0.99),
+                 lambda: s.tremolo(depth=1.5), lambda: s.tremolo(rate=0.0),
+                 lambda: s.autopan(depth=2.0), lambda: s.stereo_width(5.0),
+                 lambda: s.limit(ceiling_db=3.0), lambda: s.phaser(stages=0),
+                 lambda: s.phaser(min_freq=20.0),
+                 lambda: s.convolve(_port(10, sr=22050)),
+                 lambda: s.convolve(_port(0)),
+                 lambda: _port(100, nch=1).autopan(),
+                 lambda: _port(100, nch=1).stereo_width(1.0)):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_config3_within_one_lsb():
+    """Config 3 of bench.py at a small size (4 tracks of 0.2 s, 0.1 s
+    apart): 22050 Hz sines resampled to 44100, amplified, faded, made
+    stereo and mixed."""
+    from synthesizer_tpu_torch.bench_song import config3
+
+    def ref(tracks=4, track_sec=0.2, gap=0.1):
+        synth = J.WaveSynth(samplerate=22050, samplewidth=2)
+        total = J.Sample.from_raw_frames(b"", 2, SR, 2)
+        for t in range(tracks):
+            s = synth.sine(100.0 + 50 * t, track_sec, amplitude=0.4)
+            s.resample(SR).amplify(0.5 + 0.02 * t) \
+             .fadein(0.02).fadeout(0.05).stereo()
+            total.mix_at(gap * t, s)
+        return total
+
+    got = config3(SR, "cpu", tracks=4, track_sec=0.2, gap=0.1)
+    want = ref()
+    assert (got.samplerate, got.nchannels, got.nframes) == \
+           (SR, 2, want.nframes)
+    a, b = got.get_frame_array(), want.get_frame_array()
+    assert np.abs(a.astype(np.int64) - b.astype(np.int64)).max() <= 1
+
+
+@pytest.mark.parametrize("loudness", [False, True])
+def test_level_meter(loudness):
+    """LevelMeter readings against the JAX package's on the same chunks:
+    from Samples (reductions on the sample's device) and from host
+    frames; the live loudness readout within 0.02 LU."""
+    t = np.arange(SR) / SR
+    a = np.rint(np.stack([0.5 * np.sin(2 * np.pi * 997 * t),
+                          0.1 * np.sin(2 * np.pi * 440 * t)], 1)
+                * 32767).astype(np.int16)
+    for rms in (False, True):
+        lt = LevelMeter(rms_mode=rms, loudness=loudness)
+        lj = JLevelMeter(rms_mode=rms, loudness=loudness)
+        for i in range(0, len(a), SR // 5):
+            chunk = a[i:i + SR // 5]
+            rt = lt.update(T.Sample.from_raw_frames(chunk.tobytes(), 2, SR, 2,
+                                                    device="cpu"))
+            rj = lj.update(J.Sample.from_raw_frames(chunk.tobytes(), 2, SR,
+                                                    2))
+            np.testing.assert_allclose(rt, rj, atol=1e-4)
+        if loudness:
+            assert abs(lt.momentary_lufs - lj.momentary_lufs) < 0.02
+        mono = a[:1470, :1]
+        ht, hj = LevelMeter(rms, loudness=loudness), \
+            JLevelMeter(rms, loudness=loudness)
+        for _ in range(3):
+            np.testing.assert_allclose(ht.update_frames(mono, SR),
+                                       hj.update_frames(mono, SR), atol=1e-9)
+        assert ht.momentary_lufs == hj.momentary_lufs
+        assert ht.short_term_lufs == float("-inf")
+    lt.print()
+    lt.reset()
+    assert (lt.level_left, lt.peak_right, lt.momentary_lufs) == \
+           (-60.0, -60.0, float("-inf"))
+    assert LevelMeter().loudness_meter is None
+    with pytest.raises(ValueError):
+        LevelMeter(lowest=0.0)
