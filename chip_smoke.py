@@ -92,8 +92,9 @@ both kernels against their plain PyTorch versions on the card:
     CPU bit for bit, and its wall clock (median of 10);
 16. effects: 21 ``Sample`` ops (the 20 of the effects rack, the compressor
     also with a sidechain and a soft knee) on a 10 s excerpt of the render,
-    card against CPU within each op's ``goldref.effects`` budget and two
-    card runs bit-identical; then a mastering chain (high-pass, EQ,
+    card against CPU within each op's ``goldref.effects`` budget
+    (``ops.effects.BUDGETS``), two card runs bit-identical, and each op's
+    device operations under the profiler; then a mastering chain (high-pass, EQ,
     compressor, reverb, limiter, ``normalize_lufs``) on the whole render,
     timed step by step, its loudness and true peak card against CPU.
 
@@ -173,32 +174,38 @@ def head(title):
     print(f"{title}  (+{time.perf_counter() - STARTED:.1f} s)", flush=True)
 
 
-#: (name, op on a Sample, what it returns, card-vs-CPU budget): frames in
-#: LSB at 16 bit (goldref.effects), meter values in LU / dB
+#: (name, op on a Sample, card-vs-CPU budget from ops.effects.BUDGETS):
+#: frames in LSB at 16 bit, meter values in LU / dB
 def _fx_ops(key, ir):
+    from synthesizer_tpu_torch.ops.effects import BUDGETS as B
     return [
-        ("compress", lambda s: s.compress(-18.0, 4.0, 0.003, 0.08, 3.0), 2),
+        ("compress", lambda s: s.compress(-18.0, 4.0, 0.003, 0.08, 3.0),
+         B["compress"]),
         ("compress sidechain= knee_db=", lambda s: s.compress(
-            -24.0, 6.0, knee_db=6.0, sidechain=key), 2),
-        ("reverb", lambda s: s.reverb(), 4),
-        ("chorus", lambda s: s.chorus(), 2),
-        ("filter lowpass 1000", lambda s: s.filter("lowpass", 1000.0), 4),
-        ("eq", lambda s: s.eq(4.0, -6.0, 3.0, 150.0, 900.0, 1.4, 5000.0), 4),
-        ("gate", lambda s: s.gate(-30.0, 60.0), 2),
-        ("feedback_echo", lambda s: s.feedback_echo(0.25, 0.5), 1),
-        ("tremolo", lambda s: s.tremolo(), 1),
-        ("autopan", lambda s: s.autopan(), 1),
-        ("stereo_width", lambda s: s.stereo_width(1.7), 1),
-        ("limit", lambda s: s.limit(-6.0), 2),
-        ("phaser", lambda s: s.phaser(), 10),
-        ("convolve", lambda s: s.convolve(ir), 8),
-        ("granulate", lambda s: s.granulate(5.0), 2),
-        ("stretch", lambda s: s.stretch(1.3), 64),
-        ("pitch_shift", lambda s: s.pitch_shift(3.0), 64),
-        ("normalize_lufs", lambda s: s.normalize_lufs(-14.0), 1),
-        ("loudness_lufs", lambda s: s.loudness_lufs(), 0.01),
-        ("loudness_stats", lambda s: s.loudness_stats(), 0.01),
-        ("true_peak_dbtp", lambda s: s.true_peak_dbtp(), 0.01),
+            -24.0, 6.0, knee_db=6.0, sidechain=key), B["compress"]),
+        ("reverb", lambda s: s.reverb(), B["reverb"]),
+        ("chorus", lambda s: s.chorus(), B["chorus"]),
+        ("filter lowpass 1000", lambda s: s.filter("lowpass", 1000.0),
+         B["filter"]),
+        ("eq", lambda s: s.eq(4.0, -6.0, 3.0, 150.0, 900.0, 1.4, 5000.0),
+         B["eq"]),
+        ("gate", lambda s: s.gate(-30.0, 60.0), B["gate"]),
+        ("feedback_echo", lambda s: s.feedback_echo(0.25, 0.5),
+         B["feedback_echo"]),
+        ("tremolo", lambda s: s.tremolo(), B["tremolo"]),
+        ("autopan", lambda s: s.autopan(), B["autopan"]),
+        ("stereo_width", lambda s: s.stereo_width(1.7), B["stereo_width"]),
+        ("limit", lambda s: s.limit(-6.0), B["limit"]),
+        ("phaser", lambda s: s.phaser(), B["phaser"]),
+        ("convolve", lambda s: s.convolve(ir), B["convolve"]),
+        ("granulate", lambda s: s.granulate(5.0), B["granulate"]),
+        ("stretch", lambda s: s.stretch(1.3), B["stretch"]),
+        ("pitch_shift", lambda s: s.pitch_shift(3.0), B["pitch_shift"]),
+        ("normalize_lufs", lambda s: s.normalize_lufs(-14.0),
+         B["normalize_lufs"]),
+        ("loudness_lufs", lambda s: s.loudness_lufs(), B["loudness"]),
+        ("loudness_stats", lambda s: s.loudness_stats(), B["loudness"]),
+        ("true_peak_dbtp", lambda s: s.true_peak_dbtp(), B["true_peak"]),
     ]
 
 
@@ -342,10 +349,12 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
         else:
             d = abs(runs[0] - ref) if runs[0] != ref else 0.0
             again, unit = runs[0] == runs[1], "dB"
+        profiled(lambda: op(Sample.from_torch(ex_g, SR, 2)), 1, cpu=False)
         check(d <= budget and again,
               f"{name}: card vs CPU {d:.6g} {unit} (budget {budget}), two "
               f"card runs bit-identical; {ms:.3f} ms on the card, "
-              f"{cpu_ms:.3f} ms on the CPU")
+              f"{cpu_ms:.3f} ms on the CPU; {profiled.launches:.0f} device "
+              f"operations a call (profiler)")
 
     def chain(s, steps=None):
         """filter -> eq -> compress -> reverb -> limit -> normalize_lufs;

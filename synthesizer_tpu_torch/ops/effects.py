@@ -42,6 +42,32 @@ from .wave import div, scalar
 MAXVAL = dpcm.MAXVAL
 MINVAL = dpcm.MINVAL
 
+#: Each ``Sample`` op's budget against its oracle, as ``goldref.effects``
+#: states it for the device twin: frames in LSB at 16 bit, loudness in LU,
+#: true peak in dB.
+BUDGETS = {
+    "compress": 2,          # compressor_gains: 2e-6 on gains, 2 LSB applied
+    "gate": 2,
+    "limit": 2,
+    "reverb": 4,
+    "chorus": 2,
+    "filter": 4,            # the Biquad's companion scan: a few LSB
+    "eq": 4,
+    "feedback_echo": 1,
+    "tremolo": 1,
+    "autopan": 1,
+    "stereo_width": 1,
+    "phaser": 2 + 2 * 4,    # 2 + 2*stages, at the default 4 stages
+    "convolve": 8,          # max(8, 1e-4 * peak)
+    "granulate": 2,
+    "stretch": 64,
+    "pitch_shift": 64,      # stretch, then the hq resampler (1 LSB)
+    "hq_resample": 1,
+    "normalize_lufs": 1,    # one gain, applied by the house rule
+    "loudness": 0.01,       # loudness_lufs and each of loudness_stats
+    "true_peak": 0.01,
+}
+
 
 def _norm(frames: torch.Tensor) -> torch.Tensor:
     return div(frames.to(torch.float32), MAXVAL[dpcm.width_of(frames)])
@@ -123,46 +149,56 @@ def decaying_max_scan(a: torch.Tensor, decay, init=0.0) -> torch.Tensor:
     return torch.maximum(xs, ds * _f32(init, a.device))
 
 
-def affine_scan(coeff: torch.Tensor, add: torch.Tensor, init,
-                axis: int = 0) -> torch.Tensor:
-    """y_n = coeff_n * y_{n-1} + add_n with y_{-1} = init, along ``axis``
-    (map composition l-then-r: (Al*Ar, Bl*Ar + Br)); other axes are
-    independent lanes.  ``init`` must broadcast against the result."""
-    def combine(l, r):
-        (al, bl), (ar, br) = l, r
-        return al * ar, bl * ar + br
-
-    acum, bcum = associative_scan(combine, (coeff, add), dim=axis)
-    return acum * _f32(init, add.device) + bcum
-
-
 def affine_scan_fixed(coeff: torch.Tensor, axis: int = 0):
-    """:func:`affine_scan` with the coefficients fixed, for a loop that
-    scans many ``add`` rows against the same ``coeff``: the coefficient
-    half of every combine (al*ar) is computed once here, and the returned
-    ``scan(add, init)`` runs only the add half (bl*ar + br, the same
-    operands in the same tree), so its result is bit-identical to
-    ``affine_scan(coeff, add, init, axis)`` at about half the launches."""
+    """The affine scan y_n = coeff_n * y_{n-1} + add_n with y_{-1} = init,
+    along ``axis``, with the coefficients fixed: returns ``scan(add,
+    init)``.  Other axes are independent lanes; ``add`` has ``coeff``'s
+    shape and ``init`` broadcasts against the result.
+
+    The recursion is :func:`associative_scan`'s under the composition
+    l-then-r, (Al*Ar, Bl*Ar + Br), split in its two halves: the coefficient
+    half (each level's pair products and the cumulative product) is
+    computed here, once, and each ``scan`` runs the add half on the same
+    operands in the same tree.  A loop that scans many ``add`` rows against
+    one ``coeff`` pays for the coefficients once; a single scan launches
+    as many operations as the generic recursion."""
     levels, a = [], coeff.movedim(axis, 0)
     while a.shape[0] >= 2:
-        levels.append((a[1::2], a[2::2]))
+        levels.append((a, a[1::2], a[2::2]))
         a = a[0:-1:2] * a[1::2]
-    (acum,) = associative_scan(lambda l, r: (l[0] * r[0],), (coeff,),
-                               dim=axis)
+    levels.append((a, None, None))
+
+    def cumprod(k):
+        a_k, _, a_even = levels[k]
+        n = a_k.shape[0]
+        if n < 2:
+            return a_k
+        odd = cumprod(k + 1)
+        even = (odd[:-1] if n % 2 == 0 else odd) * a_even
+        return _interleave(torch.cat([a_k[0:1], even]), odd)
 
     def rec(b, k):
         n = b.shape[0]
         if n < 2:
             return b
-        a_odd, a_even = levels[k]
+        _, a_odd, a_even = levels[k]
         odd = rec(b[0:-1:2] * a_odd + b[1::2], k + 1)
         even = (odd[:-1] if n % 2 == 0 else odd) * a_even + b[2::2]
         return _interleave(torch.cat([b[0:1], even]), odd)
+
+    acum = cumprod(0).movedim(0, axis)
 
     def scan(add: torch.Tensor, init) -> torch.Tensor:
         bcum = rec(add.movedim(axis, 0), 0).movedim(0, axis)
         return acum * _f32(init, add.device) + bcum
     return scan
+
+
+def affine_scan(coeff: torch.Tensor, add: torch.Tensor, init,
+                axis: int = 0) -> torch.Tensor:
+    """y_n = coeff_n * y_{n-1} + add_n with y_{-1} = init, along ``axis``:
+    one scan of :func:`affine_scan_fixed`."""
+    return affine_scan_fixed(coeff, axis)(add, init)
 
 
 def one_pole_scan(target: torch.Tensor, alpha, init) -> torch.Tensor:

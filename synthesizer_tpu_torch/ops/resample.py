@@ -133,13 +133,16 @@ def _as_state_tensor(v, like: torch.Tensor) -> torch.Tensor:
 
 def resample(x, inrate: int, outrate: int,
              state: Optional[RatecvState] = None,
-             width: Optional[int] = None):
+             width: Optional[int] = None, device="cuda"):
     """Resample [n, ch] int samples from inrate to outrate, audioop-exact.
-    ``x`` is a tensor (computed on its device) or a numpy array (computed on
-    the CPU, returned as numpy with a numpy state).  Returns the output and
-    the carry state for chunked streaming."""
+    Returns the output and the carry state for chunked streaming.  A tensor
+    is resampled on its own device and its output stays there.  A numpy
+    array is copied to ``device`` (the card, unless the caller asks for the
+    CPU), resampled there, and its output and state come back as numpy."""
+    from ..utils.device import resolve, to_host
     host = not isinstance(x, torch.Tensor)
-    t = torch.from_numpy(np.ascontiguousarray(x)) if host else x
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(resolve(device)) \
+        if host else x
     if t.ndim == 1:
         t = t[:, None]
     nch = t.shape[1]
@@ -156,7 +159,7 @@ def resample(x, inrate: int, outrate: int,
                            _as_state_tensor(state.cur, t), inr, outr, d, nout)
     d = d + t.shape[0] * outr - nout * inr
     if host:
-        return y.numpy(), RatecvState(d, prev.numpy(), cur.numpy())
+        return to_host(y), RatecvState(d, to_host(prev), to_host(cur))
     return y, RatecvState(d, prev, cur)
 
 
@@ -269,7 +272,9 @@ def _hq_taps_on(L: int, M: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_hq_filter(L, M)[0]).to(device)
 
 
-#: outputs per block of the tap sum (bounds the [block, T, ch] products)
+#: outputs per block of the tap sum at 32 taps per leg; a block of T taps
+#: a leg holds HQ_BLOCK * 32 // T outputs, so that its [block, T, ch]
+#: windows and products take the same memory at every rate ratio
 HQ_BLOCK = 1 << 19
 
 
@@ -282,7 +287,8 @@ def _hq_taps(s: torch.Tensor, first: int, j0: int, j1: int, L: int, M: int,
     Per block of outputs: one gather of the [block, T] input window and of
     the taps, one multiply, then the T products added one after the other
     (t ascending) — about T + 10 launches a block, the same roundings for
-    every block size."""
+    every block size.  Outputs are independent, so the block size is free:
+    it shrinks as T grows (``HQ_BLOCK``)."""
     _, T, C = _hq_filter(L, M)
     dev = s.device
     h = _hq_taps_on(L, M, dev)
@@ -291,9 +297,10 @@ def _hq_taps(s: torch.Tensor, first: int, j0: int, j1: int, L: int, M: int,
     hi = min(limit - first, rows)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     taps = torch.arange(T, dtype=torch.int64, device=dev)
+    block = max(1, HQ_BLOCK * 32 // T)
     out = []
-    for b0 in range(j0, j1, HQ_BLOCK):
-        j = torch.arange(b0, min(b0 + HQ_BLOCK, j1), dtype=torch.int64,
+    for b0 in range(j0, j1, block):
+        j = torch.arange(b0, min(b0 + block, j1), dtype=torch.int64,
                          device=dev)
         phi = (j * M + C) % L
         k0 = torch.div(j * M + C, L, rounding_mode="floor")

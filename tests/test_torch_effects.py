@@ -2,11 +2,9 @@
 the JAX package's ``ops.effects`` and the ``goldref.effects`` oracle, on
 the CPU, on seeded numpy input.
 
-Budgets (quoted at 16 bit, ``goldref.effects``): compressor, gate, chorus,
-granulate, limiter 2 LSB; reverb 4; feedback echo, stereo width, tremolo,
-autopan 1; convolve max(8, 1e-4 * peak); stretch 64; phaser 2 + 2*stages
-(plain scan), 2 (float-float scan); the biquad kinds as the reference's
-filter tests budget them.  Each JAX op runs jitted, once per shape.
+Budgets: ``ops.effects.BUDGETS`` (``goldref.effects``'s, at 16 bit); the
+biquad kinds as the reference's filter tests budget them.  Each JAX op runs
+jitted, once per shape.
 """
 
 import math
@@ -14,6 +12,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.utils._python_dispatch
 
 import goldref.effects as gfx
 import goldref.sample as gs
@@ -57,6 +56,49 @@ def _t(a):
 # Scans
 # ---------------------------------------------------------------------------
 
+def _affine_combine(l, r):
+    (al, bl), (ar, br) = l, r
+    return al * ar, bl * ar + br
+
+
+def _generic_affine(coeff, add, init, axis=0):
+    """The affine scan through the generic odd/even recursion."""
+    acum, bcum = TF.associative_scan(_affine_combine, (_t(coeff), _t(add)),
+                                     dim=axis)
+    return (acum * TF._f32(init, acum.device) + bcum).numpy()
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the operations that compute (not views): on the card each is
+    one kernel launch."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func._schema.is_mutable and not any(
+                r.alias_info for r in func._schema.returns):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("n", [2, 5, 441000])
+def test_affine_scan_launches_no_more_than_the_generic_recursion(n):
+    """One affine scan (the gate's, the compressor's and the limiter's
+    smoother, the allpasses) launches no more operations than the generic
+    recursion it replaces, and reads the same bits."""
+    rng = np.random.default_rng(n)
+    coeff = np.full(n, 0.99, np.float32)
+    add = rng.standard_normal(n).astype(np.float32)
+    with _CountOps() as split:
+        y = TF.affine_scan(_t(coeff), _t(add), 0.3)
+    with _CountOps() as generic:
+        want = _generic_affine(coeff, add, 0.3)
+    np.testing.assert_array_equal(y.numpy(), want)
+    assert 0 < split.n <= generic.n
+
+
 @pytest.mark.parametrize("n", [1, 2, 5, 64, 1000])
 def test_associative_scan_is_the_reference_tree(n):
     """Prefix sums and decaying maxima take the reference's grouping: bit
@@ -81,19 +123,15 @@ def test_associative_scan_is_the_reference_tree(n):
         _jax(lambda x: JF.decaying_max_scan(x, 0.999, 0.5), e))
     coeff = rng.uniform(0.9, 1.0, n).astype(np.float32)
     y = TF.affine_scan(_t(coeff), _t(a), 0.3).numpy()
-    # the fixed-coefficient form (the reverb's comb loop) is the same tree
-    np.testing.assert_array_equal(
-        TF.affine_scan_fixed(_t(coeff))(_t(a), 0.3).numpy(), y)
+    # the split into a coefficient half and an add half is the generic
+    # recursion's tree under the affine composition, bit for bit
+    np.testing.assert_array_equal(y, _generic_affine(coeff, a, 0.3))
     rows = rng.standard_normal((4, n)).astype(np.float32)
+    init = a[:4, None] if n >= 4 else np.ones((4, 1), np.float32)
+    scan = TF.affine_scan_fixed(_t(np.tile(coeff, (4, 1))), axis=1)
     np.testing.assert_array_equal(
-        TF.affine_scan_fixed(_t(np.tile(coeff, (4, 1))), axis=1)(
-            _t(rows), _t(a[:4, None] if n >= 4 else np.ones((4, 1),
-                                                             np.float32)))
-        .numpy(),
-        TF.affine_scan(_t(np.tile(coeff, (4, 1))), _t(rows),
-                       _t(a[:4, None] if n >= 4 else np.ones((4, 1),
-                                                             np.float32)),
-                       axis=1).numpy())
+        scan(_t(rows), _t(init)).numpy(),
+        _generic_affine(np.tile(coeff, (4, 1)), rows, init, axis=1))
     ref, acc = np.zeros(n), 0.3
     for i in range(n):
         acc = float(coeff[i]) * acc + float(a[i])
@@ -224,30 +262,39 @@ def _lib_ops(F, lib):
     import jax.numpy as jnp
     arr = _t if lib == "torch" else jnp.asarray
     comp = {"torch": 0, "jax": 1}[lib]
+    B = TF.BUDGETS
     return {
-        "compress": (_gains_applied(lambda x: _comp_pair(None)[comp](x)), 2),
+        "compress": (_gains_applied(lambda x: _comp_pair(None)[comp](x)),
+                     B["compress"]),
         "compress_soft_knee": (_gains_applied(
-            lambda x: _comp_pair(6.0)[comp](x)), 2),
-        "gate": (_gains_applied(lambda x: _gate(lib)(x)), 2),
+            lambda x: _comp_pair(6.0)[comp](x)), B["compress"]),
+        "gate": (_gains_applied(lambda x: _gate(lib)(x)), B["gate"]),
         "reverb": (lambda x, lib: F.reverb(x, SR, 0.7, 0.5, 0.33, 0.7, 1.0,
-                                           2000), 4),
+                                           2000), B["reverb"]),
         "reverb_mono": (lambda x, lib: F.reverb(x[:, :1], SR, 0.8, 0.3, 0.5,
-                                                0.5, 1.0, 500), 4),
+                                                0.5, 1.0, 500),
+                        B["reverb"]),
         "chorus": (lambda x, lib: F.chorus(x, SR, 0.5, 0.002, 0.02, 3, 0.4,
-                                           1.0), 2),
-        "convolve": (lambda x, lib: F.convolve(x, arr(IR), 1.0, 0.3), 8),
-        "stretch": (lambda x, lib: F.stretch(x, 1.3), 64),
-        "stretch_odd_hop": (lambda x, lib: F.stretch(x, 0.8, 1024, 300), 64),
+                                           1.0), B["chorus"]),
+        "convolve": (lambda x, lib: F.convolve(x, arr(IR), 1.0, 0.3),
+                     B["convolve"]),
+        "stretch": (lambda x, lib: F.stretch(x, 1.3), B["stretch"]),
+        "stretch_odd_hop": (lambda x, lib: F.stretch(x, 0.8, 1024, 300),
+                            B["stretch"]),
         "granulate": (lambda x, lib: F.granulate(x, SR, 0.12, 0.02, 80.0,
-                                                 0.01, 0.7, 3), 2),
-        "tremolo": (lambda x, lib: F.tremolo(x, arr(TREM)), 1),
-        "autopan": (lambda x, lib: F.autopan(x, arr(PAN)), 1),
+                                                 0.01, 0.7, 3),
+                      B["granulate"]),
+        "tremolo": (lambda x, lib: F.tremolo(x, arr(TREM)), B["tremolo"]),
+        "autopan": (lambda x, lib: F.autopan(x, arr(PAN)), B["autopan"]),
         "feedback_echo": (lambda x, lib: F.feedback_echo(x, 441, 0.5, 0.5,
-                                                         1.0, 3000), 1),
-        "stereo_width": (lambda x, lib: F.stereo_width(x, 1.7), 1),
+                                                         1.0, 3000),
+                          B["feedback_echo"]),
+        "stereo_width": (lambda x, lib: F.stereo_width(x, 1.7),
+                         B["stereo_width"]),
         "limiter": (lambda x, lib: F.limiter(x, -6.0, TC.compressor_coeffs(
-            SR, 0.0, 0.05)[1], 220, TC.limiter_ceiling(-6.0, 2)), 2),
-        "phaser": (lambda x, lib: _phaser(F, lib)(x), 2 + 2 * 4),
+            SR, 0.0, 0.05)[1], 220, TC.limiter_ceiling(-6.0, 2)),
+                    B["limit"]),
+        "phaser": (lambda x, lib: _phaser(F, lib)(x), B["phaser"]),
     }
 
 

@@ -49,7 +49,7 @@ def _pcm(n, width, nch=2, seed=0):
 @pytest.mark.parametrize("width", [1, 2, 4])
 def test_ratecv_bit_exact(width, inr, outr):
     x = _pcm(997, width, seed=width)
-    y, st = TR.resample(x, inr, outr)
+    y, st = TR.resample(x, inr, outr, device="cpu")
     gy, gst = gpcm.ratecv(x.tobytes(), width, 2, inr, outr, None)
     np.testing.assert_array_equal(y, np.frombuffer(gy, NPDT[width])
                                   .reshape(-1, 2))
@@ -70,10 +70,10 @@ def test_ratecv_carried_state(width):
     state handed in from audioop's domain gives audioop's continuation."""
     x = _pcm(1200, width, seed=10 + width)
     for inr, outr in ((44100, 48000), (48000, 44100), (44100, 44101)):
-        whole, _ = TR.resample(x, inr, outr)
+        whole, _ = TR.resample(x, inr, outr, device="cpu")
         out, st = [], None
         for i in range(0, len(x), 113):
-            y, st = TR.resample(x[i:i + 113], inr, outr, st)
+            y, st = TR.resample(x[i:i + 113], inr, outr, st, device="cpu")
             out.append(y)
         np.testing.assert_array_equal(np.concatenate(out), whole)
         gst = None
@@ -91,7 +91,7 @@ def test_ratecv_carried_state(width):
 def test_streaming_ratecv_equals_whole(width, chunk):
     x = _pcm(2000, width, seed=20 + width)
     for inr, outr in ((44100, 48000), (22050, 44100), (44100, 44101)):
-        whole, _ = TR.resample(x, inr, outr)
+        whole, _ = TR.resample(x, inr, outr, device="cpu")
         rs = TR.StreamingResampler(inr, outr, 2, dtype=TDT[width],
                                    device="cpu")
         out = []
@@ -104,21 +104,21 @@ def test_streaming_ratecv_equals_whole(width, chunk):
 
 def test_ratecv_edges():
     x = _pcm(1, 2)
-    y, st = TR.resample(x, 44100, 48000)
+    y, st = TR.resample(x, 44100, 48000, device="cpu")
     gy, gst = gpcm.ratecv(x.tobytes(), 2, 2, 44100, 48000, None)
     assert y.tobytes() == gy and st.to_audioop(2) == gst
-    y, st = TR.resample(x[:0], 44100, 48000)
+    y, st = TR.resample(x[:0], 44100, 48000, device="cpu")
     assert y.shape == (0, 2) and st.d == -160
     mono = _pcm(500, 2)[:, 0]
-    y, _ = TR.resample(mono, 48000, 44100)
+    y, _ = TR.resample(mono, 48000, 44100, device="cpu")
     gy, _ = gpcm.ratecv(mono.tobytes(), 2, 1, 48000, 44100, None)
     assert y.shape[1] == 1 and y.tobytes() == gy
     with pytest.raises(ValueError):
-        TR.resample(x, 0, 44100)
+        TR.resample(x, 0, 44100, device="cpu")
     with pytest.raises(ValueError):
-        TR.resample(x, 1 << 31, 44100)
+        TR.resample(x, 1 << 31, 44100, device="cpu")
     with pytest.raises(ValueError, match="width"):
-        TR.resample(x, 44100, 48000, width=4)
+        TR.resample(x, 44100, 48000, width=4, device="cpu")
     assert TR.nframes_out(1000, 44100, 48000) == \
         JR.nframes_out(1000, 44100, 48000)
 
@@ -143,6 +143,21 @@ def test_hq_within_one_lsb(inr, outr):
     # the taps per leg of the design: 32 up, 32*M/L down
     assert TR._hq_filter(L, M)[1] == 32 * max(L, M) // L + \
         (1 if 32 * max(L, M) % L else 0)
+
+
+def test_hq_large_decimation_in_small_blocks(monkeypatch):
+    """192000 -> 8000 (M = 24, L = 1: 768 taps a leg) within 1 LSB of the
+    oracle; the block of outputs shrinks with the taps, and any block size
+    gives the same bits."""
+    x = _pcm(4800, 2, seed=24) // 2
+    nout = TR.nframes_out(len(x), 24, 1)
+    y = TR.hq_resample(torch.from_numpy(x), 1, 24, nout).numpy()
+    gold = gfx.hq_resample(x, 2, 192000, 8000)
+    assert y.shape == gold.shape == (nout, 2)
+    assert np.abs(y.astype(np.int64) - gold).max() <= 1
+    monkeypatch.setattr(TR, "HQ_BLOCK", 37)      # 37 * 32 // 768 = 1 output
+    np.testing.assert_array_equal(
+        TR.hq_resample(torch.from_numpy(x), 1, 24, nout).numpy(), y)
 
 
 @pytest.mark.parametrize("width", [1, 4])
@@ -225,3 +240,22 @@ def test_sample_resample_and_speed():
         s.resample(48000, quality="sinc")
     with pytest.raises(ValueError, match="2048"):
         s.resample(44101, quality="hq")
+
+
+def test_resample_defaults_to_the_card():
+    """A numpy array goes to the card unless the caller asks for the CPU,
+    as the streaming resamplers' tensors do."""
+    import inspect
+    for fn in (TR.resample, TR.StreamingResampler,
+               TR.StreamingHQResampler):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("the raising half is for a machine without a CUDA device")
+    x = _pcm(100, 2)
+    for call in (lambda: TR.resample(x, 44100, 48000),
+                 lambda: TR.StreamingResampler(44100, 48000),
+                 lambda: TR.StreamingHQResampler(44100, 48000)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    y, st = TR.resample(x, 44100, 48000, device="cpu")
+    assert isinstance(y, np.ndarray) and isinstance(st.prev, np.ndarray)

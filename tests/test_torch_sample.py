@@ -21,6 +21,7 @@ import synthesizer_tpu_torch as T
 from synthesizer_tpu import oscillators as JO
 from synthesizer_tpu_torch import oscillators as TO
 from synthesizer_tpu_torch import params as tparams
+from synthesizer_tpu_torch.ops import effects as TF
 from synthesizer_tpu.sample import LevelMeter as JLevelMeter
 from synthesizer_tpu_torch.sample import LevelMeter
 
@@ -423,36 +424,48 @@ def _port(n=3000, nch=2, seed=0, sr=SR):
                                     nch, device="cpu")
 
 
+B = TF.BUDGETS
 #: name -> (op on a fresh stereo 16-bit sample s, maker of a second sample
-#: of the same kind, budget in LSB; None: max(8, 1e-4 * peak))
+#: of the same kind, budget in LSB from ops.effects.BUDGETS; convolve's is
+#: max(B["convolve"], 1e-4 * peak))
 FX = {
-    "compress": (lambda s, mk: s.compress(-18.0, 4.0, 0.003, 0.08, 3.0), 2),
+    "compress": (lambda s, mk: s.compress(-18.0, 4.0, 0.003, 0.08, 3.0),
+                 B["compress"]),
     "compress_soft_knee": (lambda s, mk: s.compress(-24.0, 6.0,
-                                                    knee_db=6.0), 2),
+                                                    knee_db=6.0),
+                           B["compress"]),
     "compress_sidechain": (lambda s, mk: s.compress(
-        -30.0, 8.0, sidechain=mk(2000, 1, 5)), 2),
-    "reverb": (lambda s, mk: s.reverb(0.7, 0.5, 0.33, 0.7, 1.0, 0.05), 4),
-    "chorus": (lambda s, mk: s.chorus(0.5, 0.002, 0.02, 3, 0.4, 1.0), 2),
-    "filter": (lambda s, mk: s.filter("lowpass", 1000.0), 4),
-    "filter_highpass_30": (lambda s, mk: s.filter("highpass", 30.0), 4),
-    "eq": (lambda s, mk: s.eq(4.0, -6.0, 3.0, 150.0, 900.0, 1.4, 5000.0), 4),
-    "gate": (lambda s, mk: s.gate(-30.0, 60.0, 0.001, 0.01), 2),
+        -30.0, 8.0, sidechain=mk(2000, 1, 5)), B["compress"]),
+    "reverb": (lambda s, mk: s.reverb(0.7, 0.5, 0.33, 0.7, 1.0, 0.05),
+               B["reverb"]),
+    "chorus": (lambda s, mk: s.chorus(0.5, 0.002, 0.02, 3, 0.4, 1.0),
+               B["chorus"]),
+    "filter": (lambda s, mk: s.filter("lowpass", 1000.0), B["filter"]),
+    "filter_highpass_30": (lambda s, mk: s.filter("highpass", 30.0),
+                           B["filter"]),
+    "eq": (lambda s, mk: s.eq(4.0, -6.0, 3.0, 150.0, 900.0, 1.4, 5000.0),
+           B["eq"]),
+    "gate": (lambda s, mk: s.gate(-30.0, 60.0, 0.001, 0.01), B["gate"]),
     "feedback_echo": (lambda s, mk: s.feedback_echo(0.01, 0.5, 0.5, 1.0,
-                                                    0.02), 1),
-    "tremolo": (lambda s, mk: s.tremolo(5.0, 0.5, 100), 1),
-    "autopan": (lambda s, mk: s.autopan(2.0, 0.8), 1),
-    "stereo_width": (lambda s, mk: s.stereo_width(1.7), 1),
-    "limit": (lambda s, mk: s.limit(-6.0, 0.05, 0.002), 2),
-    "phaser": (lambda s, mk: s.phaser(0.8, 1.0, 300.0, 3000.0, 4), 10),
+                                                    0.02),
+                      B["feedback_echo"]),
+    "tremolo": (lambda s, mk: s.tremolo(5.0, 0.5, 100), B["tremolo"]),
+    "autopan": (lambda s, mk: s.autopan(2.0, 0.8), B["autopan"]),
+    "stereo_width": (lambda s, mk: s.stereo_width(1.7), B["stereo_width"]),
+    "limit": (lambda s, mk: s.limit(-6.0, 0.05, 0.002), B["limit"]),
+    "phaser": (lambda s, mk: s.phaser(0.8, 1.0, 300.0, 3000.0, 4),
+               B["phaser"]),
+    # against the oracle's f64 grids: the float-float scan, 2 LSB
     "phaser_low_floor": (lambda s, mk: s.phaser(0.8, 1.0, 60.0, 2000.0, 4,
                                                 1.0), 2),
     "convolve": (lambda s, mk: s.convolve(mk(300, 1, 9), 1.0, 0.3), None),
     "granulate": (lambda s, mk: s.granulate(0.1, 0.02, 80.0, 0.01, 0.7,
-                                            3), 2),
-    "stretch": (lambda s, mk: s.stretch(1.3), 64),
-    "pitch_shift": (lambda s, mk: s.pitch_shift(3.0), 64),
-    "speed_hq": (lambda s, mk: s.speed(1.1, "hq"), 1),
-    "resample_hq": (lambda s, mk: s.resample(48000, "hq"), 1),
+                                            3), B["granulate"]),
+    "stretch": (lambda s, mk: s.stretch(1.3), B["stretch"]),
+    "pitch_shift": (lambda s, mk: s.pitch_shift(3.0), B["pitch_shift"]),
+    "speed_hq": (lambda s, mk: s.speed(1.1, "hq"), B["hq_resample"]),
+    "resample_hq": (lambda s, mk: s.resample(48000, "hq"),
+                    B["hq_resample"]),
 }
 
 
@@ -469,7 +482,7 @@ def test_fx_op_matches_oracle(name):
     assert (ts.samplerate, ts.nchannels, ts.nframes) == \
            (gold.samplerate, gold.nchannels, gold.frames.shape[0])
     if budget is None:
-        budget = max(8, 1e-4 * np.abs(gold.frames).max())
+        budget = max(B["convolve"], 1e-4 * np.abs(gold.frames).max())
     assert np.abs(got.astype(np.int64)
                   - gold.frames.astype(np.int64)).max() <= budget
 
