@@ -7,6 +7,9 @@ port renders exactly what the reference renders.  ``sparse_voices`` is the
 sparse-render workload of ``bench.py`` (600 notes over 300 s, seed 5), and
 ``gm_file`` a seeded General-MIDI file for the MIDI path; ``config3`` is
 config 3 of ``bench.py``, the chainable ``Sample`` API with resampling.
+``make_demo_kit`` and ``make_tracker_kit`` write the repo's two example
+songs (``examples/make_demo_song.py``, ``examples/make_tracker_song.py``)
+with the port's own instruments, for the sequencer path.
 
     python -m synthesizer_tpu_torch out.wav
 """
@@ -233,3 +236,315 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)} (first call, kernel build "
           f"included) -> {args.out}")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Song kits: the two example songs of the repo (examples/make_demo_song.py
+# and examples/make_tracker_song.py), their instruments built with the
+# port's WaveSynth and oscillators and their .ini texts kept verbatim
+# ---------------------------------------------------------------------------
+
+C4 = 261.6255653005986
+
+
+def make_demo_kit(outdir: str, device="cuda") -> str:
+    """The demo song's kit (6 drum/instrument WAVs and the pitched
+    sampler's source) and ``demo.ini`` into ``outdir`` -> the ini path."""
+    import os
+    from . import oscillators as osc
+    from .synth import WaveSynth
+    sr = SAMPLERATE
+    synth = WaveSynth(samplerate=sr, samplewidth=2, device=device)
+    os.makedirs(outdir, exist_ok=True)
+
+    def out(name):
+        return os.path.join(outdir, name)
+
+    # kick: descending sine thump
+    sweep = osc.Sine(55.0, amplitude=0.9,
+                     fm_lfo=osc.Linear(0.0, -4e-5, min_value=-0.7),
+                     samplerate=sr)
+    kick = synth.render_oscillator(
+        osc.EnvelopeFilter(sweep, 0.002, 0.18, 0.0, 0.3, 0.05), 0.25, "kick")
+    kick.amplify(1.2).fadeout(0.05).stereo().write_wav(out("kick.wav"))
+    # snare: noise burst + 180 Hz body
+    body = osc.Triangle(180.0, amplitude=0.4, samplerate=sr)
+    noise = osc.WhiteNoise(amplitude=0.5, seed=11, samplerate=sr)
+    snare = synth.render_oscillator(
+        osc.EnvelopeFilter(osc.MixingFilter(body, noise),
+                           0.001, 0.12, 0.0, 0.2, 0.03), 0.16, "snare")
+    snare.fadeout(0.05).stereo().write_wav(out("snare.wav"))
+    # closed and open hats
+    hat = synth.white_noise(duration=0.05, amplitude=0.35, seed=7)
+    hat.fadeout(0.04).stereo().write_wav(out("hat.wav"))
+    ohat = synth.white_noise(duration=0.22, amplitude=0.3, seed=8)
+    ohat.fadeout(0.2).stereo().write_wav(out("openhat.wav"))
+    # bass pluck
+    pluck = osc.EnvelopeFilter(
+        osc.Harmonics(82.4, [(1, 0.7), (2, 0.35), (3, 0.18)], samplerate=sr),
+        0.004, 0.25, 0.0, 0.3, 0.05)
+    synth.render_oscillator(pluck, 0.3, "bass").stereo().write_wav(
+        out("bass.wav"))
+    # the pitched sampler's source: a plucked C4
+    synth.pluck(C4, 0.35, amplitude=0.55, seed=14,
+                damping=1.3).fadeout(0.05).stereo().write_wav(
+        out("pluckgtr.wav"))
+    # stab chord
+    stab = osc.EnvelopeFilter(
+        osc.MixingFilter(
+            osc.Sawtooth(220.0, amplitude=0.2, samplerate=sr),
+            osc.Sawtooth(277.2, amplitude=0.2, samplerate=sr),
+            osc.Sawtooth(329.6, amplitude=0.2, samplerate=sr)),
+        0.005, 0.2, 0.0, 0.4, 0.08)
+    synth.render_oscillator(stab, 0.3, "stab").stereo().write_wav(
+        out("stab.wav"))
+    with open(out("demo.ini"), "w") as f:
+        f.write(DEMO_INI)
+    return out("demo.ini")
+
+
+def make_tracker_kit(outdir: str, device="cuda") -> str:
+    """The tracker song's kit and ``tracker.ini`` into ``outdir`` -> the
+    ini path.  The one change from the reference's example: the snare is
+    written as ``snare.wav``, not as an AIFF, because the port's
+    ``read_wav`` decodes PCM WAV only until the host codecs are ported
+    (ROADMAP queue 1 item 11); the song text names ``snare.wav``
+    accordingly and is otherwise verbatim."""
+    import os
+    from . import oscillators as osc
+    from .synth import WaveSynth
+    sr = SAMPLERATE
+    synth = WaveSynth(samplerate=sr, samplewidth=2, device=device)
+    os.makedirs(outdir, exist_ok=True)
+
+    def out(name):
+        return os.path.join(outdir, name)
+
+    kick = synth.render_oscillator(
+        osc.EnvelopeFilter(
+            osc.Sine(52.0, amplitude=0.9,
+                     fm_lfo=osc.Linear(0.0, -5e-5, min_value=-0.6),
+                     samplerate=sr), 0.002, 0.16, 0.0, 0.3, 0.05),
+        0.22, "kick")
+    kick.fadeout(0.05).stereo().write_wav(out("kick.wav"))
+    snare = synth.render_oscillator(
+        osc.EnvelopeFilter(
+            osc.MixingFilter(osc.Triangle(190.0, amplitude=0.35,
+                                          samplerate=sr),
+                             osc.WhiteNoise(amplitude=0.5, seed=3,
+                                            samplerate=sr)),
+            0.001, 0.1, 0.0, 0.2, 0.03), 0.14, "snare")
+    snare.fadeout(0.04).stereo().write_wav(out("snare.wav"))
+    hat = synth.white_noise(duration=0.04, amplitude=0.3, seed=5)
+    hat.fadeout(0.03).stereo().write_wav(out("hat.wav"))
+    # one-shot melodic source: Karplus-Strong pluck, repitched per note
+    synth.pluck(C4, 0.3, amplitude=0.55, seed=21, damping=1.2) \
+        .fadeout(0.04).stereo().write_wav(out("pluck.wav"))
+    # looped pad source: one second of slow-attack saw; the song loops
+    # its steady middle
+    pad = synth.render_oscillator(
+        osc.EnvelopeFilter(osc.BandlimitedSawtooth(C4, amplitude=0.4,
+                                                   samplerate=sr),
+                           0.15, 0.1, 0.7, 0.8, 0.05), 1.0, "pad")
+    pad.stereo().write_wav(out("pad.wav"))
+    with open(out("tracker.ini"), "w") as f:
+        f.write(TRACKER_INI)
+    return out("tracker.ini")
+
+
+DEMO_INI = """\
+; demo song for synthesizer_tpu trackmixer
+[song]
+bpm = 128
+ticks = 4
+patterns = intro main main fill main main outro
+
+[paths]
+samples = .
+
+[instruments]
+kick = kick.wav
+snare = snare.wav
+hat = hat.wav
+openhat = openhat.wav
+bass = bass.wav
+stab = stab.wav
+
+[synth.lead]
+wave = square_bl
+amplitude = 0.22
+attack = 0.008
+decay = 0.04
+sustain_level = 0.6
+release = 0.09
+pan = 0.25
+
+[sampler.pluckgtr]
+; tracker-style pitched sample playback (beyond-reference)
+file = pluckgtr.wav
+base_note = C4
+
+[synth.gtr]
+; Karplus-Strong plucked string (beyond-reference physical modeling)
+wave = pluck
+amplitude = 0.3
+damping = 1.4
+seed = 4
+attack = 0.0
+decay = 0.0
+sustain_level = 1.0
+release = 0.12
+pan = -0.35
+
+[synth.sub]
+wave = sine
+amplitude = 0.35
+attack = 0.004
+decay = 0.03
+sustain_level = 0.8
+release = 0.06
+pan = -0.1
+
+[fx]
+; master bus: gentle glue compression + a small room, a tempo-synced
+; slapback, and a safety brickwall (all beyond-reference)
+compress = threshold_db=-10 ratio=3 attack=0.004 release=0.12 makeup_db=1.5
+reverb = roomsize=0.45 damping=0.6 wet=0.14 dry=0.95 tail=0.6
+echo = beats=0.75 feedback=0.25 wet=0.12
+limiter = ceiling_db=-0.5 lookahead=0.004
+
+[fx.lead]
+; per-synth-track chain: the lead gets its own chorus bus
+chorus = rate=1.2 depth=0.002 delay=0.014 wet=0.35
+
+[automation]
+; hats ride up across the song; the whole mix fades over the outro
+track.hat.volume = 0:0.6 48:1.0
+fx.reverb.wet = 0:0.10 64:0.22
+fx.echo.wet = 0:0.06 64:0.16
+master.volume = 0:1 96:1 112:0
+
+[pattern.intro]
+hat   = x.x. x.x. x.x. x.x.
+kick  = x... .... x... ....
+
+[pattern.main]
+kick  = x... x... x... x...
+snare = .... x... .... x...
+hat   = x.x. x.x. x.x. x.xx
+bass  = x... ..x. x... ..x.
+stab  = .... .... x... ....
+lead  = E4 .. G4 A4 -  .. E5 D5 -  .. A4 -  G4 .. E4 -
+gtr   = E3 .. .. B3 .. .. G3 .. E3 .. .. B2 .. .. A2 ..
+pluckgtr = .. E4 .. .. G4 .. .. B4 .. E5 .. .. B4 .. G4 ..
+sub   = E2 -  -  -  A1 -  -  -  C2 -  -  -  B1 -  -  -
+
+[pattern.fill]
+kick  = x... x... x... xxxx
+snare = .... x... .x.x xxxx
+hat   = x.x. x.x. x.x. ....
+openhat = .... .... .... x...
+
+[pattern.outro]
+kick  = x... .... x... ....
+openhat = x... .... .... ....
+bass  = x... .... ..x. ....
+sub   = E1 -  -  -  -  -  -  -  -  -  -  -  -  -  -  -
+"""
+
+# verbatim but for the snare (snare.wav instead of snare.aiff, see
+# make_tracker_kit)
+TRACKER_INI = """\
+; tracker-style demo: samplers + loops + accents + automation + swing
+[song]
+bpm = 112
+ticks = 4
+swing = 0.25
+patterns = a a b b a a
+
+[paths]
+samples = .
+
+[instruments]
+kick = kick.wav
+snare = snare.wav
+hat = hat.wav
+
+[sampler.pluck]
+file = pluck.wav
+base_note = C4
+
+[sampler.pad]
+file = pad.wav
+base_note = C4
+loop_start = 0.45
+loop_end = 0.85
+release = 0.12
+
+[fx.hat]
+filter = kind=highpass cutoff=6000 q=0.7071
+
+[fx.pluck]
+; per-sampler-track chain: the pluck gets its own slap-room
+reverb = roomsize=0.35 damping=0.7 wet=0.2 dry=0.9 tail=0.25
+
+[fx.pad]
+; sidechain ducking (round 3): the pad pumps under the kick
+compress = threshold_db=-14 ratio=8 attack=0.002 release=0.11 sidechain=kick
+
+[fx]
+compress = threshold_db=-11 ratio=3 attack=0.004 release=0.1 makeup_db=1
+filter = kind=lowpass cutoff=9000 q=0.7071
+reverb = roomsize=0.5 damping=0.55 wet=0.12 dry=0.95 tail=0.5
+
+[automation]
+track.hat.volume = 0:0.5 32:1.0
+track.pluck.pan = 0:-0.6 48:0.6
+fx.filter.cutoff = 0:900 24:9000 96:9000
+fx.reverb.wet = 0:0.08 64:0.2
+; recurrence-internal curves (round 3): the compressor releases slower and
+; the room grows as the song builds
+fx.compress.release = 0:0.05 48:0.25
+fx.reverb.roomsize = 0:0.35 64:0.7
+master.volume = 0:1 80:1 96:0
+
+[pattern.a]
+kick  = X... x... X... x...
+snare = .... x... .... o...
+hat   = x.o. x.o. x.o. x.oo
+pluck = C3 .. E3 G3 .. C4@0.6 .. .. A2 .. C3 E3 .. G3@0.5 .. ..
+pad   = C3 - - - - - - - A2 - - - - - - -
+
+[pattern.b]
+kick  = X... x..x X... x...
+snare = .... x... ..o. x..X
+hat   = xxo. x.o. xxo. x.o.
+pluck = F3 .. A3 C4 .. F4@0.5 .. .. G2 .. B2 D3 .. G3 .. ..
+pad   = F2 - - - - - - - G2 - - - - - - -
+"""
+
+
+def repeated(ini_text: str, times: int) -> str:
+    """A song text with its ``patterns =`` list repeated ``times`` times
+    (the long form of a song at the same widths)."""
+    out = []
+    for line in ini_text.splitlines():
+        if line.startswith("patterns ="):
+            pats = line.split("=", 1)[1].split()
+            line = "patterns = " + " ".join(pats * times)
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def strip_fx(ini_text: str) -> str:
+    """A song text without its [fx] and [fx.TRACK] sections and without
+    the fx.* automation keys: the dry song."""
+    out, skip = [], False
+    for line in ini_text.splitlines():
+        s = line.strip()
+        if s.startswith("["):
+            skip = s == "[fx]" or s.startswith("[fx.")
+        if skip or s.startswith("fx."):
+            continue
+        out.append(line)
+    return "\n".join(out) + "\n"

@@ -19,6 +19,8 @@
 // use_amp and use_dmod branches, segment by segment.  And the sparse rows
 // of VoiceBank.sparse_plan: with idx [nchunks, K], a tile takes its
 // candidate voices from its chunk's row instead of walking all V slots.
+// And the segment buses of render_block(seg=, nseg=), which the sequencer's
+// per-track effects need: each voice's stereo signal goes to its own bus.
 //
 // What bounds it on this card: operations on the audible voice-frames.  A
 // voice-frame costs about 20-200 f32 and integer operations (8 turn-unit
@@ -128,6 +130,13 @@
 //     would add exact zeros to the flat sum, so the sparse render equals
 //     the flat one bit for bit.  A tile never straddles two chunks: the
 //     chunk is a multiple of kTile frames.
+//   * Segment buses: with a per-voice bus column, blockIdx.y is the bus.
+//     A block admits into its list only the voices of its bus, with the
+//     same ballot and prefix count in the same packed order, and writes
+//     out[i * nseg + bus].  So bus b is the render of bus b's voices alone,
+//     bit for bit, and a voice is evaluated only by its own bus's blocks:
+//     the voice-tile count is the flat render's.  Without the column
+//     (nseg 1, blockIdx.y 0) the code is the flat render's.
 // The sum stays serial in packed voice order, as the plain version sums,
 // so the output is bit-identical to it, deterministic and chunk-invariant
 // (a frame depends only on its absolute index).  That pinned order is why
@@ -971,6 +980,8 @@ struct Render {
   int modes;
   const int32_t* idx;
   int K, chunk_frames, V;
+  const int32_t* bus;   // per-voice bus [V], or null for one bus
+  int nseg;
   float2* out;
   int* counts;
 };
@@ -983,6 +994,8 @@ __device__ __forceinline__ void render_tile(const Render& r) {
   const float* __restrict__ table = r.table;
   const uint32_t* __restrict__ seg = r.seg;
   const int32_t* __restrict__ idx = r.idx;
+  const int32_t* __restrict__ bus = r.bus;
+  const int b = blockIdx.y;             // this block's bus
   float2* __restrict__ out = r.out;
   int* __restrict__ counts = r.counts;
   const Groups& groups = r.groups;
@@ -1034,7 +1047,7 @@ __device__ __forceinline__ void render_tile(const Render& r) {
         while (g + 1 < groups.n && s >= groups.slot0[g + 1]) ++g;
         v = groups.start[g] + (s - groups.slot0[g]);
       }
-      if (v >= 0 && v < V) {
+      if (v >= 0 && v < V && (bus == nullptr || bus[v] == b)) {
         const uint32_t* c = consts + (size_t)v * C;
         const int wid = groups.wid[g] < 0 ? (int)c[K_WAVE] : groups.wid[g];
         code = wid | (groups.has_fm[g] ? 0x100 : 0);
@@ -1114,7 +1127,8 @@ __device__ __forceinline__ void render_tile(const Render& r) {
 #pragma unroll
   for (int f = 0; f < kFrames; ++f) {
     const int i = i0 + f * kThreads + tid;
-    if (i < nframes) out[i] = make_float2(acc_l[f], acc_r[f]);
+    if (i < nframes)
+      out[(size_t)i * r.nseg + b] = make_float2(acc_l[f], acc_r[f]);
   }
   if (tid == 0 && evaluated > 0) atomicAdd(counts, evaluated);
   if (CURVES && tid < kCounts - 1 && s_nwin[tid] > 0)
@@ -1205,7 +1219,10 @@ extern "C" int voicebank_setup(const void* const* cols,
 // K] int32 rows of voice indices, V = an empty slot; one group;
 // chunk_frames a multiple of kTile and n0 one of chunk_frames; the wrapper
 // checks that the rows cover the window) the tile at absolute frame n
-// takes its voices from row n / chunk_frames.
+// takes its voices from row n / chunk_frames.  With `bus` (device [V]
+// int32 bus ids) the output is [nframes, nseg, 2] and bus b sums only the
+// voices whose id is b (a voice with an id outside [0, nseg) sounds on no
+// bus); without it nseg must be 1 and the output is [nframes, 2].
 extern "C" int voicebank_render(const uint32_t* consts, int C,
                                 const float* harm, int harm_stride,
                                 const float* table, const int32_t* groups,
@@ -1213,10 +1230,11 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
                                 const int* dims, const uint32_t* seg, int H,
                                 int n0, int nframes, float sr_r, int modes,
                                 const int32_t* idx, int K, int chunk_frames,
-                                int V, float* out, int* counts,
-                                void* stream) {
+                                int V, const int32_t* bus, int nseg,
+                                float* out, int* counts, void* stream) {
   const bool curves_on = (modes & (kUseBend | kUseAmp | kUseDmod)) != 0;
-  if (ngroups < 1 || ngroups > kMaxGroups || nframes <= 0
+  if (ngroups < 1 || ngroups > kMaxGroups || nframes <= 0 || nseg < 1
+      || nseg > 65535 || (bus == nullptr && nseg != 1) || (bus && idx)
       || (curves_on && seg == nullptr)
       || (idx && (ngroups != 1 || K < 1 || chunk_frames <= 0
                   || chunk_frames % kTile != 0 || n0 % chunk_frames != 0)))
@@ -1231,10 +1249,10 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
     gs.slot0[g] = gs.nslots;
     gs.nslots += gs.count[g];
   }
-  const int blocks = (nframes + kTile - 1) / kTile;
+  const dim3 blocks((nframes + kTile - 1) / kTile, nseg);
   const Render r = {consts, C, harm, harm_stride, table, gs,
                     make_curves(curves, dims), seg, H, n0, nframes, sr_r,
-                    modes, idx, K, chunk_frames, V,
+                    modes, idx, K, chunk_frames, V, bus, nseg,
                     reinterpret_cast<float2*>(out), counts};
   if (curves_on)
     render_kernel<true><<<blocks, kCurveThreads, 0, (cudaStream_t)stream>>>(r);

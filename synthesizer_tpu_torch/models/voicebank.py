@@ -30,11 +30,10 @@ those survive the two's-complement wrap.  int64 -> f32 rounds like the
 reference's u32 -> f32.
 
 Pitch, amplitude and FM-depth curves (``use_bend``/``use_amp``/
-``use_dmod``) and the sparse bucketed render (``VoiceBank.sparse_plan``,
-``render_song_sparse``) are ported.  Not ported yet: segment buses
-(``seg``) and the grouped-bus renders, whose consumers are the sequencer's
-fx path and the server's coalesced batches; they raise
-``NotImplementedError`` until those slices.
+``use_dmod``), the sparse bucketed render (``VoiceBank.sparse_plan``,
+``render_song_sparse``) and the segment buses (``seg``/``nseg``:
+``render_song_grouped``, ``render_chunk_grouped``, which give each voice's
+stereo signal to its own bus) are ported.
 
 Voice waveforms: 0=sine 1=triangle 2=square 3=sawtooth 4=pulse 5=semicircle
 6=pointy 7=white_noise (sample-and-hold via ``frequency``) 8=harmonics
@@ -76,10 +75,6 @@ ALL_WAVES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 #: tables of any length are resampled to this at pack time (linear interp
 #: with wraparound, f32 — bank_table() is the documented canonicalization)
 BANK_TABLE_LEN = 256
-
-_NO_BUSES = ("not ported yet: segment buses (seg/nseg) come with the "
-             "sequencer and server slices of the PyTorch port")
-
 
 def bank_table(table) -> np.ndarray:
     """Resample a single-cycle table to BANK_TABLE_LEN (f32 linear interp
@@ -901,15 +896,30 @@ def render_block(vp: VoiceParams, n0: int, blocksize: int,
     otherwise the mixed-group select path is used.  The voices are summed
     serially in packed order (the order the kernel sums in), so the result
     does not depend on the block size.  ``use_bend``/``use_amp``/
-    ``use_dmod`` enable the pitch, amplitude and FM-depth curve segments;
-    ``seg`` (segment buses) raises NotImplementedError."""
-    if seg is not None or nseg:
-        raise NotImplementedError(_NO_BUSES)
+    ``use_dmod`` enable the pitch, amplitude and FM-depth curve segments.
+
+    With ``seg`` (per-voice bus ids [V], any int sequence or tensor) the
+    mixdown is grouped into ``nseg`` stereo buses -> [blocksize, nseg, 2]:
+    each voice adds to its own bus, serially in packed order, so bus b is
+    the render of bus b's voices alone.  (The reference scatters the pan
+    gains into a [V, 2*nseg] matrix for one matmul, where the other buses'
+    voices add exact zeros: the same sum up to the matmul's order.)"""
     dev = vp.device
+    buses = None
+    if seg is not None:
+        buses = [int(b) for b in (seg.tolist() if isinstance(seg, torch.Tensor)
+                                  else seg)]
+        if len(buses) != vp.wave.shape[0] or not all(
+                0 <= b < nseg for b in buses):
+            raise ValueError(f"seg needs one bus in [0, {nseg}) per voice "
+                             f"({vp.wave.shape[0]})")
+    elif nseg:
+        raise ValueError("nseg without seg")
     n = n0 + torch.arange(blocksize, dtype=torch.int64, device=dev)
     if layout is None:
         layout = BankLayout.ungrouped(vp.wave.shape[0], num_harmonics, use_fm)
-    mix = torch.zeros((blocksize, 2), dtype=torch.float32, device=dev)
+    mix = torch.zeros((blocksize, 2) if buses is None else (blocksize, nseg, 2),
+                      dtype=torch.float32, device=dev)
     for (wid, has_fm, start, count) in layout.groups:
         if count == 0:
             continue
@@ -930,7 +940,10 @@ def render_block(vp: VoiceParams, n0: int, blocksize: int,
         rg = torch.clamp_max(1.0 + sub.pan, 1.0)
         prod = sig[:, :, None] * torch.stack([lg, rg], dim=1)[:, None, :]
         for i in range(count):
-            mix += prod[i]
+            if buses is None:
+                mix += prod[i]
+            else:
+                mix[:, buses[start + i]] += prod[i]
     return mix
 
 
@@ -1042,16 +1055,28 @@ class VoiceBank:
         return BankLayout.ungrouped(vp.wave.shape[0], self.num_harmonics,
                                     self.use_fm)
 
-    def _render(self, vp: VoiceParams, n0: int, nframes: int):
+    def _render(self, vp: VoiceParams, n0: int, nframes: int, seg=None,
+                nseg: int = 0):
         if self.device.type == "cuda":
             from ..ops.kernels import render_stereo
             return render_stereo(vp, n0, nframes=nframes,
                                  samplerate=self.samplerate,
-                                 layout=self._kernel_layout(vp),
-                                 **self._flags())
+                                 layout=self._kernel_layout(vp), seg=seg,
+                                 nseg=nseg, **self._flags())
         return render_block(vp, n0, nframes, self.samplerate,
                             self.num_harmonics, self.layout, self.used_waves,
-                            self.use_fm, **self._flags())
+                            self.use_fm, seg=seg, nseg=nseg, **self._flags())
+
+    def _seg(self, seg, nseg: int):
+        """Per-voice bus ids as a contiguous int32 tensor on the bank's
+        device, checked against ``nseg``."""
+        t = torch.as_tensor(np.asarray(seg, np.int32) if not isinstance(
+            seg, torch.Tensor) else seg).to(device=self.device,
+                                            dtype=torch.int32).contiguous()
+        if t.ndim != 1 or (t.numel() and (int(t.min()) < 0
+                                          or int(t.max()) >= nseg)):
+            raise ValueError(f"seg needs one bus in [0, {nseg}) per voice")
+        return t
 
     def render_chunk(self, vp: VoiceParams, n0: int) -> torch.Tensor:
         """One streaming chunk: stereo f32 [chunk, 2] (stateless)."""
@@ -1069,6 +1094,32 @@ class VoiceBank:
         nchunks = -(-total_frames // cf)
         out = torch.cat([self._render(vp, i * cf, cf) for i in range(nchunks)])
         return out[:total_frames]
+
+    def render_song_grouped(self, vp: VoiceParams, seg, nseg: int,
+                            total_frames: int) -> torch.Tensor:
+        """Grouped offline mixdown: every voice renders in one pass and
+        adds to its own stereo bus (``seg``, per-voice bus ids) -> f32
+        [total_frames, nseg, 2].  Each bus sums its own voices in packed
+        order, so bus b equals the render of bus b's voices alone, bit for
+        bit.  On a CUDA device one kernel launch (a block row per bus); on
+        the CPU chunk by chunk."""
+        self._check(vp)
+        seg = self._seg(seg, int(nseg))
+        if self.device.type == "cuda":
+            return self._render(vp, 0, total_frames, seg, int(nseg))
+        cf = self.chunk_frames
+        nchunks = -(-total_frames // cf)
+        out = torch.cat([self._render(vp, i * cf, cf, seg, int(nseg))
+                         for i in range(nchunks)])
+        return out[:total_frames]
+
+    def render_chunk_grouped(self, vp: VoiceParams, seg, nseg: int,
+                             n0: int) -> torch.Tensor:
+        """One streaming chunk of the grouped render: f32 [chunk, nseg, 2]
+        (stateless in the absolute frame index, like ``render_chunk``)."""
+        self._check(vp)
+        return self._render(vp, n0, self.chunk_frames,
+                            self._seg(seg, int(nseg)), int(nseg))
 
     def render_song_sparse(self, vp: VoiceParams,
                            total_frames: int) -> torch.Tensor:

@@ -520,63 +520,95 @@ COMB_PACK_BYTES_CAP = 1_500_000_000
 
 
 def reverb_zero_state(combs: Tuple[int, ...], aps: Tuple[int, ...],
-                      device="cpu"):
+                      device):
     """Fresh (comb ring buffers, damping states, allpass ring buffers,
-    write position) carry for one channel's network."""
+    write position) carry for one channel's network, on ``device`` (no
+    default: a carry never lands on the CPU unasked)."""
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
                                    device=device)
     return (z(len(combs), max(combs)), z(len(combs)), z(len(aps), max(aps)),
             0)
 
 
-def _network_step(state, xblk, fbv, combs, aps, d1, d2):
-    """One blocked step of the Freeverb network over ``block`` frames of
-    every ring buffer (block <= the shortest delay, so every delayed read
-    lands at least a block behind the write head).  The ring writes go to
-    distinct positions, so they are order-free."""
-    comb_buf, fstores, ap_buf, n0 = state
+def _comb_step(comb_buf, fstores, n0: int, xblk, fbv, combs, d2, scan):
+    """One blocked step of a network's comb stage over ``block`` frames
+    (block <= the shortest comb delay, so every delayed read lands at least
+    a block behind the write head).  The combs run as the lanes of one
+    [combs, block] gather, affine scan (the damping filter; ``scan`` is
+    ``affine_scan_fixed`` of its coefficients) and scatter; the ring writes
+    go to distinct positions, so they are order-free.  Returns (comb_buf,
+    fstores, the comb outputs summed in comb order)."""
     block = xblk.shape[0]
     dev = xblk.device
     offs = n0 + torch.arange(block, dtype=torch.int64, device=dev)
-    acc = torch.zeros(block, dtype=torch.float32, device=dev)
-    comb_buf, ap_buf = comb_buf.clone(), ap_buf.clone()
-    new_fs = []
-    for k, D in enumerate(combs):
-        idx = offs % D
-        y = comb_buf[k, idx]
-        fs = affine_scan(d1.expand(block), d2 * y, fstores[k])
-        comb_buf[k, idx] = xblk + fs * fbv
-        new_fs.append(fs[-1])
-        acc = acc + y
-    out = acc
-    for k, D in enumerate(aps):
-        idx = offs % D
-        b = ap_buf[k, idx]
-        ap_buf[k, idx] = out + b * 0.5
-        out = b - out
-    return (comb_buf, torch.stack(new_fs), ap_buf, n0 + block), out
+    ds = torch.tensor(combs, dtype=torch.int64, device=dev)
+    idx = offs[None, :] % ds[:, None]                         # [combs, block]
+    y = comb_buf.gather(1, idx)
+    fs = scan(d2 * y, fstores[:, None])
+    comb_buf = comb_buf.scatter(1, idx, xblk[None, :] + fs * fbv)
+    out = y[0]
+    for k in range(1, len(combs)):
+        out = out + y[k]
+    return comb_buf, fs[:, -1], out
+
+
+def _allpass_chunk(buf: torch.Tensor, x: torch.Tensor, D: int, n0: int):
+    """A Freeverb allpass over a chunk starting at absolute frame ``n0``:
+    w_n = x_n + 0.5 * w_{n-D}, y_n = w_{n-D} - x_n, with ``buf`` [D] the
+    ring of w at frames n0-D .. n0-1 (frame f at f % D).  Frames D apart
+    form a lane, so the chunk is D lanes of one affine scan along the
+    block axis.  Returns (new ring, y)."""
+    dev = x.device
+    n = x.shape[0]
+    M = -(-n // D)
+    j = torch.arange(D, dtype=torch.int64, device=dev)
+    init = buf[(n0 + j) % D]                            # w_{n0 + j - D}
+    xp = torch.cat([x, torch.zeros(M * D - n, dtype=torch.float32,
+                                   device=dev)]).reshape(M, D)
+    w = affine_scan(torch.full((M, D), 0.5, dtype=torch.float32, device=dev),
+                    xp, init[None, :], axis=0)
+    y = (torch.cat([init[None, :], w[:-1]]) - xp).reshape(-1)[:n]
+    last = torch.cat([init, w.reshape(-1)[:n]])[-D:]    # frames n0+n-D ..
+    new = torch.empty_like(buf)
+    new[(n0 + n - D + j) % D] = last
+    return new, y
 
 
 def reverb_network_apply(state, mono_in: torch.Tensor, combs, aps, feedback,
                          damp):
     """Run ``mono_in`` (any length) through one channel's network from
-    ``state`` in blocks of min(128, shortest delay); returns (new_state,
-    output).  ``feedback`` may be a per-frame [n] grid."""
+    ``state``; returns (new_state, output).  The comb stage runs in blocks
+    of the shortest comb delay (``_comb_step``), then each allpass over
+    the whole chunk as lanes of its delay (``_allpass_chunk``): the
+    allpasses take the combs' output and feed nothing back.  ``feedback``
+    may be a per-frame [n] grid.  The f32 roundings depend on the
+    chunking (the scans group by block), within the reverb's budget."""
     dev = mono_in.device
     n = int(mono_in.shape[0])
-    block = min(128, min(min(combs), min(aps)))
+    comb_buf, fstores, ap_buf, n0 = state
+    if n == 0:
+        return state, torch.zeros(0, dtype=torch.float32, device=dev)
+    block = min(combs)
     fb = _f32(feedback, dev)
     d1 = _f32(damp, dev)
     d2 = 1.0 - d1
+    scans = {}                  # the damping scan's coefficients, per length
     outs = []
     for b0 in range(0, n, block):
+        m = min(block, n - b0)
+        if m not in scans:
+            scans[m] = affine_scan_fixed(d1.expand(len(combs), m), axis=1)
         fbv = fb[b0:b0 + block] if fb.ndim == 1 else fb
-        state, out = _network_step(state, mono_in[b0:b0 + block], fbv,
-                                   combs, aps, d1, d2)
-        outs.append(out)
-    if not outs:
-        return state, torch.zeros(0, dtype=torch.float32, device=dev)
-    return state, torch.cat(outs)
+        comb_buf, fstores, y = _comb_step(comb_buf, fstores, n0 + b0,
+                                          mono_in[b0:b0 + block], fbv,
+                                          combs, d2, scans[m])
+        outs.append(y)
+    out = torch.cat(outs)
+    ap_new = ap_buf.clone()
+    for k, D in enumerate(aps):
+        ring, out = _allpass_chunk(ap_buf[k, :D], out, D, n0)
+        ap_new[k, :D] = ring
+    return (comb_buf, fstores, ap_new, n0 + n), out
 
 
 def _comb_stage_whole(mono_in: torch.Tensor, comb_sets, fb, d1, d2):
@@ -711,16 +743,22 @@ def reverb_from_params(frames: torch.Tensor, samplerate: int, feedback, damp,
 
 def _chorus_lfo_delay(n0: int, n: int, samplerate: int, rate: float, depth,
                       delay, voice: int, voices: int, channel: int,
-                      device) -> torch.Tensor:
+                      device, P=None) -> torch.Tensor:
     """The spec's integer-DDS delay curve (goldref.effects.chorus_delay_f32):
     the phase wraps as an i32 (held as int64 masked to 32 bits, then read
     signed), x = p * 2^-32 in [-0.5, 0.5), which the turn-unit sine folds
-    like [0, 1)."""
+    like [0, 1).  With ``P`` (an int64 [n] tensor of u32 cumulative phases,
+    the rate automation's host grid, ``ops.coeffs.chorus_phase_grid``) the
+    phase is the voice's start phase plus P_n, and ``rate``/``n0`` are
+    unused; ``depth`` may be a per-frame [n] grid."""
     phi = (voice / voices + 0.25 * channel) % 1.0
     p0 = int(round(phi * 4294967296.0)) & 0xFFFFFFFF
-    inc = int(round(float(rate) / samplerate * 4294967296.0)) & 0xFFFFFFFF
-    idx = int(n0) + torch.arange(n, dtype=torch.int64, device=device)
-    p = (p0 + idx * inc) & 0xFFFFFFFF
+    if P is not None:
+        p = (p0 + P) & 0xFFFFFFFF
+    else:
+        inc = int(round(float(rate) / samplerate * 4294967296.0)) & 0xFFFFFFFF
+        idx = int(n0) + torch.arange(n, dtype=torch.int64, device=device)
+        p = (p0 + idx * inc) & 0xFFFFFFFF
     p = torch.where(p >= (1 << 31), p - (1 << 32), p)
     x = p.to(torch.float32) * float(2.0 ** -32)
     lfo = 0.5 + 0.5 * sin_turns(x)
@@ -730,11 +768,13 @@ def _chorus_lfo_delay(n0: int, n: int, samplerate: int, rate: float, depth,
 
 def chorus_core(s: torch.Tensor, n0: int, hist: torch.Tensor,
                 samplerate: int, rate, depth, delay, voices: int, wet,
-                dry) -> torch.Tensor:
+                dry, P=None) -> torch.Tensor:
     """Chorus on a normalized f32 chunk [n, ch] starting at absolute frame
     ``n0``, reading past input from ``hist`` [H, ch] (the H frames before
     n0; zeros at stream start).  Gathers and a lerp, no recurrence;
-    ``wet``/``dry`` may be per-frame [n] arrays."""
+    ``wet``/``dry`` and ``depth`` may be per-frame [n] arrays, and ``P``
+    replaces the static-rate LFO phase (rate automation, see
+    ``_chorus_lfo_delay``)."""
     dev = s.device
     n, nch = s.shape
     H = hist.shape[0]
@@ -754,7 +794,7 @@ def chorus_core(s: torch.Tensor, n0: int, hist: torch.Tensor,
         acc = out[:, c]
         for v in range(voices):
             d = _chorus_lfo_delay(n0, n, samplerate, rate, depth, delay,
-                                  v, voices, c, dev)
+                                  v, voices, c, dev, P)
             df = torch.floor(d)
             fr = d - df
             i0 = H + idx - df.to(torch.int64)       # ext row of s[n - df]

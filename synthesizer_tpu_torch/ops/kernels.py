@@ -13,7 +13,9 @@ voice and tile (plain version: ``tile_segment_windows``).  The render takes
 the pitch, amplitude and FM-depth curves (``use_bend``/``use_amp``/``use_dmod``) and, for the
 sparse render, per-chunk rows of candidate voices (``idx``).  For CPU
 tensors it runs ``render_stereo_reference``, the plain ``render_block``
-over the same layout and rows.  There is no fallback between the two: a
+over the same layout and rows.  With per-voice bus ids (``seg``, ``nseg``)
+the render gives each voice's signal to its own stereo bus (the segment
+buses of ``render_block``): on the card a row of blocks per bus.  There is no fallback between the two: a
 CUDA tensor launches the kernels or raises.
 
 Nothing here imports a GPU toolchain at import time, so the CPU tests can
@@ -167,7 +169,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int,                                   # modes
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,    # idx, K, chunk_frames
         ctypes.c_int,                                   # V
-        ctypes.c_void_p,                                # out [nframes, 2] f32
+        ctypes.c_void_p, ctypes.c_int,                  # bus [V] int32, nseg
+        ctypes.c_void_p,                                # out [nframes, (nseg,) 2]
         ctypes.c_void_p,                                # counters [COUNTS]
         ctypes.c_void_p]                                # cudaStream_t
     lib.voicebank_setup.restype = lib.voicebank_render.restype = ctypes.c_int
@@ -229,10 +232,23 @@ def _check_params(vp: VoiceParams, num_harmonics: int):
 
 
 def _check_inputs(vp: VoiceParams, n0: int, nframes: int,
-                  layout: BankLayout, idx=None, chunk_frames: int = 0):
+                  layout: BankLayout, idx=None, chunk_frames: int = 0,
+                  seg=None, nseg: int = 0):
     """What both kernels of ``render_stereo`` read."""
     _check_params(vp, layout.num_harmonics)
     V = vp.wave.shape[0]
+    if seg is not None:
+        if (seg.device != vp.device or seg.dtype != torch.int32
+                or seg.shape != (V,) or not seg.is_contiguous()
+                or not 1 <= nseg <= 65535):
+            raise ValueError(f"seg: expected contiguous int32 [{V}] on "
+                             f"{vp.device} and 1 <= nseg <= 65535, got "
+                             f"{seg.dtype} {tuple(seg.shape)} on {seg.device}, "
+                             f"nseg={nseg}")
+        if idx is not None:
+            raise ValueError("segment buses take no sparse rows")
+    elif nseg:
+        raise ValueError("nseg without seg")
     if not 0 < len(layout.groups) <= MAX_GROUPS:
         raise ValueError(f"the kernel takes 1..{MAX_GROUPS} groups, got "
                          f"{len(layout.groups)}")
@@ -326,8 +342,15 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
                   samplerate: int, layout: BankLayout,
                   use_glide: bool = False, use_bend: bool = False,
                   use_amp: bool = False, use_dmod: bool = False,
-                  idx=None, chunk_frames: int = 0) -> torch.Tensor:
+                  idx=None, chunk_frames: int = 0, seg=None,
+                  nseg: int = 0) -> torch.Tensor:
     """Render [nframes, 2] f32 starting at absolute frame n0.
+
+    ``seg`` (int32 [V] on vp's device, with ``nseg``): segment buses ->
+    [nframes, nseg, 2], bus b the sum of the voices whose id is b, in
+    packed order.  The kernel launches a row of blocks per bus; its
+    launch is counted in ``render_stereo.launches`` and, besides, in
+    ``render_stereo.bus_launches``.
 
     ``idx`` (int32 [nchunks, K], with ``chunk_frames``): sparse rows, as
     ``VoiceBank.sparse_plan`` makes them.  The frames of absolute chunk c
@@ -344,7 +367,8 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
     looked up and of those that searched the whole row per frame
     (``tile_segment_windows``).  CPU tensors: the plain version."""
     flags = dict(use_glide=use_glide, use_bend=use_bend, use_amp=use_amp,
-                 use_dmod=use_dmod, idx=idx, chunk_frames=chunk_frames)
+                 use_dmod=use_dmod, idx=idx, chunk_frames=chunk_frames,
+                 seg=seg, nseg=nseg)
     if vp.device.type == "cpu":
         return render_stereo_reference(vp, n0, nframes=nframes,
                                        samplerate=samplerate, layout=layout,
@@ -353,7 +377,7 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
         raise ValueError(f"render_stereo takes CPU or CUDA tensors, got "
                          f"{vp.device}")
     n0 = int(n0)
-    _check_inputs(vp, n0, nframes, layout, idx, chunk_frames)
+    _check_inputs(vp, n0, nframes, layout, idx, chunk_frames, seg, nseg)
     H = layout.num_harmonics
     V = vp.wave.shape[0]
     curves = _column_pointers(vp, CURVE_COLUMNS), _curve_dims(vp)
@@ -362,7 +386,8 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
         vp, samplerate, H, bool(modes & (MODE_BEND | MODE_AMP | MODE_DMOD)),
         curves)
     groups = [int(x) for g in layout.groups for x in g]
-    out = torch.empty((nframes, 2), dtype=torch.float32, device=vp.device)
+    out = torch.empty((nframes, 2) if seg is None else (nframes, nseg, 2),
+                      dtype=torch.float32, device=vp.device)
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(_library().voicebank_render(
@@ -372,14 +397,18 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
             *curves, 0 if seg is None else seg.data_ptr(), H, n0, nframes,
             _sr_r(samplerate), modes, 0 if idx is None else idx.data_ptr(),
             0 if idx is None else idx.shape[1], int(chunk_frames), V,
+            0 if seg is None else seg.data_ptr(), 1 if seg is None else nseg,
             out.data_ptr(), counts.data_ptr(), stream), "voicebank_render")
     render_stereo.launches += 1
+    if seg is not None:
+        render_stereo.bus_launches += 1
     render_stereo.voice_tiles = counts[:1]
     render_stereo.windows = counts[1:3]
     return out
 
 
 render_stereo.launches = 0
+render_stereo.bus_launches = 0
 render_stereo.voice_tiles = None
 render_stereo.windows = None
 
@@ -388,21 +417,32 @@ def render_stereo_reference(vp: VoiceParams, n0: int, *, nframes: int,
                             samplerate: int, layout: BankLayout,
                             use_glide: bool = False, use_bend: bool = False,
                             use_amp: bool = False, use_dmod: bool = False,
-                            idx=None, chunk_frames: int = 0) -> torch.Tensor:
+                            idx=None, chunk_frames: int = 0, seg=None,
+                            nseg: int = 0) -> torch.Tensor:
     """The kernel's plain version: ``render_block`` over the same layout,
     on vp's device, in blocks of at most 131072 frames to bound memory
     (block size does not change the result).  With ``idx`` each chunk
     renders the voices of its row (empty slots dropped) as one group of
-    the layout's wave and FM flag."""
+    the layout's wave and FM flag; with ``seg`` each voice adds to its own
+    bus, and a voice whose id is outside [0, nseg) to none, as in the
+    kernel."""
     flags = dict(use_glide=use_glide, use_bend=use_bend, use_amp=use_amp,
                  use_dmod=use_dmod)
     H = layout.num_harmonics
 
-    def blocks(sub, sub_layout, a, b):
+    def blocks(sub, sub_layout, a, b, **kw):
         return [render_block(sub, b0, min(_REFERENCE_BLOCK, b - b0), samplerate,
-                             H, sub_layout, **flags)
+                             H, sub_layout, **flags, **kw)
                 for b0 in range(a, b, _REFERENCE_BLOCK)]
 
+    if seg is not None:
+        if idx is not None:
+            raise ValueError("segment buses take no sparse rows")
+        ids = seg.tolist() if isinstance(seg, torch.Tensor) else list(seg)
+        keep = [i for i, b in enumerate(ids) if 0 <= int(b) < nseg]
+        sub, sub_layout = solo_params(vp, layout, keep)
+        return torch.cat(blocks(sub, sub_layout, n0, n0 + nframes,
+                                seg=[int(ids[i]) for i in keep], nseg=nseg))
     if idx is None:
         return torch.cat(blocks(vp, layout, n0, n0 + nframes))
     if len(layout.groups) != 1 or chunk_frames <= 0:
@@ -426,6 +466,23 @@ def render_stereo_reference(vp: VoiceParams, n0: int, *, nframes: int,
                                 rows.numel(), H)
         out.extend(blocks(sub, sub_layout, a, b))
     return torch.cat(out)
+
+
+def solo_params(vp: VoiceParams, layout: BankLayout, voices):
+    """The voices ``voices`` (packed indices, ascending) of a bank as a bank
+    of their own -> (VoiceParams, BankLayout): each group keeps its wave
+    and FM flag and holds its chosen voices in packed order.  Rendered
+    flat, it sums what a segment bus of those voices sums, in the same
+    order: the bus's solo render."""
+    keep = sorted(int(v) for v in voices)
+    rows = torch.tensor(keep, dtype=torch.int64, device=vp.device)
+    sub = VoiceParams(*(f.index_select(0, rows) for f in vp))
+    groups, pos = [], 0
+    for (wid, has_fm, start, count) in layout.groups:
+        k = sum(1 for v in keep if start <= v < start + count)
+        groups.append((wid, has_fm, pos, k))
+        pos += k
+    return sub, BankLayout(tuple(groups), len(keep), layout.num_harmonics)
 
 
 def _u32_bits(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,8 @@ the CPU and the card agree bit for bit.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -36,6 +38,63 @@ def scalar(value, device) -> torch.Tensor:
 def div(x: torch.Tensor, c) -> torch.Tensor:
     """x / f32(c), correctly rounded on every device."""
     return x / scalar(c, x.device)
+
+
+#: jnp.interp's guard against a zero-width breakpoint interval:
+#: np.spacing(np.finfo(f32).eps)
+_INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors with ONE rounding, as a fused multiply-add
+    computes it, on every device.  The product of two f32 values is exact
+    in f64; the f64 sum rounds once more, and where that sum lands exactly
+    on the midpoint of two f32 neighbours its exact error (TwoSum) decides
+    the direction, so the result is the correctly rounded f32 of the exact
+    a*b + c."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    hi = torch.nextafter(r, torch.full_like(r, math.inf)).to(torch.float64)
+    lo = torch.nextafter(r, torch.full_like(r, -math.inf)).to(torch.float64)
+    up = (s == (r64 + hi) * 0.5) & (err > 0)
+    down = (s == (r64 + lo) * 0.5) & (err < 0)
+    return torch.where(up, hi, torch.where(down, lo, r64)).to(torch.float32)
+
+
+def interp(x: torch.Tensor, xp, fp) -> torch.Tensor:
+    """``jnp.interp(x, xp, fp)`` in f32, bit for bit with the JAX package on
+    the CPU: the interval from a right-sided search, ``fp[i-1] + (delta /
+    dx) * df`` with XLA's contraction of the last multiply and add into one
+    fused multiply-add (``fma_f32``), ``fp[i-1]`` where the interval is
+    narrower than the guard, and the end values held outside ``[xp[0],
+    xp[-1]]``.  ``xp`` and ``fp`` are 1-D breakpoints (lists, arrays or
+    tensors), ``x`` an f32 tensor."""
+    dev = x.device
+    xp = torch.as_tensor(np.asarray(xp, np.float32) if not isinstance(
+        xp, torch.Tensor) else xp, dtype=torch.float32, device=dev)
+    fp = torch.as_tensor(np.asarray(fp, np.float32) if not isinstance(
+        fp, torch.Tensor) else fp, dtype=torch.float32, device=dev)
+    if xp.ndim != 1 or xp.shape != fp.shape or xp.shape[0] == 0:
+        raise ValueError("xp and fp must be one-dimensional arrays of equal "
+                         "size")
+    if xp.shape[0] == 1:
+        return fp[0].expand(x.shape).clone()
+    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(
+        1, xp.shape[0] - 1)
+    lo_x, lo_f = xp[i - 1], fp[i - 1]
+    df = fp[i] - lo_f
+    dx = xp[i] - lo_x
+    delta = x - lo_x
+    dx0 = torch.abs(dx) <= _INTERP_EPS
+    q = delta / torch.where(dx0, torch.ones_like(dx), dx)
+    f = torch.where(dx0, lo_f, fma_f32(q, df, lo_f))
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
 
 
 def phase_x(p: torch.Tensor) -> torch.Tensor:

@@ -407,8 +407,8 @@ def test_streaming_twins_match_whole_signal():
     # reverb: the blocked network == the lag-aligned comb stage
     combs, aps = TC.reverb_delays(SR, 0)
     mono = s.sum(dim=1) * 0.015
-    _, blocked = TF.reverb_network_apply(TF.reverb_zero_state(combs, aps),
-                                         mono, combs, aps, 0.84, 0.2)
+    _, blocked = TF.reverb_network_apply(
+        TF.reverb_zero_state(combs, aps, "cpu"), mono, combs, aps, 0.84, 0.2)
     whole = TF._reverb_networks_whole(mono, [(combs, aps)], 0.84, 0.2)[0]
     assert float((blocked - whole).abs().max()) * 32767 <= 4
     # limiter: gains over two chunks with the carried state

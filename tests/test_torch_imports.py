@@ -43,6 +43,7 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.midi",
                  "synthesizer_tpu_torch.params",
                  "synthesizer_tpu_torch.sequencer",
+                 "synthesizer_tpu_torch.effects",
                  "synthesizer_tpu_torch.__main__"):
         assert want in names
 

@@ -254,12 +254,18 @@ def test_render_block_past_2_pow_24_frames():
 
 def test_curves_and_buses_raise():
     """Curves render (through VoiceBank, against the JAX bank within 1 LSB);
-    segment buses still raise until the sequencer and server slices."""
+    segment buses render too (ported with the sequencer): one bus and two
+    against the JAX render_block(seg=) within 1 LSB.  The name is kept from
+    when both raised."""
     vp = T.pack_voices(to_port(BANK_VOICES[:2]), SR, device="cpu")
-    for kw in ({"seg": torch.zeros(8, dtype=torch.int32), "nseg": 1},
-               {"nseg": 2}):
-        with pytest.raises(NotImplementedError, match="segment buses"):
-            T.render_block(vp, 0, 64, SR, 8, **kw)
+    jvp = J.pack_voices(BANK_VOICES[:2], SR)
+    for seg, nseg in (([0] * 8, 1), ([0, 1, 1, 0, 1, 0, 0, 1], 2)):
+        want = np.asarray(J.render_block(jvp, 0, 64, SR, 8,
+                                         seg=np.asarray(seg, np.int32),
+                                         nseg=nseg))
+        got = T.render_block(vp, 0, 64, SR, 8, seg=seg, nseg=nseg)
+        assert got.shape == (64, nseg, 2)
+        assert_lsb(want, got.numpy())
     voices = _special_voices()[3:]
     jbank = J.VoiceBank.for_voices(voices, SR, chunk_frames=4096)
     assert jbank.use_bend and jbank.use_amp and jbank.use_dmod
