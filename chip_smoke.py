@@ -5,13 +5,15 @@
 
 Builds the port's two Hopper kernels (``voicebank_setup`` and
 ``voicebank_render``, one source in ``synthesizer_tpu_torch/csrc``, nvcc
-into ``build/``), drives the four paths the port has -- config 5, the
+into ``build/``), drives the five paths the port has -- config 5, the
 64-voice 60 s song, through ``VoiceBank.render_song`` and ``to_int16`` to a
 WAV file; a General-MIDI file through ``midi.render_midi``; and a sound made
 with ``WaveSynth``, shaped with ``Sample`` ops and written as a WAV; and
 ``Sample``'s resampling and effects ops (plain PyTorch on the card: these
-paths have no hand-written kernel) -- and holds
-both kernels against their plain PyTorch versions on the card:
+paths have no hand-written kernel); and songs from ``.ini`` text through
+``sequencer.Song``, whose synth tracks render through the kernels' segment
+buses -- and holds both kernels against their plain PyTorch versions on the
+card:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the build time and ptxas' registers and spill bytes of the
@@ -84,7 +86,7 @@ both kernels against their plain PyTorch versions on the card:
 14. resample at full width: the MIDI render (7,905,280 stereo frames)
     through the exact ratecv and the windowed-sinc resampler at 44100 ->
     48000 and 48000 -> 44100, card == CPU bit for bit, streamed in chunks
-    of 1470 and 65536 == whole, and on a 1 s excerpt in chunks of 1, 7, 160
+    of 1470 and 65536 == whole, and on a 0.2 s excerpt in chunks of 1, 7, 160
     and 997; the ratecv at 22050 -> 44100 and 44100 -> 44101 at widths 1, 2
     and 4 on 1 M frames; times by CUDA events, wall clock and profiler;
 15. config 3 of ``bench.py`` (16 sines rendered at 22050 Hz, resampled to
@@ -96,7 +98,23 @@ both kernels against their plain PyTorch versions on the card:
     (``ops.effects.BUDGETS``), two card runs bit-identical, and each op's
     device operations under the profiler; then a mastering chain (high-pass, EQ,
     compressor, reverb, limiter, ``normalize_lufs``) on the whole render,
-    timed step by step, its loudness and true peak card against CPU.
+    timed step by step, its loudness and true peak card against CPU;
+17. sequencer (``sequencer_phase``): the verify battery's config 5 song
+    (drum scatter against a per-hit int64 loop, streaming == offline); the
+    demo song (``bench_song.make_demo_kit``: 6 drum samples, a pitched
+    sampler, 3 synth tracks, the lead on its own chorus bus, a master chain
+    with automation) as written, with and without fx, card against CPU
+    (dry bit for bit, with fx within the chain's summed budgets),
+    streaming in chunks of 1470 against offline, a seek, two card runs;
+    the same song 14 times as long (183.75 s): ``mix()`` wall clock (median
+    of 3) and under the profiler, the grouped render (the segment-bus
+    specialisation ``render_kernel<false, buses>``) against its plain
+    version on three windows
+    and each bus against its solo render bit for bit, its device time and
+    bound, ptxas' 48 registers and no spill, streamed chunks a second; the
+    tracker song (looped and one-shot samplers, swing, accents, a sidechain,
+    recurrence-internal automation), card against CPU and streaming against
+    offline.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -111,6 +129,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -161,6 +180,46 @@ OPS_BEND, OPS_AMP, OPS_DMOD = 16, 5, 110
 #: the setup kernel's per-segment pass: operations a segment of a pitch, an
 #: amplitude and a depth curve (three trig evaluations)
 OPS_SEGMENT = (4, 3, 60)
+
+
+def song_bound(vpx, cols, bankx, totalx, extra_bytes):
+    """The render bound on a song: the closed forms on each voice's
+    audible frames [start, start + t4 * sr) inside the song, and the
+    bytes read once and written once -> (ops, bytes, *bound(...))."""
+    import torch
+    from synthesizer_tpu_torch.ops import kernels as K
+    flx = cols["flags"]
+    t4x = cols["t4"].view(torch.float32).double()
+    startx = vpx.start.long()
+    endx = torch.clamp(startx + torch.ceil(t4x * SR).long(), max=totalx)
+    audible = torch.clamp(endx - torch.clamp(startx, min=0), min=0)
+    widx = vpx.wave.long()
+    per = torch.full_like(audible, OPS_COMMON)
+    sounding = (vpx.harm_amps[:, :bankx.num_harmonics] != 0).sum(dim=1)
+    for w_, o_ in OPS_WAVE.items():
+        per += (widx == w_) * o_ * (
+            sounding if w_ == 8 else
+            cols["pluck_ka"].long() if w_ == 12 else 1)
+    per += ((flx & K.FLAG_FM_ON) != 0).long() * OPS_FM
+    per += ((flx & K.FLAG_BEND) != 0).long() * OPS_BEND
+    per += ((flx & K.FLAG_AMP) != 0).long() * OPS_AMP
+    per += ((flx & K.FLAG_DC) != 0).long() * OPS_DMOD
+    opsx = int((audible * per).sum())
+    nbytes = totalx * 8 + extra_bytes
+    return (opsx, nbytes) + bound(opsx, nbytes)
+
+
+def kernel_name(symbol):
+    """A kernel's name from its mangled symbol: ``setup_kernel``, or
+    ``render_kernel<curves>`` with ``, buses`` for the bus mode (a tree
+    from before the buses has the curve flag only)."""
+    if "setup_kernel" in symbol:
+        return "setup_kernel"
+    found = re.search(r"ILb([01])E(?:Lb([01])E)?", symbol)
+    curves = bool(found) and found.group(1) == "1"
+    buses = bool(found) and found.group(2) == "1"
+    return (f"render_kernel<{'true' if curves else 'false'}"
+            f"{', buses' if buses else ''}>")
 
 
 def check(ok, what):
@@ -260,7 +319,9 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
             out.append(rs.flush()[0])
         return torch.cat(out)
 
-    excerpt = x_g[60 * SR:61 * SR]
+    # 0.2 s: the chunk-1 streams are launch-bound (PR 7 ran them on 1 s in
+    # about three minutes), cut so that the whole script stays in its time
+    excerpt = x_g[60 * SR:60 * SR + SR // 5]
     for a, b in ((44100, 48000), (48000, 44100)):
         for kind, make in (("linear", linear), ("hq", hq)):
             fn = make(a, b)
@@ -281,7 +342,7 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
             t = time.perf_counter()
             bad = [c for c in (1, 7, 160, 997)
                    if not torch.equal(stream(kind, a, b, excerpt, c), whole)]
-            check(not bad, f"{kind} {a} -> {b} on a 1 s excerpt: streamed in "
+            check(not bad, f"{kind} {a} -> {b} on a 0.2 s excerpt: streamed in "
                   f"chunks of 1, 7, 160 and 997 == whole, bit for bit"
                   f"{'' if not bad else ', EXCEPT ' + str(bad)} "
                   f"({time.perf_counter() - t:.2f} s)")
@@ -411,6 +472,315 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
                                          for k, ms in top))
 
 
+def sequencer_phase(dev, card, ptxas, spread, profiled):
+    """Phase 17: the pattern sequencer on the card -- the verify battery's
+    config 5 song, the demo song at full width (as written and 14 times as
+    long), the tracker song -- each against the same code on the CPU,
+    streaming against offline, the seek, the grouped render's segment
+    buses against their plain version and their solo renders, and the
+    times.  Returns the bus mode's fields for the ``kernels`` line."""
+    import torch
+    from synthesizer_tpu_torch import bench_song as B
+    from synthesizer_tpu_torch import sequencer as Q
+    from synthesizer_tpu_torch.ops import kernels as K
+    from synthesizer_tpu_torch.ops.effects import BUDGETS
+    from synthesizer_tpu_torch.synth import WaveSynth
+
+    def lsb(a, b):
+        a, b = np.asarray(a).astype(np.int64), np.asarray(b).astype(np.int64)
+        return int(np.abs(a - b).max()) if a.size else 0
+
+    def host(smp):
+        return np.array(smp.get_frame_array())
+
+    def stream(song, chunk=1470, start=0, limit=None):
+        out = []
+        for k, c in enumerate(song.mix_generator(chunk_frames=chunk,
+                                                 start_frame=start)):
+            if limit is not None and k == limit:
+                break
+            out.append(host(c))
+        torch.cuda.synchronize()
+        return np.concatenate(out)
+
+    def chain_bound(song):
+        """The summed budgets of every chain entry of the song (master and
+        tracks) plus the synth bank's 1 LSB: the bound the CPU tests set
+        for a song with fx against the JAX package."""
+        names = {"compress": "compress", "reverb": "reverb",
+                 "chorus": "chorus", "echo": "feedback_echo",
+                 "limiter": "limit", "filter": "filter", "eq": "eq"}
+        chains = ([song.fx] + list(song.synth_fx.values())
+                  + list(song.sampler_fx.values())
+                  + list(song.drum_fx_bus.values()))
+        return 1 + sum(BUDGETS[names[n]] for c in chains for n, _ in c)
+
+    # -- the verify battery's config 5 song ------------------------------
+    head(f"[17] sequencer: songs from .ini text on the card ({card})")
+
+    def battery_song(device):
+        ws = WaveSynth(samplerate=SR, samplewidth=2, device=device)
+        kick = ws.sine(60, 0.1, amplitude=0.8).fadeout(0.08).stereo()
+        hat = ws.white_noise(duration=0.04, amplitude=0.4,
+                             seed=5).fadeout(0.03).stereo()
+        song = Q.Song(device=device)
+        song.bpm = 240
+        song.ticks = 4
+        song.add_instrument("kick", kick)
+        song.add_instrument("hat", hat)
+        song.add_synth("lead", Q.SynthDef(wave="square_bl", amplitude=0.2,
+                                          release=0.05))
+        song.add_pattern("a", {"kick": "x... x...", "hat": "x.x. x.x.",
+                               "lead": "C4 .. E4 .. G4 .. C5 .."})
+        song.pattern_sequence = ["a", "a"]
+        return song
+
+    song = battery_song(dev)
+    off = host(song.mix(normalize=False))
+    sched = song.compile_schedule()
+    oracle = np.zeros((off.shape[0], 2), np.int64)
+    for inst, start in sched.hits:
+        arr = song.instruments[sched.instruments[inst]].get_frame_array()
+        m = min(len(arr), len(oracle) - start)
+        oracle[start:start + m] += arr[:m].astype(np.int64)
+    drums = Q._mixdown_kernel(
+        torch.from_numpy(sched.bank).to(dev),
+        torch.from_numpy(sched.hits[:, 0]).to(dev),
+        torch.from_numpy(sched.hits[:, 1]).to(dev), off.shape[0])
+    check(lsb(np.clip(oracle, -32768, 32767),
+              Q._to16(drums).cpu().numpy()) == 0,
+          f"battery song: drum scatter on the card == a per-hit int64 loop, "
+          f"0 LSB ({len(sched.hits)} hits)")
+    got = stream(song)
+    check(np.array_equal(got, off[:len(got)]),
+          f"battery song: mix_generator(1470) == mix(normalize=False), bit "
+          f"for bit ({len(got)} frames)")
+    cpu_off = host(battery_song("cpu").mix(normalize=False))
+    check(lsb(cpu_off, off) <= 1, f"battery song: card against CPU "
+          f"{lsb(cpu_off, off)} LSB (the synth's 1 LSB)")
+
+    # -- the demo song --------------------------------------------------------
+    head("[17] the demo song: as written, with and without fx")
+    tmp = tempfile.mkdtemp(prefix="songs")
+    demo_dir = os.path.join(tmp, "demo")
+    t = time.perf_counter()
+    B.make_demo_kit(demo_dir, device=dev)
+    print(f"  demo kit made on the card in {time.perf_counter() - t:.2f} s")
+    demo_fx = B.DEMO_INI
+    demo_dry = B.strip_fx(demo_fx)
+    songs = {}
+    for name, text in (("fx", demo_fx), ("dry", demo_dry)):
+        songs[name] = (Q.Song.from_string(text, demo_dir, device=dev),
+                       Q.Song.from_string(text, demo_dir, device="cpu"))
+    bound_fx = chain_bound(songs["fx"][0])
+    outs = {}
+    for name, (gs, cs) in songs.items():
+        t = time.perf_counter()
+        g = host(gs.mix(normalize=False))
+        g_s = time.perf_counter() - t
+        t = time.perf_counter()
+        c = host(cs.mix(normalize=False))
+        c_s = time.perf_counter() - t
+        outs[name] = g
+        d = lsb(g, c)
+        ok = d == 0 if name == "dry" else d <= bound_fx
+        check(ok and g.shape == c.shape and np.abs(g.astype(np.int64))
+              .max() > 1000,
+              f"demo ({name}, {len(g) / SR:.2f} s): card against CPU {d} LSB "
+              f"({'bit for bit' if name == 'dry' else f'bound {bound_fx}'}"
+              f"); mix {g_s:.2f} s card, {c_s:.2f} s CPU")
+    again = host(songs["fx"][0].mix(normalize=False))
+    check(np.array_equal(again, outs["fx"]),
+          "demo with fx: two card runs bit-identical")
+    for name, (gs, _) in songs.items():
+        t = time.perf_counter()
+        st = stream(gs)
+        st_s = time.perf_counter() - t
+        ref = host(gs.mix(normalize=False, tail_seconds=0))
+        d = lsb(st, ref) if st.shape == ref.shape else -1
+        ok = d == 0 if name == "dry" else 0 <= d <= bound_fx
+        check(ok, f"demo ({name}): mix_generator(1470) against "
+              f"mix(normalize=False, tail_seconds=0): {d} LSB over "
+              f"{len(st)} frames, {st_s:.2f} s")
+        if name == "dry":
+            seek = len(st) * 3 // 5 + 17     # mid-song, off any chunk edge
+            got = stream(gs, 4096, seek)
+            check(np.array_equal(got, st[seek:]),
+                  f"demo (dry): a seek to frame {seek} == the streamed "
+                  f"slice ({len(got)} frames)")
+
+    # the long song: the demo's pattern list 14 times, 183.75 s
+    head("[17] the demo song 14 times as long")
+    long_fx = Q.Song.from_string(B.repeated(demo_fx, 14), demo_dir,
+                                 device=dev)
+    long_dry = Q.Song.from_string(B.repeated(demo_dry, 14), demo_dir,
+                                  device=dev)
+    K.render_stereo.launches = K.render_stereo.bus_launches = 0
+    K.voice_setup.launches = 0
+    t = time.perf_counter()
+    long_pcm = host(long_fx.mix())
+    first_s = time.perf_counter() - t
+    launches = {"voicebank_setup": K.voice_setup.launches,
+                "voicebank_render": K.render_stereo.launches,
+                "bus launches": K.render_stereo.bus_launches}
+    check(launches["bus launches"] >= 1 and long_pcm.dtype == np.int16
+          and long_pcm.shape[1] == 2 and np.abs(long_pcm.astype(np.int64))
+          .max() > 30000,
+          f"long demo song ({len(long_pcm) / SR:.2f} s of audio): mix() "
+          f"through the grouped render, launches {launches}; first call "
+          f"{first_s:.2f} s")
+    wall = []
+    for _ in range(3):
+        t = time.perf_counter()
+        host(long_fx.mix())
+        wall.append((time.perf_counter() - t) * 1e3)
+    print(f"  long demo song, mix() to the int16 on the host, wall clock: "
+          f"{spread(wall)} ({len(long_pcm) / SR / statistics.median(wall) * 1e3:.1f}"
+          f"x realtime)")
+    # one call under the profiler (device activity only: about a million
+    # launches; the song is warm)
+    by_name, busy, pwall = profiled(lambda: host(long_fx.mix()), 1,
+                                    cpu=False, warm=False)
+    mix_ops = profiled.launches
+    print(f"  long demo song under the profiler: {pwall:.3f} ms wall, "
+          f"{mix_ops:.0f} device operations, device busy {busy:.3f} ms "
+          f"({100 * busy / pwall:.1f}%)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {ms:.3f} ms  {name[:80]}")
+
+    # the grouped render on its own: kernel against its plain version,
+    # each bus against its solo render, device time and bound
+    sched = long_fx.compile_schedule()
+    voices, vtracks = long_fx.compile_synth_voices(return_tracks=True)
+    bank, vp, seg, fx_tracks = long_fx._synth_fx_groups(voices, vtracks,
+                                                        32768)
+    nseg = len(fx_tracks) + 1
+    total = long_fx.duration_frames(0.3)
+    layout = bank._kernel_layout(vp)
+    K.render_stereo.bus_launches = 0
+    buses = bank.render_song_grouped(vp, seg, nseg, total)
+    torch.cuda.synchronize()
+    bus_tiles = int(K.render_stereo.voice_tiles.item())
+    want_tiles = int(K.active_voice_tiles(vp, 0, total, samplerate=SR,
+                                          layout=layout).sum())
+    check(K.render_stereo.bus_launches == 1 and bus_tiles == want_tiles,
+          f"grouped render: {vp.wave.shape[0]} voices, {nseg} buses, "
+          f"{total} frames in one launch; {bus_tiles} voice-tiles == "
+          f"active_voice_tiles {want_tiles}")
+    worst = 0
+    for w0 in (0, (total // 2) // 512 * 512, total - 131072):
+        kern = bank._render(vp, w0, 131072, seg, nseg)
+        plain = K.render_stereo_reference(vp, w0, nframes=131072,
+                                          samplerate=SR, layout=layout,
+                                          seg=seg, nseg=nseg,
+                                          **bank._flags())
+        torch.cuda.synchronize()
+        same = torch.equal(kern, plain)
+        worst = max(worst, float((kern - plain).abs().max()))
+        check(same and torch.equal(kern, buses[w0:w0 + 131072]),
+              f"grouped render window at {w0}: kernel == plain version, "
+              f"and == the whole-song launch, bit for bit")
+    seg_h = seg.cpu().numpy()
+    for b in range(nseg):
+        sub, ly = K.solo_params(vp, layout, np.flatnonzero(seg_h == b))
+        solo = K.render_stereo(sub, 0, nframes=total, samplerate=SR,
+                               layout=ly, **bank._flags())
+        torch.cuda.synchronize()
+        check(torch.equal(solo, buses[:, b]),
+              f"bus {b} ({'clean' if b == 0 else fx_tracks[b - 1]}, "
+              f"{sub.wave.shape[0]} voices) == its solo flat render, bit "
+              f"for bit")
+    by_name, _, _ = profiled(
+        lambda: bank.render_song_grouped(vp, seg, nseg, total), 10)
+    bus_ms = max(sum(v for k, v in by_name.items() if "render_kernel" in k),
+                 1e-9)
+    c = K.voice_constants(vp, SR, bank.num_harmonics)
+    cols = {name: c[:, j] for j, name in enumerate(K.CONST_COLUMNS)}
+    aux = (vp.table.numel() * 4
+           + vp.harm_amps[:, :bank.num_harmonics].numel() * 4)
+    ops, nbytes, bus_bound, bus_by, bus_nofma = song_bound(
+        vp, cols, bank, total, c.numel() * 4 + aux + seg.numel() * 4
+        + total * (nseg - 1) * 8)
+    t = time.perf_counter()
+    K.render_stereo_reference(vp, 0, nframes=131072, samplerate=SR,
+                              layout=layout, seg=seg, nseg=nseg,
+                              **bank._flags())
+    torch.cuda.synchronize()
+    plain_window_ms = (time.perf_counter() - t) * 1e3
+    print(f"  grouped render kernel (render_kernel<false, buses>, {nseg} "
+          f"buses): "
+          f"{bus_ms:.6f} ms a call (profiler, 10 calls); bound "
+          f"{ops:.4g} ops and {nbytes} B -> {bus_bound:.6f} ms ({bus_by}; "
+          f"{bus_nofma:.6f} ms without FMA), kernel at "
+          f"{100 * bus_bound / bus_ms:.1f}%; plain version on a 131072-frame "
+          f"window {plain_window_ms:.3f} ms")
+    regs = ptxas.get("render_kernel<false>", {})
+    bus_regs = ptxas.get("render_kernel<false, buses>", {})
+    check(regs.get("registers") == 48 and regs.get("spill_bytes") == 0
+          and bus_regs.get("spill_bytes") == 0,
+          f"render_kernel<false> (the flat render, config 5's path): {regs}; "
+          f"render_kernel<false, buses> (the grouped render): {bus_regs}")
+
+    # streaming and the seek on the long dry song (the first 1500 chunks,
+    # and 200 chunks from mid-song)
+    dry_off = host(long_dry.mix(normalize=False, tail_seconds=0))
+    t = time.perf_counter()
+    dry_st = stream(long_dry, limit=1500)
+    dry_s = time.perf_counter() - t
+    nchunks = 1500
+    check(np.array_equal(dry_st, dry_off[:len(dry_st)]),
+          f"long dry song: mix_generator(1470) == offline bit for bit, "
+          f"{nchunks} chunks in {dry_s:.2f} s ({nchunks / dry_s:.1f} chunks "
+          f"a second)")
+    seek = len(dry_off) * 3 // 5 + 17        # mid-song, off any chunk edge
+    got = stream(long_dry, 4096, seek, limit=200)
+    check(np.array_equal(got, dry_off[seek:seek + len(got)]),
+          f"long dry song: a seek to frame {seek} == the offline slice "
+          f"({len(got)} frames)")
+    t = time.perf_counter()
+    fx_head = stream(long_fx, 1470, 0, limit=100)
+    fx_s = time.perf_counter() - t
+    print(f"  long demo song with fx: the first 100 chunks of 1470 streamed "
+          f"in {fx_s:.2f} s ({100 / fx_s:.1f} chunks a second, "
+          f"{100 * 1470 / SR / fx_s:.1f}x realtime)")
+    check(100 * 1470 - 1470 < len(fx_head) <= 100 * 1470,
+          f"long demo song with fx streams ({len(fx_head)} frames: the "
+          f"limiter holds back its lookahead)")
+
+    # -- the tracker song -----------------------------------------------------
+    head("[17] the tracker song")
+    tr_dir = os.path.join(tmp, "tracker")
+    B.make_tracker_kit(tr_dir, device=dev)
+    tg = Q.Song.from_string(B.TRACKER_INI, tr_dir, device=dev)
+    tc = Q.Song.from_string(B.TRACKER_INI, tr_dir, device="cpu")
+    bound_tr = chain_bound(tg)
+    t = time.perf_counter()
+    g = host(tg.mix(normalize=False))
+    g_s = time.perf_counter() - t
+    c = host(tc.mix(normalize=False))
+    d = lsb(g, c)
+    check(d <= bound_tr and np.abs(g.astype(np.int64)).max() > 1000,
+          f"tracker song ({len(g) / SR:.2f} s; looped and one-shot "
+          f"samplers, swing, accents, a sidechain, recurrence-internal "
+          f"automation): card against CPU {d} LSB (bound {bound_tr}); mix "
+          f"{g_s:.2f} s on the card")
+    st = stream(tg)
+    ref = host(tg.mix(normalize=False, tail_seconds=0))
+    d = lsb(st, ref) if st.shape == ref.shape else -1
+    check(0 <= d <= bound_tr, f"tracker song: mix_generator(1470) against "
+          f"offline {d} LSB (bound {bound_tr})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"bus_launches": launches["bus launches"], "bus_ms": bus_ms,
+            "bus_bound_ms": bus_bound, "bus_bound_by": bus_by,
+            "bus_bound_nofma_ms": bus_nofma, "bus_max_abs_err": worst,
+            "bus_plain_window_ms": plain_window_ms, "bus_nseg": nseg,
+            "bus_voice_tiles": bus_tiles,
+            "song_mix_ms": statistics.median(wall),
+            "song_device_busy_share": busy / pwall,
+            "song_device_operations": mix_ops,
+            "song_stream_chunks_per_s": nchunks / dry_s}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -450,9 +820,7 @@ def main():
     ptxas, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            entry = ("setup_kernel" if "setup_kernel" in line
-                     else "render_kernel<true>" if "ILb1E" in line
-                     else "render_kernel<false>")
+            entry = kernel_name(line)
             ptxas[entry] = {}
             print("  ptxas:", entry)
         if "registers" in line or "spill" in line:
@@ -464,10 +832,11 @@ def main():
                 if found and entry:
                     ptxas[entry][key] = int(found.group(1))
     kernel_names = ("setup_kernel", "render_kernel<false>",
-                    "render_kernel<true>")
+                    "render_kernel<true>", "render_kernel<false, buses>",
+                    "render_kernel<true, buses>")
     check(all(set(ptxas.get(k, ())) >= {"registers", "spill_bytes"}
               for k in kernel_names),
-          f"ptxas resources of the three kernels: {ptxas}")
+          f"ptxas resources of the five kernels: {ptxas}")
 
     def to16(x):
         return VoiceBank.to_int16(x).to(torch.int32)
@@ -845,11 +1214,13 @@ def main():
         return (f"median {statistics.median(xs):.6f} ms (min {min(xs):.6f}, "
                 f"max {max(xs):.6f}, n={len(xs)})")
 
-    def profiled(fn, reps, cpu=True):
+    def profiled(fn, reps, cpu=True, warm=True):
         """Device time by kernel over reps calls -> ({name: ms per call},
         device-busy ms per call, wall ms per call).  ``cpu=False`` records
-        the device's activity only (for calls of a million launches)."""
-        fn()
+        the device's activity only (for calls of a million launches);
+        ``warm=False`` skips the warm-up call."""
+        if warm:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU] * cpu
                      + [ProfilerActivity.CUDA]) as prof:
@@ -988,30 +1359,6 @@ def main():
     print(f"  setup bound: {setup_bound:.6f} ms ({setup_by}; "
           f"{setup_nofma:.6f} ms without FMA); kernel at "
           f"{100 * setup_bound / setup_ms:.2f}% of it")
-
-    def song_bound(vpx, cols, bankx, totalx, extra_bytes):
-        """The render bound on a song: the closed forms on each voice's
-        audible frames [start, start + t4 * sr) inside the song, and the
-        bytes read once and written once -> (ops, bytes, *bound(...))."""
-        flx = cols["flags"]
-        t4x = cols["t4"].view(torch.float32).double()
-        startx = vpx.start.long()
-        endx = torch.clamp(startx + torch.ceil(t4x * SR).long(), max=totalx)
-        audible = torch.clamp(endx - torch.clamp(startx, min=0), min=0)
-        widx = vpx.wave.long()
-        per = torch.full_like(audible, OPS_COMMON)
-        sounding = (vpx.harm_amps[:, :bankx.num_harmonics] != 0).sum(dim=1)
-        for w_, o_ in OPS_WAVE.items():
-            per += (widx == w_) * o_ * (
-                sounding if w_ == 8 else
-                cols["pluck_ka"].long() if w_ == 12 else 1)
-        per += ((flx & K.FLAG_FM_ON) != 0).long() * OPS_FM
-        per += ((flx & K.FLAG_BEND) != 0).long() * OPS_BEND
-        per += ((flx & K.FLAG_AMP) != 0).long() * OPS_AMP
-        per += ((flx & K.FLAG_DC) != 0).long() * OPS_DMOD
-        opsx = int((audible * per).sum())
-        nbytes = totalx * 8 + extra_bytes
-        return (opsx, nbytes) + bound(opsx, nbytes)
 
     # -- 8. curves battery ----------------------------------------------
     head("[8] curves battery (kernel vs plain, 1 s, every wave x {bend, "
@@ -1738,6 +2085,7 @@ def main():
 
     resample_and_effects(dev, card, midi_smp.torch_frames, spread, timed,
                          profiled)
+    buses = sequencer_phase(dev, card, ptxas, spread, profiled)
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [
@@ -1763,7 +2111,7 @@ def main():
          "render_chunk_ms": statistics.median(chunk_ms),
          "main_path_ms": statistics.median(wall),
          **{k: v for k, v in midi.items() if k != "midi_launches"},
-         "midi_launches": midi_launches["voicebank_render"]}]}))
+         "midi_launches": midi_launches["voicebank_render"], **buses}]}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -1,6 +1,6 @@
 """Hold two trees of this repository against each other on one card.
 
-    python3 -m synthesizer_tpu_torch.ab_smoke PARENT_DIR [CHANGE_DIR]
+    python3 -m synthesizer_tpu_torch.ab_smoke [--kernels] PARENT_DIR [CHANGE_DIR]
 
 runs each tree's ``chip_smoke.py`` in the order parent, change, change,
 parent (so that a drift of the card over the call shows as a difference
@@ -14,6 +14,11 @@ spill bytes and the count of SASS operations of each kernel in the tree's
 built library (from ``cuobjdump -sass``).  It ends with one JSON line of
 everything and a line that says whether the two trees' digests are equal.
 A tree's run that fails, or digests that differ, make the exit code 1.
+
+With ``--kernels`` each run is ``KERNEL_TIMES`` instead of the whole
+``chip_smoke.py`` (about a minute a run instead of eight): the tree's
+build, ptxas' lines and the kernels' device times on config 5, the sparse
+workload and the MIDI file under the profiler, in the same order of runs.
 
 To make PARENT_DIR: ``mkdir -p build/parent && git archive <commit> | tar -x
 -C build/parent`` (``build/`` is not committed).  CHANGE_DIR defaults to the
@@ -34,7 +39,7 @@ from pathlib import Path
 #: the keys of a tree's kernels line that are printed side by side
 KEYS = ("ms", "midi_ms", "midi_render_ms", "midi_render_flat_ms",
         "midi_setup_ms", "sparse_workload_render_ms", "midi_wall_ms",
-        "midi_bound_ms", "midi_fallback_share")
+        "midi_bound_ms", "midi_fallback_share", "bus_ms", "song_mix_ms")
 
 #: renders config 5, the sparse workload and the MIDI file with the package
 #: of the tree it is run in, and prints the sha256 of their int16 bytes
@@ -55,7 +60,66 @@ print(json.dumps({"digests": {
     "sparse_workload_sha256": sha(VoiceBank.to_int16(
         bs.render_song_sparse(vps, int(300.0 * SR)))),
     "midi_sha256": sha(midi.render_midi(bench_song.gm_file(3000, 180.0, 0),
-                                        device=dev))}}))
+                                        device=dev).torch_frames)}}))
+"""
+
+
+def kernel_name(symbol: str) -> str:
+    """The name ``chip_smoke.py`` gives the kernel of a mangled symbol."""
+    if "setup_kernel" in symbol:
+        return "setup_kernel"
+    found = re.search(r"ILb([01])E(?:Lb([01])E)?", symbol)
+    curves = bool(found) and found.group(1) == "1"
+    buses = bool(found) and found.group(2) == "1"
+    return (f"render_kernel<{'true' if curves else 'false'}"
+            f"{', buses' if buses else ''}>")
+
+
+#: the kernels' device times with the package of the tree it is run in:
+#: config 5 (render and setup kernels), the sparse workload and the MIDI
+#: file (render kernel), profiler, printed as chip_smoke.py prints them
+KERNEL_TIMES = """
+import json, re, torch
+from torch.profiler import ProfilerActivity, profile
+from synthesizer_tpu_torch import bench_song, midi
+from synthesizer_tpu_torch.models.voicebank import VoiceBank, pack_voices
+from synthesizer_tpu_torch.ops import kernels as K
+_, log = K.build_library()
+for line in log.splitlines():
+    if "Compiling entry" in line:
+        f = re.search(r"ILb([01])E(?:Lb([01])E)?", line)
+        name = "setup_kernel" if "setup_kernel" in line else (
+            "render_kernel<" + ("true" if f and f.group(1) == "1" else "false")
+            + (", buses" if f and f.group(2) == "1" else "") + ">")
+        print("  ptxas:", name)
+    if "registers" in line or "spill" in line:
+        print("  ptxas:", line.strip())
+dev, SR = torch.device("cuda"), 44100
+def ms(fn, word, reps):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if word in e.key) / 1e3 / reps
+bank, vp, total = bench_song.song_bank(device=dev)
+sv = bench_song.sparse_voices()
+vps, lys = pack_voices(sv, SR, num_harmonics=8, sort_by_wave=True, device=dev)
+bs = VoiceBank.for_voices(sv, SR, num_harmonics=8, layout=lys,
+                          chunk_frames=bench_song.CHUNK_FRAMES,
+                          nvoices=lys.nvoices, device=dev)
+data = bench_song.gm_file(3000, 180.0, 0)
+song = lambda: bank.render_song(vp, total)
+sparse = lambda: bs.render_song_sparse(vps, int(300.0 * SR))
+mid = lambda: midi.render_midi(data, device=dev)
+print(json.dumps({"kernels": [
+    {"name": "voicebank_setup", "ms": ms(song, "setup_kernel", 20),
+     "midi_ms": ms(mid, "setup_kernel", 5)},
+    {"name": "voicebank_render", "ms": ms(song, "render_kernel", 20),
+     "sparse_workload_render_ms": ms(sparse, "render_kernel", 20),
+     "midi_render_ms": ms(mid, "render_kernel", 5)}]}))
 """
 
 
@@ -72,10 +136,7 @@ def sass_counts(root: Path) -> dict:
     for line in text.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
-            sym = found.group(1)
-            name = ("setup_kernel" if "setup_kernel" in sym else
-                    "render_kernel<true>" if "ILb1E" in sym else
-                    "render_kernel<false>")
+            name = kernel_name(found.group(1))
             counts[name] = 0
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
             counts[name] += 1
@@ -92,8 +153,9 @@ def digests(root: Path) -> dict:
     return {"failed": (res.stdout + res.stderr)[-1000:]}
 
 
-def run_tree(root: Path) -> dict:
-    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+def run_tree(root: Path, kernels_only: bool = False) -> dict:
+    cmd = ["-c", KERNEL_TIMES] if kernels_only else ["chip_smoke.py"]
+    res = subprocess.run([sys.executable, *cmd], cwd=root,
                          capture_output=True, text=True)
     out = {"rc": res.returncode, "ptxas": {}}
     entry = None
@@ -117,6 +179,8 @@ def run_tree(root: Path) -> dict:
 
 
 def main(argv) -> int:
+    kernels_only = "--kernels" in argv
+    argv = [a for a in argv if a != "--kernels"]
     if not argv:
         print(__doc__)
         return 2
@@ -130,7 +194,7 @@ def main(argv) -> int:
     runs = []
     for label, root in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
-        got = run_tree(root)
+        got = run_tree(root, kernels_only)
         runs.append({"tree": label, **got})
         print(f"[{label}] rc {got['rc']}  ptxas {got['ptxas']}  "
               f"SASS operations {got['sass_ops']}")

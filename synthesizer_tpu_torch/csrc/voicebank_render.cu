@@ -10,7 +10,9 @@
 //   * native uint32 DDS phase, x = f32(p) * 2^-32 (no folded int32 form);
 //   * ADSR time f32(int32(n - start)) * f32(1/sr), exact past 2^24 frames;
 //   * reciprocal ADSR slopes and an envelope clipped to [0, 1];
-//   * pluck decay from g = cosf(pi*k*ratio);
+//   * pluck decay from g = cos(pi*k*ratio), its log and exp as the f32
+//     polynomials exp_f32/log_f32 (ops/trig.py), which give the same bits
+//     on the card and the CPU;
 //   * the FM offset cast saturates (__float2int_rz), as XLA's f32->i32 does.
 // Wavetable voices (wave 11) gather from their 256-sample row inside the
 // kernel: the TPU kernel had to leave them to an XLA side path.  So do the
@@ -24,7 +26,7 @@
 //
 // What bounds it on this card: operations on the audible voice-frames.  A
 // voice-frame costs about 20-200 f32 and integer operations (8 turn-unit
-// sine polynomials for a harmonics voice, 8 hashed partials with expf for
+// sine polynomials for a harmonics voice, 8 hashed partials with exp_f32 for
 // a pluck voice), a frame writes 8 bytes and the parameters are kilobytes.
 // A voice sounds only from its start for gate + release, so in a song most
 // voice-frames (95% on config 5) have an envelope of exactly 0.
@@ -135,8 +137,11 @@
 //     same ballot and prefix count in the same packed order, and writes
 //     out[i * nseg + bus].  So bus b is the render of bus b's voices alone,
 //     bit for bit, and a voice is evaluated only by its own bus's blocks:
-//     the voice-tile count is the flat render's.  Without the column
-//     (nseg 1, blockIdx.y 0) the code is the flat render's.
+//     the voice-tile count is the flat render's.  The buses are a template
+//     flag of render_tile: a render without the column runs the flat
+//     render's code (with the bus test in the one kernel, config 5's
+//     render took 2% and the sparse workload's 8% more time than without,
+//     registers unchanged).
 // The sum stays serial in packed voice order, as the plain version sums,
 // so the output is bit-identical to it, deterministic and chunk-invariant
 // (a frame depends only on its absolute index).  That pinned order is why
@@ -280,7 +285,6 @@ constexpr float kTwoNeg23 = 0x1p-23f;
 constexpr float kTwo32 = 4294967296.0f;
 constexpr float kEps = 0x1.4484c0p-100f;     // f32(1e-30)
 constexpr float kMinDt = 0x1.12e0bep-30f;    // f32(1e-9)
-constexpr float kPi = 0x1.921fb6p+1f;        // f32(pi)
 
 __device__ __forceinline__ float phase_x(uint32_t p) {
   return __uint2float_rn(p) * kTwoNeg32;
@@ -303,6 +307,48 @@ __device__ __forceinline__ float sin_turns(float x) {
 
 __device__ __forceinline__ float cos_turns(float x) {
   return sin_turns(x + 0.25f);
+}
+
+// e^x and ln(x) for the pluck waveform: the polynomials of ops/trig.py
+// (exp_f32, log_f32), same constants and order.  expf/logf/cosf differ in
+// the last bit between CUDA and the CPU's library; these give the same
+// bits on both.
+__device__ __forceinline__ float exp_f32(float x) {
+  const float t = x * 0x1.715476p+0f;               // log2(e)
+  const float nf = rintf(t);
+  const float f = t - nf;
+  float acc = 0x1.ffcbfcp-17f;                      // (ln 2)^k / k!
+  acc = acc * f + 0x1.430912p-13f;
+  acc = acc * f + 0x1.5d87fep-10f;
+  acc = acc * f + 0x1.3b2ab6p-7f;
+  acc = acc * f + 0x1.c6b08ep-5f;
+  acc = acc * f + 0x1.ebfbe0p-3f;
+  acc = acc * f + 0x1.62e430p-1f;
+  acc = acc * f + 1.0f;
+  if (t > 128.0f) return __int_as_float(0x7f800000);   // +inf
+  if (t < -125.0f) return 0.0f;
+  const int e = (int)fminf(fmaxf(nf, -125.0f), 127.0f);
+  return acc * __int_as_float((e + 127) << 23);
+}
+
+__device__ __forceinline__ float log_f32(float x) {
+  int ei;
+  float m = frexpf(x, &ei);                          // m in [0.5, 1)
+  if (m < 0x1.6a09e6p-1f) {                          // sqrt(1/2)
+    m = m * 2.0f;
+    ei -= 1;
+  }
+  const float e = (float)ei;
+  const float s = (m - 1.0f) / (m + 1.0f);
+  const float z = s * s;
+  float acc = 0x1.745d18p-4f;                        // 1/11
+  acc = acc * z + 0x1.c71c72p-4f;                    // 1/9
+  acc = acc * z + 0x1.24924ap-3f;                    // 1/7
+  acc = acc * z + 0x1.99999ap-3f;                    // 1/5
+  acc = acc * z + 0x1.555556p-2f;                    // 1/3
+  acc = acc * z + 1.0f;
+  const float r = (s * 2.0f) * acc;
+  return (r + e * 0x1.7f7d1cp-20f) + e * 0x1.62e400p-1f;   // ln 2, lo+hi
 }
 
 __device__ __forceinline__ uint32_t noise_u32(uint32_t idx, uint32_t seed) {
@@ -493,10 +539,10 @@ setup_kernel(Columns cols, Curves cv, const float* __restrict__ harm,
       pk[0] = pk[1] = pk[2] = 0u;
       continue;
     }
-    const float g = cosf(kPi * (float)k * ratio);
+    const float g = cos_turns((float)k * ratio * 0.5f);
     pk[0] = __float_as_uint(noise((uint32_t)k, seed) / denom);
     pk[1] = noise_u32((uint32_t)(K + k), seed);
-    pk[2] = __float_as_uint(damping * ratio * logf(fmaxf(g, kEps)));
+    pk[2] = __float_as_uint(damping * ratio * log_f32(fmaxf(g, kEps)));
   }
   if (lane != 0) return;
 
@@ -752,7 +798,7 @@ __device__ __forceinline__ void voice_wave(
       const float alpha = __uint_as_float(partials[2]);
 #pragma unroll
       for (int f = 0; f < NF; ++f)
-        w[f] = w[f] + ud * expf(nrel[f] * alpha)
+        w[f] = w[f] + ud * exp_f32(nrel[f] * alpha)
                     * sin_turns(phase_x(p[f] * (uint32_t)k + phi));
     }
   } else {
@@ -987,7 +1033,7 @@ struct Render {
 };
 
 // one block's tile of the render
-template <bool CURVES>
+template <bool CURVES, bool BUSES>
 __device__ __forceinline__ void render_tile(const Render& r) {
   const uint32_t* __restrict__ consts = r.consts;
   const float* __restrict__ harm = r.harm;
@@ -995,7 +1041,7 @@ __device__ __forceinline__ void render_tile(const Render& r) {
   const uint32_t* __restrict__ seg = r.seg;
   const int32_t* __restrict__ idx = r.idx;
   const int32_t* __restrict__ bus = r.bus;
-  const int b = blockIdx.y;             // this block's bus
+  const int b = BUSES ? (int)blockIdx.y : 0;       // this block's bus
   float2* __restrict__ out = r.out;
   int* __restrict__ counts = r.counts;
   const Groups& groups = r.groups;
@@ -1047,7 +1093,7 @@ __device__ __forceinline__ void render_tile(const Render& r) {
         while (g + 1 < groups.n && s >= groups.slot0[g + 1]) ++g;
         v = groups.start[g] + (s - groups.slot0[g]);
       }
-      if (v >= 0 && v < V && (bus == nullptr || bus[v] == b)) {
+      if (v >= 0 && v < V && (!BUSES || bus[v] == b)) {
         const uint32_t* c = consts + (size_t)v * C;
         const int wid = groups.wid[g] < 0 ? (int)c[K_WAVE] : groups.wid[g];
         code = wid | (groups.has_fm[g] ? 0x100 : 0);
@@ -1128,30 +1174,43 @@ __device__ __forceinline__ void render_tile(const Render& r) {
   for (int f = 0; f < kFrames; ++f) {
     const int i = i0 + f * kThreads + tid;
     if (i < nframes)
-      out[(size_t)i * r.nseg + b] = make_float2(acc_l[f], acc_r[f]);
+      out[BUSES ? (size_t)i * r.nseg + b : (size_t)i] =
+          make_float2(acc_l[f], acc_r[f]);
   }
   if (tid == 0 && evaluated > 0) atomicAdd(counts, evaluated);
   if (CURVES && tid < kCounts - 1 && s_nwin[tid] > 0)
     atomicAdd(counts + 1 + tid, s_nwin[tid]);
 }
 
-// The two render kernels: the curve-free one keeps the registers the
-// compiler gives it (48, 10 blocks an SM); the curve kernel is held to
-// kCurveBlocks blocks an SM, since it runs faster with more warps in
-// flight than with more registers each.
-template <bool CURVES>
+// The render kernels, each without and with the segment buses: the
+// curve-free one keeps the registers the compiler gives it (48, 10 blocks
+// an SM); the curve kernel is held to kCurveBlocks blocks an SM, since it
+// runs faster with more warps in flight than with more registers each.
+template <bool CURVES, bool BUSES>
 __global__ void render_kernel(const __grid_constant__ Render r);
 
 template <>
 __global__ void __launch_bounds__(kPlainThreads)
-render_kernel<false>(const __grid_constant__ Render r) {
-  render_tile<false>(r);
+render_kernel<false, false>(const __grid_constant__ Render r) {
+  render_tile<false, false>(r);
+}
+
+template <>
+__global__ void __launch_bounds__(kPlainThreads)
+render_kernel<false, true>(const __grid_constant__ Render r) {
+  render_tile<false, true>(r);
 }
 
 template <>
 __global__ void __launch_bounds__(kCurveThreads, kCurveBlocks)
-render_kernel<true>(const __grid_constant__ Render r) {
-  render_tile<true>(r);
+render_kernel<true, false>(const __grid_constant__ Render r) {
+  render_tile<true, false>(r);
+}
+
+template <>
+__global__ void __launch_bounds__(kCurveThreads, kCurveBlocks)
+render_kernel<true, true>(const __grid_constant__ Render r) {
+  render_tile<true, true>(r);
 }
 
 Curves make_curves(const void* const* p, const int* dims) {
@@ -1254,9 +1313,14 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
                     make_curves(curves, dims), seg, H, n0, nframes, sr_r,
                     modes, idx, K, chunk_frames, V, bus, nseg,
                     reinterpret_cast<float2*>(out), counts};
-  if (curves_on)
-    render_kernel<true><<<blocks, kCurveThreads, 0, (cudaStream_t)stream>>>(r);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (curves_on && bus)
+    render_kernel<true, true><<<blocks, kCurveThreads, 0, st>>>(r);
+  else if (curves_on)
+    render_kernel<true, false><<<blocks, kCurveThreads, 0, st>>>(r);
+  else if (bus)
+    render_kernel<false, true><<<blocks, kPlainThreads, 0, st>>>(r);
   else
-    render_kernel<false><<<blocks, kPlainThreads, 0, (cudaStream_t)stream>>>(r);
+    render_kernel<false, false><<<blocks, kPlainThreads, 0, st>>>(r);
   return (int)cudaGetLastError();
 }

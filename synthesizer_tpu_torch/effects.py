@@ -547,12 +547,8 @@ class StreamingReverb:
             self._n0 += n
         s = dfx._norm(x)
         mono_in = torch.sum(s, dim=1) * float(np.float32(C.FIXED_GAIN))
-        states, revs = [], []
-        for (combs, aps), st in zip(self._nets, self._state):
-            st, rev = dfx.reverb_network_apply(st, mono_in, combs, aps,
-                                               feedback, damp)
-            states.append(st)
-            revs.append(rev)
+        states, revs = dfx.reverb_networks_apply(self._state, mono_in,
+                                                 self._nets, feedback, damp)
         self._state = tuple(states)
         if self._nch == 1:
             out = (dry * s[:, 0] + (wet1 + wet2) * revs[0])[:, None]
@@ -1247,54 +1243,48 @@ class FxChain:
                             f"buses)")
             proc = _automated_processor(name, q, cv, samplerate, nchannels,
                                         tickf, start_frame, dev, key_fn)
-            if proc is not None:
-                pass
-            elif name == "compress":
-                proc = StreamingCompressor(samplerate, device=dev, **q)
-            elif name == "filter":
-                proc = StreamingBiquad(samplerate, nchannels, device=dev, **q)
-            elif name == "eq":
-                proc = StreamingEQ(samplerate, nchannels, device=dev, **q)
-            elif name == "gate":
-                proc = StreamingGate(samplerate, device=dev, **q)
-            elif name == "reverb":
-                proc = StreamingReverb(samplerate, nchannels, device=dev, **q)
-            elif name == "chorus":
-                proc = StreamingChorus(samplerate, nchannels, device=dev, **q)
-            elif name == "echo":
-                proc = StreamingFeedbackEcho(samplerate, nchannels,
-                                             device=dev, **q)
-            elif name == "width":
-                proc = StreamingWidth(samplerate, nchannels, device=dev, **q)
-            elif name == "limiter":
-                proc = StreamingLimiter(samplerate, nchannels, device=dev,
-                                        **q)
-            elif name == "phaser":
-                proc = StreamingPhaser(samplerate, nchannels, device=dev, **q)
-            elif name in ("tremolo", "autopan"):
-                cls = StreamingTremolo if name == "tremolo" \
-                    else StreamingAutopan
-                proc = cls(samplerate, nchannels, start_frame=start_frame,
-                           device=dev, **q)
-            elif name == "convolve":
-                ir = (ir_samples or {})[q.pop("ir")]
-                # the contract Sample.convolve enforces: a Song renders on
-                # both paths or fails on both
-                if ir.samplerate != samplerate:
-                    raise ValueError("impulse response samplerate mismatch")
-                if ir.nchannels not in (1, nchannels):
-                    raise ValueError("impulse response channel mismatch")
-                irn = (ir.get_frame_array().astype(np.float32)
-                       / np.float32(dpcm.MAXVAL[ir.samplewidth]))
-                proc = StreamingConvolver(irn, device=dev, **q)
-            else:                                   # pragma: no cover
-                raise ValueError(name)
+            if proc is None:
+                proc = self._static(name, q, samplerate, nchannels,
+                                    ir_samples, start_frame, dev)
             self.processors.append(proc)
         # the one tail/flush authority, shared with apply_fx_sample
         self.tail_frames = chain_tail_frames(fx, samplerate, ir_samples)
         self.flush_frames = chain_flush_frames(fx, samplerate)
         self.samplerate = samplerate
         self.nchannels = nchannels
+
+    @staticmethod
+    def _static(name: str, q: dict, samplerate: int, nchannels: int,
+                ir_samples, start_frame: int, dev):
+        """The processor of an entry that no automation reaches."""
+        if name == "compress":
+            return StreamingCompressor(samplerate, device=dev, **q)
+        if name == "filter":
+            return StreamingBiquad(samplerate, nchannels, device=dev, **q)
+        if name == "convolve":
+            ir = (ir_samples or {})[q.pop("ir")]
+            # the contract Sample.convolve enforces: a Song renders on both
+            # paths or fails on both
+            if ir.samplerate != samplerate:
+                raise ValueError("impulse response samplerate mismatch")
+            if ir.nchannels not in (1, nchannels):
+                raise ValueError("impulse response channel mismatch")
+            irn = (ir.get_frame_array().astype(np.float32)
+                   / np.float32(dpcm.MAXVAL[ir.samplewidth]))
+            return StreamingConvolver(irn, device=dev, **q)
+        if name in ("tremolo", "autopan"):
+            cls = StreamingTremolo if name == "tremolo" else StreamingAutopan
+            return cls(samplerate, nchannels, start_frame=start_frame,
+                       device=dev, **q)
+        cls = {"eq": StreamingEQ, "reverb": StreamingReverb,
+               "chorus": StreamingChorus, "echo": StreamingFeedbackEcho,
+               "width": StreamingWidth, "limiter": StreamingLimiter,
+               "phaser": StreamingPhaser}.get(name)
+        if cls is not None:
+            return cls(samplerate, nchannels, device=dev, **q)
+        if name == "gate":
+            return StreamingGate(samplerate, device=dev, **q)
+        raise ValueError(name)                      # pragma: no cover
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
         for p in self.processors:

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from . import spec as S
-from ..ops.trig import cos_turns, sin_turns
+from ..ops.trig import cos_turns, exp_f32, log_f32, sin_turns
 from ..ops.wave import TWO_NEG32 as _TWO_NEG32
 from ..ops.wave import U32 as _U32
 from ..ops.wave import blep as _blep
@@ -665,15 +665,16 @@ def _pluck(p, vp: VoiceParams, n, num_harmonics: int):
         denom = denom + absu[:, j]
     denom = torch.clamp_min(denom, float(np.float32(1e-30)))
     phi = _noise_u32((ks + K).expand(V, K), vp.seed)      # [v, K]
-    g = torch.cos(float(np.float32(math.pi)) * ks.to(torch.float32)
-                  * ratio[:, None])
+    # cos(pi*k*ratio) in turns, and the exp/log polynomials of ops.trig
+    # (the same bits on the card and on the CPU)
+    g = cos_turns(ks.to(torch.float32) * ratio[:, None] * 0.5)
     alpha = (vp.damping[:, None] * ratio[:, None]
-             * torch.log(torch.clamp_min(g, float(np.float32(1e-30)))))
+             * log_f32(torch.clamp_min(g, float(np.float32(1e-30)))))
     acc = torch.zeros(p.shape, dtype=torch.float32, device=dev)
     for j in range(K):
         pk = (p * (j + 1) + phi[:, j][:, None]) & _U32
         term = ((u[:, j] / denom)[:, None]
-                * torch.exp(nrel * alpha[:, j][:, None])
+                * exp_f32(nrel * alpha[:, j][:, None])
                 * sin_turns(_phase_x(pk)))
         acc = acc + torch.where(active[:, j][:, None], term,
                                 torch.zeros_like(term))

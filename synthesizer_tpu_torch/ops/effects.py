@@ -530,25 +530,24 @@ def reverb_zero_state(combs: Tuple[int, ...], aps: Tuple[int, ...],
             0)
 
 
-def _comb_step(comb_buf, fstores, n0: int, xblk, fbv, combs, d2, scan):
-    """One blocked step of a network's comb stage over ``block`` frames
-    (block <= the shortest comb delay, so every delayed read lands at least
-    a block behind the write head).  The combs run as the lanes of one
-    [combs, block] gather, affine scan (the damping filter; ``scan`` is
-    ``affine_scan_fixed`` of its coefficients) and scatter; the ring writes
-    go to distinct positions, so they are order-free.  Returns (comb_buf,
-    fstores, the comb outputs summed in comb order)."""
-    block = xblk.shape[0]
-    dev = xblk.device
-    offs = n0 + torch.arange(block, dtype=torch.int64, device=dev)
-    ds = torch.tensor(combs, dtype=torch.int64, device=dev)
-    idx = offs[None, :] % ds[:, None]                         # [combs, block]
+def _comb_step(comb_buf, fstores, offs, xblk, fbv, ds, d2, scan, nets: int):
+    """One blocked step of the comb stage of ``nets`` networks over
+    ``block`` frames (block <= the shortest comb delay, so every delayed
+    read lands at least a block behind the write head).  The combs of all
+    networks run as the lanes of one [lanes, block] gather, affine scan
+    (the damping filter; ``scan`` is ``affine_scan_fixed`` of its
+    coefficients) and scatter; the ring writes go to distinct positions,
+    so they are order-free.  ``offs`` holds the block's absolute frames.
+    Returns (comb_buf, fstores, [nets, block] comb outputs, each network's
+    combs summed in comb order)."""
+    idx = offs[None, :] % ds[:, None]                         # [lanes, block]
     y = comb_buf.gather(1, idx)
     fs = scan(d2 * y, fstores[:, None])
     comb_buf = comb_buf.scatter(1, idx, xblk[None, :] + fs * fbv)
-    out = y[0]
-    for k in range(1, len(combs)):
-        out = out + y[k]
+    y = y.view(nets, -1, y.shape[1])
+    out = y[:, 0]
+    for k in range(1, y.shape[1]):
+        out = out + y[:, k]
     return comb_buf, fs[:, -1], out
 
 
@@ -574,24 +573,38 @@ def _allpass_chunk(buf: torch.Tensor, x: torch.Tensor, D: int, n0: int):
     return new, y
 
 
-def reverb_network_apply(state, mono_in: torch.Tensor, combs, aps, feedback,
-                         damp):
-    """Run ``mono_in`` (any length) through one channel's network from
-    ``state``; returns (new_state, output).  The comb stage runs in blocks
-    of the shortest comb delay (``_comb_step``), then each allpass over
-    the whole chunk as lanes of its delay (``_allpass_chunk``): the
-    allpasses take the combs' output and feed nothing back.  ``feedback``
-    may be a per-frame [n] grid.  The f32 roundings depend on the
-    chunking (the scans group by block), within the reverb's budget."""
+def reverb_networks_apply(states, mono_in: torch.Tensor, nets, feedback,
+                          damp):
+    """Run ``mono_in`` (any length) through the networks ``nets`` (one per
+    output channel, each (combs, allpasses)) from ``states``; returns
+    (new_states, [output of each network]).  The comb stage of all
+    networks runs as one set of lanes in blocks of the shortest comb delay
+    (``_comb_step``), then each network's allpasses over the whole chunk as
+    lanes of their delays (``_allpass_chunk``): the allpasses take the
+    combs' output and feed nothing back.  ``feedback`` may be a per-frame
+    [n] grid.  The f32 roundings depend on the chunking (the scans group
+    by block), within the reverb's budget."""
     dev = mono_in.device
     n = int(mono_in.shape[0])
-    comb_buf, fstores, ap_buf, n0 = state
     if n == 0:
-        return state, torch.zeros(0, dtype=torch.float32, device=dev)
+        return states, [torch.zeros(0, dtype=torch.float32, device=dev)
+                        for _ in nets]
+    n0 = states[0][3]
+    combs = [D for cs, _ in nets for D in cs]
+    per = len(nets[0][0])
+    if any(len(cs) != per for cs, _ in nets):
+        raise ValueError("the networks need the same number of combs")
+    width = max(st[0].shape[1] for st in states)
+    comb_buf = torch.cat([torch.nn.functional.pad(st[0], (0, width - st[0]
+                                                          .shape[1]))
+                          for st in states])
+    fstores = torch.cat([st[1] for st in states])
     block = min(combs)
     fb = _f32(feedback, dev)
     d1 = _f32(damp, dev)
     d2 = 1.0 - d1
+    ds = torch.tensor(combs, dtype=torch.int64, device=dev)
+    frames = torch.arange(block, dtype=torch.int64, device=dev)
     scans = {}                  # the damping scan's coefficients, per length
     outs = []
     for b0 in range(0, n, block):
@@ -599,16 +612,32 @@ def reverb_network_apply(state, mono_in: torch.Tensor, combs, aps, feedback,
         if m not in scans:
             scans[m] = affine_scan_fixed(d1.expand(len(combs), m), axis=1)
         fbv = fb[b0:b0 + block] if fb.ndim == 1 else fb
-        comb_buf, fstores, y = _comb_step(comb_buf, fstores, n0 + b0,
-                                          mono_in[b0:b0 + block], fbv,
-                                          combs, d2, scans[m])
+        comb_buf, fstores, y = _comb_step(
+            comb_buf, fstores, frames[:m] + (n0 + b0),
+            mono_in[b0:b0 + block], fbv, ds, d2, scans[m], len(nets))
         outs.append(y)
-    out = torch.cat(outs)
-    ap_new = ap_buf.clone()
-    for k, D in enumerate(aps):
-        ring, out = _allpass_chunk(ap_buf[k, :D], out, D, n0)
-        ap_new[k, :D] = ring
-    return (comb_buf, fstores, ap_new, n0 + n), out
+    out = torch.cat(outs, dim=1)
+    new_states, results = [], []
+    for i, ((cs, aps), st) in enumerate(zip(nets, states)):
+        r = out[i]
+        ap_new = st[2].clone()
+        for k, D in enumerate(aps):
+            ring, r = _allpass_chunk(st[2][k, :D], r, D, n0)
+            ap_new[k, :D] = ring
+        new_states.append((comb_buf[i * per:(i + 1) * per,
+                                    :st[0].shape[1]].contiguous(),
+                           fstores[i * per:(i + 1) * per], ap_new, n0 + n))
+        results.append(r)
+    return new_states, results
+
+
+def reverb_network_apply(state, mono_in: torch.Tensor, combs, aps, feedback,
+                         damp):
+    """One network of :func:`reverb_networks_apply` -> (new_state,
+    output)."""
+    states, outs = reverb_networks_apply([state], mono_in, [(combs, aps)],
+                                         feedback, damp)
+    return states[0], outs[0]
 
 
 def _comb_stage_whole(mono_in: torch.Tensor, comb_sets, fb, d1, d2):
@@ -682,9 +711,9 @@ def _reverb_networks_whole(mono_in: torch.Tensor, nets, feedback,
     all_ds = tuple(D for combs, _ in nets for D in combs)
     packed = 2 * (-(-total // min(all_ds))) * len(all_ds) * max(all_ds) * 4
     if packed > COMB_PACK_BYTES_CAP:
-        return [reverb_network_apply(reverb_zero_state(combs, aps, dev),
-                                     mono_in, combs, aps, fb, d1)[1]
-                for combs, aps in nets]
+        return reverb_networks_apply(
+            [reverb_zero_state(combs, aps, dev) for combs, aps in nets],
+            mono_in, nets, fb, d1)[1]
     comb_sums = _comb_stage_whole(mono_in, [c for c, _ in nets], fb, d1, d2)
     outs = []
     for i, (_, aps) in enumerate(nets):

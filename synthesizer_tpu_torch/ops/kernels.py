@@ -15,8 +15,9 @@ sparse render, per-chunk rows of candidate voices (``idx``).  For CPU
 tensors it runs ``render_stereo_reference``, the plain ``render_block``
 over the same layout and rows.  With per-voice bus ids (``seg``, ``nseg``)
 the render gives each voice's signal to its own stereo bus (the segment
-buses of ``render_block``): on the card a row of blocks per bus.  There is no fallback between the two: a
-CUDA tensor launches the kernels or raises.
+buses of ``render_block``): on the card the render kernel's bus
+specialisation, a row of blocks per bus.  There is no fallback between the
+two: a CUDA tensor launches the kernels or raises.
 
 Nothing here imports a GPU toolchain at import time, so the CPU tests can
 import the module.
@@ -27,7 +28,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -41,7 +41,7 @@ from ..models.voicebank import (_I32_MAX, _U32, BANK_TABLE_LEN, I32_FIELDS,
                                 U32_FIELDS, BankLayout, VoiceParams, _noise,
                                 _noise_u32, _phase_x, _seg_idx, _tri_u32,
                                 _wrap_i32, render_block)
-from .trig import cos_turns, sin_turns
+from .trig import cos_turns, log_f32, sin_turns
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "voicebank_render.cu"
 #: build products go under the checkout's ``build/`` (listed in .gitignore)
@@ -382,7 +382,7 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
     V = vp.wave.shape[0]
     curves = _column_pointers(vp, CURVE_COLUMNS), _curve_dims(vp)
     modes = _modes(use_glide, use_bend, use_amp, use_dmod)
-    consts, counts, seg = _setup(
+    consts, counts, segbuf = _setup(
         vp, samplerate, H, bool(modes & (MODE_BEND | MODE_AMP | MODE_DMOD)),
         curves)
     groups = [int(x) for g in layout.groups for x in g]
@@ -394,7 +394,8 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
             consts.data_ptr(), consts.shape[1], vp.harm_amps.data_ptr(),
             vp.harm_amps.shape[1], vp.table.data_ptr(),
             (ctypes.c_int32 * len(groups))(*groups), len(layout.groups),
-            *curves, 0 if seg is None else seg.data_ptr(), H, n0, nframes,
+            *curves, 0 if segbuf is None else segbuf.data_ptr(), H, n0,
+            nframes,
             _sr_r(samplerate), modes, 0 if idx is None else idx.data_ptr(),
             0 if idx is None else idx.shape[1], int(chunk_frames), V,
             0 if seg is None else seg.data_ptr(), 1 if seg is None else nseg,
@@ -541,9 +542,9 @@ def voice_constants(vp: VoiceParams, samplerate: int,
         denom = denom + torch.where(active[:, j], u[:, j].abs(), zero)
     denom = torch.fmax(denom, eps)
     phi = _noise_u32((ks + K).expand(V, K), vp.seed)
-    g = torch.cos(float(np.float32(math.pi)) * ks.to(f32) * ratio[:, None])
+    g = cos_turns(ks.to(f32) * ratio[:, None] * 0.5)
     alpha = (vp.damping[:, None] * ratio[:, None]
-             * torch.log(torch.fmax(g, eps)))
+             * log_f32(torch.fmax(g, eps)))
     izero = torch.zeros((), dtype=torch.int32, device=dev)
     partials = torch.stack([
         torch.where(active, _f32_bits(u / denom[:, None]), izero),

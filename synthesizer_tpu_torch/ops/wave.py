@@ -72,13 +72,10 @@ def interp(x: torch.Tensor, xp, fp) -> torch.Tensor:
     dx) * df`` with XLA's contraction of the last multiply and add into one
     fused multiply-add (``fma_f32``), ``fp[i-1]`` where the interval is
     narrower than the guard, and the end values held outside ``[xp[0],
-    xp[-1]]``.  ``xp`` and ``fp`` are 1-D breakpoints (lists, arrays or
-    tensors), ``x`` an f32 tensor."""
-    dev = x.device
-    xp = torch.as_tensor(np.asarray(xp, np.float32) if not isinstance(
-        xp, torch.Tensor) else xp, dtype=torch.float32, device=dev)
-    fp = torch.as_tensor(np.asarray(fp, np.float32) if not isinstance(
-        fp, torch.Tensor) else fp, dtype=torch.float32, device=dev)
+    xp[-1]]``.  ``xp`` and ``fp`` are 1-D host breakpoints (lists or
+    arrays), ``x`` an f32 tensor."""
+    xp = torch.from_numpy(np.asarray(xp, np.float32)).to(x.device)
+    fp = torch.from_numpy(np.asarray(fp, np.float32)).to(x.device)
     if xp.ndim != 1 or xp.shape != fp.shape or xp.shape[0] == 0:
         raise ValueError("xp and fp must be one-dimensional arrays of equal "
                          "size")

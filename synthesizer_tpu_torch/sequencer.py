@@ -1560,8 +1560,7 @@ class Song:
         starts the effect state cold at ``start_frame``."""
         _no_mesh(mesh)
         sc_fns = self._sidechain_key_fns()
-        gen = self._mix_generator_raw(chunk_frames, None, start_frame,
-                                      sc_fns)
+        gen = self._mix_generator_raw(chunk_frames, start_frame, sc_fns)
         if "master.volume" in self.automation:
             gen = self._volume_chunks(gen, start_frame)
         if not self.fx:
@@ -1617,7 +1616,7 @@ class Song:
         return tuple(_t(a, self.device) for a in (ii, ss, vv, gg))
 
     def _mix_generator_raw(self, chunk_frames: Optional[int] = None,
-                           mesh=None, start_frame: int = 0,
+                           start_frame: int = 0,
                            sidechain_keys: Optional[Dict] = None
                            ) -> Iterator[Sample]:
         """Stream the song as fixed-size chunks, before the master volume
@@ -1629,7 +1628,6 @@ class Song:
         stateless in the absolute frame, so the first chunk starts exactly
         there, mid-hit and mid-note included, bit-exact with the offline
         slice (track chains start cold at the seek)."""
-        _no_mesh(mesh)
         from .effects import FxChain
         sched, voices, vtracks, pitched, pends, total = self._compile()
         (pbank, plens, pidx, pstart, prate, pgains, ploopf,

@@ -18,6 +18,7 @@ from synthesizer_tpu.models import voicebank as J
 from synthesizer_tpu_torch import bench_song
 from synthesizer_tpu_torch.models import voicebank as T
 from synthesizer_tpu_torch.ops import kernels as K
+from synthesizer_tpu_torch.ops import trig as TRIG
 from test_pallas_kernel import VOICES
 
 torch.set_num_threads(1)
@@ -304,19 +305,25 @@ def test_voice_constants_match_jax_formulas():
     phi = _noise_u32(np.broadcast_to(np.arange(K_ + 1, 2 * K_ + 1,
                                                dtype=np.uint32),
                                      (len(inc), K_)), f["seed"][:, None])
-    g = np.cos(f32(np.pi) * ks.astype(np.float32) * ratio[:, None])
+    # g = cos(pi*k*ratio) as the turn-unit polynomial the port and the
+    # kernel evaluate (ops/trig.py, the same f32 operations in numpy)
+    x = ks.astype(np.float32) * ratio[:, None] * f32(0.5) + f32(0.25)
+    v = (x - np.rint(x)).astype(np.float32)
+    acc = np.full_like(v, TRIG._C[-1])
+    for coef in TRIG._C[-2::-1]:
+        acc = (acc * (v * v) + coef).astype(np.float32)
+    g = (acc * v).astype(np.float32)
     alpha = (f["damping"][:, None] * ratio[:, None]
-             * np.log(np.maximum(g, eps)))
+             * np.log(np.maximum(g, eps).astype(np.float64)))
     parts = c[:, K.CONST_BASE:].numpy().reshape(-1, K_, 3)
     np.testing.assert_array_equal(col["pluck_ka"], active.sum(axis=1))
     np.testing.assert_array_equal(
         parts[..., 0], np.where(active, bits(u / denom[:, None]), 0))
     np.testing.assert_array_equal(
         parts[..., 1], np.where(active, phi.view(np.int32), 0))
-    # cos: the CPU's libm and numpy's may round g's last bit apart, and
-    # log(g) near g = 1 turns one ulp of g (2^-24) into an absolute error
-    # of about 2^-24, so alpha = damping * ratio * log(g) may differ by
-    # |damping * ratio| * 2^-23 (two ulp of g)
+    # log: the port's log_f32 polynomial against numpy's f64 log of the
+    # same g, within a few f32 ulps of log(g) (relative) and, near g = 1,
+    # 2^-23 absolute, scaled by |damping * ratio|
     got_alpha = parts[..., 2].view(np.float32)[active]
     scale = np.abs(f["damping"][:, None] * ratio[:, None]
                    * np.ones_like(alpha))[active]

@@ -95,8 +95,6 @@ PROCS = {
     "compress_sidechain": ("compress", lambda m: _c(
         m, "StreamingCompressor", SR, -24.0, 6.0,
         key_fn=_keys()[0 if m is JE else 1])),
-    "biquad": ("filter", lambda m: _c(m, "StreamingBiquad", SR, 2,
-                                      "highpass", 800.0)),
     "biquad_ff": ("filter", lambda m: _c(m, "StreamingBiquad", SR, 2,
                                          "lowshelf", 60.0, 0.7071, 6.0)),
     "swept_biquad": ("filter", lambda m: _c(
