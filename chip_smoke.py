@@ -112,9 +112,13 @@ card:
     version on three windows
     and each bus against its solo render bit for bit, its device time and
     bound, ptxas' 48 registers and no spill, streamed chunks a second; the
-    tracker song (looped and one-shot samplers, swing, accents, a sidechain,
-    recurrence-internal automation), card against CPU and streaming against
-    offline.
+    curve kernel's bus mode (``render_kernel<true, buses>``) on phase 10's
+    MIDI bank split over three buses by channel, through
+    ``VoiceBank.render_song_grouped``: against its plain version on three
+    windows and each bus against its solo render bit for bit, its device
+    time and bound; the tracker song (looped and one-shot samplers, swing,
+    accents, a sidechain, recurrence-internal automation), card against CPU
+    and streaming against offline.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -207,19 +211,6 @@ def song_bound(vpx, cols, bankx, totalx, extra_bytes):
     opsx = int((audible * per).sum())
     nbytes = totalx * 8 + extra_bytes
     return (opsx, nbytes) + bound(opsx, nbytes)
-
-
-def kernel_name(symbol):
-    """A kernel's name from its mangled symbol: ``setup_kernel``, or
-    ``render_kernel<curves>`` with ``, buses`` for the bus mode (a tree
-    from before the buses has the curve flag only)."""
-    if "setup_kernel" in symbol:
-        return "setup_kernel"
-    found = re.search(r"ILb([01])E(?:Lb([01])E)?", symbol)
-    curves = bool(found) and found.group(1) == "1"
-    buses = bool(found) and found.group(2) == "1"
-    return (f"render_kernel<{'true' if curves else 'false'}"
-            f"{', buses' if buses else ''}>")
 
 
 def check(ok, what):
@@ -472,13 +463,15 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
                                          for k, ms in top))
 
 
-def sequencer_phase(dev, card, ptxas, spread, profiled):
+def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
     """Phase 17: the pattern sequencer on the card -- the verify battery's
     config 5 song, the demo song at full width (as written and 14 times as
     long), the tracker song -- each against the same code on the CPU,
     streaming against offline, the seek, the grouped render's segment
     buses against their plain version and their solo renders, and the
-    times.  Returns the bus mode's fields for the ``kernels`` line."""
+    times; then the curve kernel's bus mode on phase 10's MIDI bank
+    (``midi_bank``) split over three buses.  Returns the bus modes' fields
+    for the ``kernels`` line."""
     import torch
     from synthesizer_tpu_torch import bench_song as B
     from synthesizer_tpu_torch import sequencer as Q
@@ -721,6 +714,76 @@ def sequencer_phase(dev, card, ptxas, spread, profiled):
           f"render_kernel<false> (the flat render, config 5's path): {regs}; "
           f"render_kernel<false, buses> (the grouped render): {bus_regs}")
 
+    # the curve kernel's bus mode (render_kernel<true, buses>): the MIDI
+    # file's bank (bends, CC7/CC11 and depth curves) with each voice on the
+    # bus of its channel mod 3, through VoiceBank.render_song_grouped
+    vpc, bc, tc = midi_bank["vp"], midi_bank["bank"], midi_bank["total"]
+    seg_c = midi_bank["seg"]
+    nseg_c = 3
+    seg_ct = torch.from_numpy(seg_c).to(dev)
+    lay_c = bc._kernel_layout(vpc)
+    K.render_stereo.launches = K.render_stereo.bus_launches = 0
+    K.voice_setup.launches = 0
+    cbuses = bc.render_song_grouped(vpc, seg_ct, nseg_c, tc)
+    torch.cuda.synchronize()
+    curve_launches = K.render_stereo.bus_launches
+    curve_tiles = int(K.render_stereo.voice_tiles.item())
+    check(curve_launches == 1 and bc.use_bend and bc.use_amp and bc.use_dmod
+          and cbuses.shape == (tc, nseg_c, 2)
+          and bool(torch.isfinite(cbuses).all()),
+          f"curve bus render: {vpc.wave.shape[0]} MIDI voices (bend, amp and "
+          f"depth curves) on {nseg_c} buses by channel "
+          f"({np.bincount(seg_c, minlength=nseg_c).tolist()} voices), "
+          f"{tc} frames in one launch of render_kernel<true, buses>; "
+          f"{curve_tiles} voice-tiles")
+    curve_worst = 0.0
+    curve_plain_ms = 0.0
+    wn_c = 16384        # the plain version holds [voices, frames] arrays
+    for wname, w0 in midi_bank["windows"].items():
+        w0 = min(w0, tc - wn_c)
+        kern = bc._render(vpc, w0, wn_c, seg_ct, nseg_c)
+        t = time.perf_counter()
+        plain = K.render_stereo_reference(vpc, w0, nframes=wn_c,
+                                          samplerate=SR, layout=lay_c,
+                                          seg=seg_ct, nseg=nseg_c,
+                                          **bc._flags())
+        torch.cuda.synchronize()
+        curve_plain_ms += (time.perf_counter() - t) * 1e3
+        curve_worst = max(curve_worst, float((kern - plain).abs().max()))
+        check(torch.equal(kern, plain)
+              and torch.equal(kern, cbuses[w0:w0 + wn_c]),
+              f"curve bus render, {wname} window [{w0}, {w0 + wn_c}): "
+              f"kernel == plain version, and == the whole-song launch, bit "
+              f"for bit (peak {float(plain.abs().max()):.4f})")
+    for b in range(nseg_c):
+        sub, ly = K.solo_params(vpc, lay_c, np.flatnonzero(seg_c == b))
+        solo = K.render_stereo(sub, 0, nframes=tc, samplerate=SR, layout=ly,
+                               **bc._flags())
+        torch.cuda.synchronize()
+        check(torch.equal(solo, cbuses[:, b]),
+              f"curve bus {b} ({sub.wave.shape[0]} voices) == its solo flat "
+              f"render, bit for bit")
+    del cbuses, solo
+    by_name, _, _ = profiled(
+        lambda: bc.render_song_grouped(vpc, seg_ct, nseg_c, tc), 10)
+    curve_ms = max(sum(v for k, v in by_name.items() if "render_kernel" in k),
+                   1e-9)
+    cm_c = midi_bank["cm"]
+    ops_c, nbytes_c, curve_bound, curve_by, curve_nofma = song_bound(
+        vpc, midi_bank["colm"], bc, tc, cm_c.numel() * 4
+        + midi_bank["seg_bytes"] + seg_ct.numel() * 4
+        + tc * (nseg_c - 1) * 8)
+    print(f"  curve bus render kernel (render_kernel<true, buses>, {nseg_c} "
+          f"buses): {curve_ms:.6f} ms a call (profiler, 10 calls); bound "
+          f"{ops_c:.4g} ops and {nbytes_c} B -> {curve_bound:.6f} ms "
+          f"({curve_by}; {curve_nofma:.6f} ms without FMA), kernel at "
+          f"{100 * curve_bound / curve_ms:.1f}%; plain version on the "
+          f"{len(midi_bank['windows'])} windows of {wn_c} frames "
+          f"{curve_plain_ms:.3f} ms")
+    curve_regs = ptxas.get("render_kernel<true, buses>", {})
+    check(curve_regs.get("spill_bytes") == 0,
+          f"render_kernel<true, buses>: {curve_regs}")
+
     # streaming and the seek on the long dry song (the first 1500 chunks,
     # and 200 chunks from mid-song)
     dry_off = host(long_dry.mix(normalize=False, tail_seconds=0))
@@ -775,6 +838,14 @@ def sequencer_phase(dev, card, ptxas, spread, profiled):
             "bus_bound_nofma_ms": bus_nofma, "bus_max_abs_err": worst,
             "bus_plain_window_ms": plain_window_ms, "bus_nseg": nseg,
             "bus_voice_tiles": bus_tiles,
+            "bus_curves_launches": curve_launches, "bus_curves_ms": curve_ms,
+            "bus_curves_bound_ms": curve_bound,
+            "bus_curves_bound_by": curve_by,
+            "bus_curves_bound_nofma_ms": curve_nofma,
+            "bus_curves_max_abs_err": curve_worst,
+            "bus_curves_plain_windows_ms": curve_plain_ms,
+            "bus_curves_nseg": nseg_c, "bus_curves_voice_tiles": curve_tiles,
+            **{f"bus_curves_{k}": v for k, v in curve_regs.items()},
             "song_mix_ms": statistics.median(wall),
             "song_device_busy_share": busy / pwall,
             "song_device_operations": mix_ops,
@@ -788,6 +859,7 @@ def main():
                          "this script needs an NVIDIA GPU")
 
     from synthesizer_tpu_torch import bench_song
+    from synthesizer_tpu_torch.ab_smoke import kernel_name
     from synthesizer_tpu_torch.models.voicebank import (Voice, VoiceBank,
                                                         pack_voices)
     from synthesizer_tpu_torch.ops import kernels as K
@@ -2085,7 +2157,15 @@ def main():
 
     resample_and_effects(dev, card, midi_smp.torch_frames, spread, timed,
                          profiled)
-    buses = sequencer_phase(dev, card, ptxas, spread, profiled)
+    # each note's voice on the bus of its channel mod 3; the bank's padding
+    # rows (silent) on bus 0
+    midi_seg = np.zeros(Vm, np.int32)
+    midi_seg[:len(notes)] = [n.channel % 3 for n in notes]
+    check(len(voices) == len(notes) <= Vm,
+          f"one MIDI voice a note ({len(notes)} of the bank's {Vm} rows)")
+    buses = sequencer_phase(dev, card, ptxas, spread, profiled, {
+        "vp": vpm, "bank": bm, "total": total_m, "seg": midi_seg, "cm": cm,
+        "colm": colm, "seg_bytes": seg_bytes, "windows": windows})
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [

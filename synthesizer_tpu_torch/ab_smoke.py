@@ -1,6 +1,6 @@
 """Hold two trees of this repository against each other on one card.
 
-    python3 -m synthesizer_tpu_torch.ab_smoke [--kernels] PARENT_DIR [CHANGE_DIR]
+    python3 -m synthesizer_tpu_torch.ab_smoke [--kernels | --reverb] PARENT_DIR [CHANGE_DIR]
 
 runs each tree's ``chip_smoke.py`` in the order parent, change, change,
 parent (so that a drift of the card over the call shows as a difference
@@ -19,6 +19,10 @@ With ``--kernels`` each run is ``KERNEL_TIMES`` instead of the whole
 ``chip_smoke.py`` (about a minute a run instead of eight): the tree's
 build, ptxas' lines and the kernels' device times on config 5, the sparse
 workload and the MIDI file under the profiler, in the same order of runs.
+With ``--reverb`` each run is ``REVERB_TIMES``: the streaming reverb (the
+stereo Freeverb networks from zero state, in chunks of 1470) with the
+tree's ``ops.effects``, its host wall clock and its device operations and
+busy time a chunk, and how far it lies from the whole-signal reverb.
 
 To make PARENT_DIR: ``mkdir -p build/parent && git archive <commit> | tar -x
 -C build/parent`` (``build/`` is not committed).  CHANGE_DIR defaults to the
@@ -65,7 +69,10 @@ print(json.dumps({"digests": {
 
 
 def kernel_name(symbol: str) -> str:
-    """The name ``chip_smoke.py`` gives the kernel of a mangled symbol."""
+    """A kernel's name from its mangled symbol (or a ptxas line that holds
+    it): ``setup_kernel``, or ``render_kernel<curves>`` with ``, buses``
+    for the bus mode (a tree from before the buses has the curve flag
+    only)."""
     if "setup_kernel" in symbol:
         return "setup_kernel"
     found = re.search(r"ILb([01])E(?:Lb([01])E)?", symbol)
@@ -78,21 +85,17 @@ def kernel_name(symbol: str) -> str:
 #: the kernels' device times with the package of the tree it is run in:
 #: config 5 (render and setup kernels), the sparse workload and the MIDI
 #: file (render kernel), profiler, printed as chip_smoke.py prints them
+#: (ptxas' lines raw: ``run_tree`` names their kernels)
 KERNEL_TIMES = """
-import json, re, torch
+import json, torch
 from torch.profiler import ProfilerActivity, profile
 from synthesizer_tpu_torch import bench_song, midi
 from synthesizer_tpu_torch.models.voicebank import VoiceBank, pack_voices
 from synthesizer_tpu_torch.ops import kernels as K
 _, log = K.build_library()
 for line in log.splitlines():
-    if "Compiling entry" in line:
-        f = re.search(r"ILb([01])E(?:Lb([01])E)?", line)
-        name = "setup_kernel" if "setup_kernel" in line else (
-            "render_kernel<" + ("true" if f and f.group(1) == "1" else "false")
-            + (", buses" if f and f.group(2) == "1" else "") + ">")
-        print("  ptxas:", name)
-    if "registers" in line or "spill" in line:
+    if ("Compiling entry" in line or "registers" in line
+            or "spill" in line):
         print("  ptxas:", line.strip())
 dev, SR = torch.device("cuda"), 44100
 def ms(fn, word, reps):
@@ -120,6 +123,65 @@ print(json.dumps({"kernels": [
     {"name": "voicebank_render", "ms": ms(song, "render_kernel", 20),
      "sparse_workload_render_ms": ms(sparse, "render_kernel", 20),
      "midi_render_ms": ms(mid, "render_kernel", 5)}]}))
+"""
+
+
+#: the streaming reverb of ``ops.effects`` in the tree it is run in: both
+#: channels' networks from zero state over CHUNKS chunks of 1470 frames of
+#: seeded noise -- one ``reverb_networks_apply`` a chunk where the tree has
+#: it, else one ``reverb_network_apply`` a channel -- host wall clock a
+#: chunk (median of 3 passes), device operations and busy time a chunk
+#: under the profiler, and the largest difference from the whole-signal
+#: networks (``_reverb_networks_whole``)
+REVERB_TIMES = """
+import json, statistics, time, torch
+from torch.profiler import ProfilerActivity, profile
+from synthesizer_tpu_torch.ops import coeffs as C, effects as E
+dev, SR, CHUNK, CHUNKS = torch.device("cuda"), 44100, 1470, 60
+gen = torch.Generator().manual_seed(0)
+mono = (torch.rand(CHUNK * CHUNKS, generator=gen) - 0.5).to(dev)
+feedback, damp, _, _ = C.reverb_params(0.8, 0.5, 0.3, 1.0)
+nets = [C.reverb_delays(SR, ch) for ch in range(2)]
+def stream():
+    states = [E.reverb_zero_state(c, a, dev) for c, a in nets]
+    outs = []
+    for k in range(CHUNKS):
+        x = mono[k * CHUNK:(k + 1) * CHUNK]
+        if hasattr(E, "reverb_networks_apply"):
+            states, r = E.reverb_networks_apply(states, x, nets, feedback,
+                                                damp)
+        else:
+            r = []
+            for i, (c, a) in enumerate(nets):
+                states[i], y = E.reverb_network_apply(states[i], x, c, a,
+                                                      feedback, damp)
+                r.append(y)
+        outs.append(torch.stack(r))
+    return torch.cat(outs, dim=1)
+got = stream()
+whole = torch.stack(E._reverb_networks_whole(mono, nets, feedback, damp))
+torch.cuda.synchronize()
+wall = []
+for _ in range(3):
+    t = time.perf_counter()
+    stream()
+    torch.cuda.synchronize()
+    wall.append((time.perf_counter() - t) * 1e3 / CHUNKS)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    stream()
+    torch.cuda.synchronize()
+ops = busy = 0.0
+for ev in prof.key_averages():
+    if str(getattr(ev, "device_type", "")).split(".")[-1] == "CUDA":
+        ops += ev.count
+        busy += ev.self_device_time_total / 1e3
+print(json.dumps({"reverb": {
+    "chunks": CHUNKS, "wall_ms_a_chunk": statistics.median(wall),
+    "wall_ms_a_chunk_range": [min(wall), max(wall)],
+    "device_operations_a_chunk": ops / CHUNKS,
+    "device_busy_ms_a_chunk": busy / CHUNKS,
+    "max_abs_diff_from_whole": float((got - whole).abs().max()),
+    "peak": float(whole.abs().max())}}))
 """
 
 
@@ -153,8 +215,9 @@ def digests(root: Path) -> dict:
     return {"failed": (res.stdout + res.stderr)[-1000:]}
 
 
-def run_tree(root: Path, kernels_only: bool = False) -> dict:
-    cmd = ["-c", KERNEL_TIMES] if kernels_only else ["chip_smoke.py"]
+def run_tree(root: Path, snippet: str = "") -> dict:
+    """One run in root: ``chip_smoke.py``, or ``snippet`` given."""
+    cmd = ["-c", snippet] if snippet else ["chip_smoke.py"]
     res = subprocess.run([sys.executable, *cmd], cwd=root,
                          capture_output=True, text=True)
     out = {"rc": res.returncode, "ptxas": {}}
@@ -162,9 +225,13 @@ def run_tree(root: Path, kernels_only: bool = False) -> dict:
     for line in res.stdout.splitlines():
         if line.startswith('{"kernels"'):
             out["kernels"] = json.loads(line)["kernels"]
+        if line.startswith('{"reverb"'):
+            out["reverb"] = json.loads(line)["reverb"]
         found = re.match(r"\s+ptxas: (setup_kernel|render_kernel<[^>]*>)",
                          line)
-        if found:
+        if "Compiling entry" in line:
+            entry = kernel_name(line)
+        elif found:
             entry = found.group(1)
         if "ptxas" in line and entry:
             for key, pat in (("registers", r"Used (\d+) registers"),
@@ -179,8 +246,9 @@ def run_tree(root: Path, kernels_only: bool = False) -> dict:
 
 
 def main(argv) -> int:
-    kernels_only = "--kernels" in argv
-    argv = [a for a in argv if a != "--kernels"]
+    modes = {"--kernels": KERNEL_TIMES, "--reverb": REVERB_TIMES}
+    snippet = next((modes[a] for a in argv if a in modes), "")
+    argv = [a for a in argv if a not in modes]
     if not argv:
         print(__doc__)
         return 2
@@ -194,13 +262,15 @@ def main(argv) -> int:
     runs = []
     for label, root in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
-        got = run_tree(root, kernels_only)
+        got = run_tree(root, snippet)
         runs.append({"tree": label, **got})
         print(f"[{label}] rc {got['rc']}  ptxas {got['ptxas']}  "
               f"SASS operations {got['sass_ops']}")
         for kernel in got.get("kernels", ()):
             shown = {k: kernel[k] for k in KEYS if k in kernel}
             print(f"  {kernel['name']}: {shown}")
+        if "reverb" in got:
+            print(f"  streaming reverb: {got['reverb']}")
         if got["rc"] != 0:
             print(got["tail"])
     sums = {label: digests(root)
