@@ -12,7 +12,9 @@ with ``WaveSynth``, shaped with ``Sample`` ops and written as a WAV; and
 ``Sample``'s resampling and effects ops (plain PyTorch on the card: these
 paths have no hand-written kernel); and songs from ``.ini`` text through
 ``sequencer.Song``, whose synth tracks render through the kernels' segment
-buses -- and holds both kernels against their plain PyTorch versions on the
+buses; then the realtime layer (streams, mixers, ``Output``,
+``RealtimeVoice``) and the render server, which drives the kernels through
+HTTP -- and holds both kernels against their plain PyTorch versions on the
 card:
 
 1. device: the card's name and power limit, torch and CUDA versions;
@@ -118,7 +120,26 @@ card:
     windows and each bus against its solo render bit for bit, its device
     time and bound; the tracker song (looped and one-shot samplers, swing,
     accents, a sidechain, recurrence-internal automation), card against CPU
-    and streaming against offline.
+    and streaming against offline;
+18. the realtime layer (``realtime_phase``): four files the phase writes
+    (FLAC, AIFF, AU, u-law WAV; 10 s excerpts of the MIDI render) through
+    ``AudiofileToWavStream`` -> ``SampleStream`` (1470 frames) ->
+    ``VolumeFilter`` -> ``RateConvertFilter`` (44100 -> 48000, linear and
+    hq), card == CPU bit for bit and == ``Sample.resample`` of the whole,
+    chunks a second; the lossy writers (MP3, Ogg Vorbis, Opus, M4A) read
+    back through the stream where their system library exists, the
+    skipped ones named; a two-deck ``StreamMixer`` == the offline ``mix``;
+    ``RealTimeMixer`` -> ``Output`` into a WAV sink == the host sum;
+    ``RealtimeVoice`` with config 4's patch card == CPU, lookahead 1 == 4,
+    blocks a second at 1470 frames;
+19. the render server (``server_phase``): ``RenderServer(port=0)`` over
+    sockets -- ``/render/voices`` with config 5 == ``render_song`` ->
+    ``to_int16`` (the pinned sha256), eight concurrent config-5-sized
+    requests in one ``render_kernel<false, buses>`` launch, each == its
+    solo render; ``/render/midi`` on phase 10's file == ``render_midi(...,
+    sparse=False)``; ``/render/song`` of the demo song == ``Song.mix``;
+    ``/render/patch``, ``/health``; each endpoint's latency (median of 5)
+    and requests a second with 8 clients.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -622,8 +643,10 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
           f"long demo song ({len(long_pcm) / SR:.2f} s of audio): mix() "
           f"through the grouped render, launches {launches}; first call "
           f"{first_s:.2f} s")
-    wall = []
-    for _ in range(3):
+    # the first call is one of the three timed runs, for the script's time:
+    # the song is warm by then (phase 17's earlier songs built every path)
+    wall = [first_s * 1e3]
+    for _ in range(2):
         t = time.perf_counter()
         host(long_fx.mix())
         wall.append((time.perf_counter() - t) * 1e3)
@@ -850,6 +873,473 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
             "song_device_busy_share": busy / pwall,
             "song_device_operations": mix_ops,
             "song_stream_chunks_per_s": nchunks / dry_s}
+
+
+def _write_audio_files(d, excerpts):
+    """The phase's own input files, one format each, from int16 stereo
+    excerpts at 44.1 kHz: FLAC (the port's encoder), AIFF and AU
+    (big-endian PCM16, headers written here) and a u-law WAV (each sample
+    coded to the u-law code that decodes nearest to it) -> {name: path}."""
+    import struct
+    from synthesizer_tpu_torch.sample import Sample
+    from synthesizer_tpu_torch.utils.decoders import ulaw_decode
+    paths = {}
+    flac, aiff, au, ulaw = excerpts
+    Sample.from_raw_frames(flac.tobytes(), 2, SR, 2,
+                           device="cpu").write_flac(os.path.join(d, "a.flac"))
+    paths["flac"] = os.path.join(d, "a.flac")
+    m, e = SR, 0
+    while m < (1 << 63):
+        m <<= 1
+        e += 1
+    comm = struct.pack(">HIH", 2, len(aiff), 16) + struct.pack(
+        ">HII", 16383 + 63 - e, m >> 32, m & 0xFFFFFFFF)
+    ssnd = struct.pack(">II", 0, 0) + aiff.astype(">i2").tobytes()
+    body = (b"AIFF" + b"COMM" + struct.pack(">I", len(comm)) + comm
+            + b"SSND" + struct.pack(">I", len(ssnd)) + ssnd)
+    paths["aiff"] = os.path.join(d, "a.aiff")
+    with open(paths["aiff"], "wb") as f:
+        f.write(b"FORM" + struct.pack(">I", len(body)) + body)
+    paths["au"] = os.path.join(d, "a.au")
+    data = au.astype(">i2").tobytes()
+    with open(paths["au"], "wb") as f:
+        f.write(struct.pack(">4sIIIII", b".snd", 24, len(data), 3, SR, 2)
+                + data)
+    table = ulaw_decode(bytes(range(256))).astype(np.int64)
+    order = np.argsort(table)
+    srt = table[order]
+    x = ulaw.reshape(-1).astype(np.int64)
+    hi = np.clip(np.searchsorted(srt, x), 1, 255)
+    nearer = np.where(np.abs(srt[hi - 1] - x) <= np.abs(srt[hi] - x),
+                      hi - 1, hi)
+    codes = order[nearer].astype(np.uint8).tobytes()
+    fmt = struct.pack("<HHIIHH", 7, 2, SR, SR * 2, 2, 8)
+    chunks = (b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data"
+              + struct.pack("<I", len(codes)) + codes)
+    paths["ulaw"] = os.path.join(d, "a.wav")
+    with open(paths["ulaw"], "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE"
+                + chunks)
+    return paths
+
+
+def realtime_phase(dev, card, source):
+    """Phase 18: the realtime layer on the card -- files of four formats
+    through ``AudiofileToWavStream`` -> ``SampleStream`` -> ``VolumeFilter``
+    -> ``RateConvertFilter`` (44100 -> 48000, linear and hq), card against
+    CPU and streamed against ``Sample.resample`` of the whole; the lossy
+    writers read back where their library exists; a two-deck
+    ``StreamMixer`` against the offline ``mix``; ``RealTimeMixer`` ->
+    ``Output`` into a WAV sink; and ``RealtimeVoice`` with config 4's patch,
+    card against CPU, lookahead 1 against 4, and its blocks a second.
+    ``source`` is phase 10's MIDI render on the card."""
+    import threading
+    import wave
+    import torch
+    from synthesizer_tpu_torch import oscillators as O
+    from synthesizer_tpu_torch import playback as P
+    from synthesizer_tpu_torch import streaming as ST
+    from synthesizer_tpu_torch.models import spec as S
+    from synthesizer_tpu_torch.sample import Sample
+    from synthesizer_tpu_torch.voice import RealtimeVoice
+
+    head(f"[18] the realtime layer: streams, mixers, output, voice ({card})")
+    host = np.array(source.get_frame_array())
+    # 10 s excerpts from four places of the render, one for each format
+    excerpts = [np.ascontiguousarray(host[s * SR:(s + 10) * SR])
+                for s in (30, 60, 90, 120)]
+    vol = 0.8
+    with tempfile.TemporaryDirectory() as d:
+        paths = _write_audio_files(d, excerpts)
+
+        def streamed(path, quality, device):
+            with ST.AudiofileToWavStream(path, device=device) as wav:
+                chunks = ST.RateConvertFilter(
+                    ST.VolumeFilter(ST.SampleStream(wav, 1470, device=device),
+                                    vol), 48000, quality)
+                frames = [c.torch_frames for c in chunks]
+            return torch.cat(frames)
+
+        for name, path in paths.items():
+            nchunks = -(-Sample(wave_file=path, device=dev).nframes // 1470)
+            for quality in ("linear", "hq"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                card_y = streamed(path, quality, dev)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t
+                cpu_y = streamed(path, quality, "cpu")
+                whole = Sample(wave_file=path, device=dev).amplify(vol)
+                whole.resample(48000, quality=quality)
+                check(card_y.device.type == "cuda"
+                      and torch.equal(card_y.cpu(), cpu_y)
+                      and torch.equal(card_y, whole.torch_frames),
+                      f"{name} -> AudiofileToWavStream -> SampleStream(1470) "
+                      f"-> VolumeFilter({vol}) -> RateConvertFilter(48000, "
+                      f"{quality}): {tuple(card_y.shape)} frames, card == CPU "
+                      f"bit for bit, == Sample.resample of the whole; "
+                      f"{nchunks / card_s:.1f} chunks a second on the card")
+
+        # the lossy writers need the system codec libraries, which a host
+        # may lack: a format whose library is missing is skipped and named
+        # (the in-process formats above are never skipped)
+        from synthesizer_tpu_torch.utils import codecs as CD
+        from synthesizer_tpu_torch.utils import libav as LA
+        lossy = {"mp3": ("write_mp3", CD.have_lame() and CD.have_mpg123()),
+                 "ogg": ("write_ogg", CD.have_vorbisenc()
+                         and CD.have_vorbisfile()),
+                 "opus": ("write_opus", CD.have_opus()),
+                 "m4a": ("write_m4a", LA.have_libav())}
+        src = excerpts[0][:5 * SR]
+        smp = Sample.from_raw_frames(src.tobytes(), 2, SR, 2, device=dev)
+        rms = float(np.sqrt(np.mean(src.astype(np.float64) ** 2)))
+        for ext, (writer, have) in lossy.items():
+            if not have:
+                continue
+            path = os.path.join(d, f"a.{ext}")
+            getattr(smp, writer)(path)
+            with ST.AudiofileToWavStream(path, device=dev) as wav:
+                back = torch.cat([c.torch_frames for c in
+                                  ST.SampleStream(wav, 1470, device=dev)])
+            got = float(torch.sqrt(torch.mean(back.double() ** 2)))
+            check(back.device.type == "cuda" and back.shape[1] == 2
+                  and abs(back.shape[0] - len(src)) <= len(src) // 100
+                  and abs(20 * math.log10(got / rms)) < 3.0,
+                  f"{ext}: Sample.{writer} of 5 s on the card, read back "
+                  f"through AudiofileToWavStream -> SampleStream: "
+                  f"{back.shape[0]} frames of {len(src)}, level "
+                  f"{20 * math.log10(got / rms):+.2f} dB against the source")
+        print(f"  lossy formats skipped for a missing system library: "
+              f"{[e for e, (_, have) in lossy.items() if not have] or 'none'}")
+
+        # two decks: the FLAC through a volume, the AIFF as it is
+        mixer = ST.StreamMixer(frames_per_chunk=1470, device=dev)
+        for path, v in ((paths["flac"], 0.7), (paths["aiff"], None)):
+            wav = ST.AudiofileToWavStream(path, device=dev)
+            deck = ST.SampleStream(wav, 1470, device=dev)
+            mixer.add_stream(deck if v is None else ST.VolumeFilter(deck, v))
+        with mixer:
+            mixed = torch.cat([c.torch_frames for _, c in mixer])
+        offline = Sample(wave_file=paths["flac"], device=dev).amplify(0.7)
+        offline.mix(Sample(wave_file=paths["aiff"], device=dev))
+        n = offline.nframes
+        check(torch.equal(mixed[:n], offline.torch_frames)
+              and not bool(mixed[n:].any()),
+              f"StreamMixer of two decks ({mixed.shape[0]} frames in chunks "
+              f"of 1470) == the offline Sample.mix ({n} frames), bit for bit")
+
+    # RealTimeMixer -> Output -> a WAV sink whose first chunk waits until
+    # both samples are queued, so that both start in the same chunk
+    a_s = Sample.from_raw_frames(excerpts[0][:2 * SR].tobytes(), 2, SR, 2,
+                                 device=dev)
+    b_s = Sample.from_raw_frames(excerpts[1][:SR].tobytes(), 2, SR, 2,
+                                 device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "out.wav")
+
+        class GatedSink(P.WavSinkAudio):
+            def __init__(self):
+                super().__init__(SR, 2, 2, path)
+                self.entered = threading.Event()
+                self.gate = threading.Event()
+
+            def play_chunk(self, frames):
+                self.entered.set()
+                self.gate.wait(30.0)
+                super().play_chunk(frames)
+
+        sink, played = GatedSink(), []
+        t = time.perf_counter()
+        with P.Output(samplerate=SR, nchannels=2, frames_per_chunk=1470,
+                      mixing="mixed", api=sink) as output:
+            output.register_notify_played(lambda s: played.append(s.name))
+            sink.entered.wait(30.0)
+            output.play_sample(a_s)
+            output.play_sample(b_s)
+            sink.gate.set()
+            deadline = time.time() + 60.0
+            while (output.still_playing() or len(played) < 2) \
+                    and time.time() < deadline:
+                time.sleep(0.005)
+        out_s = time.perf_counter() - t
+        with wave.open(path) as w:
+            got = np.frombuffer(w.readframes(w.getnframes()),
+                                np.int16).reshape(-1, 2)
+    # the sink's first chunk (written while it waited) is silent; both
+    # samples start in the next one
+    want = excerpts[0][:2 * SR].astype(np.int32)
+    want[:SR] += excerpts[1][:SR]
+    want = np.clip(want, -32768, 32767).astype(np.int16)
+    check(len(played) == 2 and not got[:1470].any()
+          and np.array_equal(got[1470:1470 + 2 * SR], want),
+          f"RealTimeMixer -> Output(mixed) -> WAV sink: two card samples "
+          f"(2 s and 1 s) == their saturating host sum, bit for bit, from "
+          f"the second chunk; both ended-callbacks fired ({out_s:.2f} s)")
+
+    # RealtimeVoice with config 4's patch
+    patch4 = S.Echo(
+        S.AmpMod(S.Osc("sawtooth", 330.0, 0.7,
+                       fm_lfo=S.Osc("sine", 5.0, 0.01)),
+                 S.Osc("sine", 2.0, amplitude=0.4, bias=0.6)),
+        0.05, 4, 0.07, 0.6)
+
+    def voice(device, lookahead, release_at=None):
+        return RealtimeVoice(O.Oscillator(patch4, SR), 0.01, 0.02, 0.7, 0.3,
+                             samplerate=SR, blocksize=1470,
+                             echo=(0.02, 3, 0.03, 0.5),
+                             lookahead_blocks=lookahead, device=device)
+
+    def run(device, lookahead):
+        v = voice(device, lookahead)
+        v.release(at_frame=40 * 1470 + 517)
+        return b"".join(v.chunks())
+
+    g1, c1, g4 = run(dev, 1), run("cpu", 1), run(dev, 4)
+    m = min(len(g1), len(g4))
+    lsb = int(np.abs(np.frombuffer(g1, np.int16).astype(np.int64)
+                     - np.frombuffer(c1, np.int16)).max()) \
+        if len(g1) == len(c1) else -1
+    check(len(g1) == len(c1) and g1 == c1 and g1[:m] == g4[:m]
+          and not any((g1 if len(g1) > m else g4)[m:]),
+          f"RealtimeVoice, config 4's patch with a gate echo, released at "
+          f"frame {40 * 1470 + 517}: {len(g1) // 4} frames, card == CPU "
+          f"({lsb} LSB), lookahead 1 == 4 bit for bit")
+    for lookahead in (1, 4):
+        gen = voice(dev, lookahead).chunks()
+        for _ in range(8):
+            next(gen)
+        torch.cuda.synchronize()
+        nb = 240
+        t = time.perf_counter()
+        for _ in range(nb):
+            next(gen)
+        bps = nb / (time.perf_counter() - t)
+        check(bps > 0, f"RealtimeVoice at 1470 frames, lookahead "
+              f"{lookahead}: {bps:.1f} blocks a second over {nb} held "
+              f"blocks (realtime needs 30)")
+
+
+def server_phase(dev, card, config5, gm_data, spread):
+    """Phase 19: the render server on the card -- ``RenderServer(port=0)``
+    over real sockets: ``/render/voices`` with config 5 (against
+    ``render_song`` -> ``to_int16`` and the pinned sha256), eight
+    concurrent config-5-sized requests coalesced into one
+    ``render_kernel<false, buses>`` launch (each against its solo render),
+    ``/render/midi`` on the GM file against ``render_midi(...,
+    sparse=False)``, ``/render/song`` of the demo song against
+    ``Song.mix``, ``/render/patch`` against ``render_patch``, ``/health``;
+    each endpoint's latency (median of 5) and requests a second with 8
+    clients.  Host clocks only: the handlers run on threads.  Returns the
+    server path's launch counts for the ``kernels`` line."""
+    import concurrent.futures as cf
+    import http.client
+    import threading
+    import wave
+    import torch
+    from synthesizer_tpu_torch import bench_song as B
+    from synthesizer_tpu_torch import midi as M
+    from synthesizer_tpu_torch.models import graph as G
+    from synthesizer_tpu_torch.models import spec as S
+    from synthesizer_tpu_torch.ops import kernels as K
+    from synthesizer_tpu_torch.sequencer import Song
+    from synthesizer_tpu_torch.server import RenderServer
+
+    head(f"[19] the render server on the card ({card})")
+
+    def counts():
+        return (K.voice_setup.launches, K.render_stereo.launches,
+                K.render_stereo.bus_launches)
+
+    def zero():
+        K.voice_setup.launches = K.render_stereo.launches = 0
+        K.render_stereo.bus_launches = 0
+
+    def request(port, path, body=None, ctype="application/json"):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        if isinstance(body, str):
+            body = body.encode()
+        conn.request("POST" if body is not None else "GET", path, body=body,
+                     headers={"Content-Type": ctype} if body else {})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    def pcm(data):
+        with wave.open(io.BytesIO(data)) as w:
+            return np.frombuffer(w.readframes(w.getnframes()),
+                                 np.int16).reshape(-1, w.getnchannels())
+
+    kit = tempfile.mkdtemp(prefix="server")
+    ini = B.make_demo_kit(kit, device=dev)
+    song_text = "\n".join(
+        line for line in open(ini).read().splitlines()
+        if line.strip() not in ("[paths]", "samples = ."))
+    srv = RenderServer(port=0, sample_root=kit, device=dev).start()
+    port = srv.port
+    out = {}
+    try:
+        status, data = request(port, "/health")
+        info = json.loads(data)
+        check(status == 200 and info["status"] == "ok"
+              and info["device"] == str(srv.device)
+              and info["name"] == torch.cuda.get_device_name(0),
+              f"/health: {info}")
+
+        # config 5 through /render/voices: the JSON carries every field
+        voices5 = B.build_song(64, 60.0)
+        body5 = json.dumps({"duration": 60.0, "voices": [
+            dataclasses.asdict(v) for v in voices5]})
+        want5 = np.array(B.song_sample(*config5).get_frame_array())
+        zero()
+        status, data = request(port, "/render/voices", body5)
+        solo_counts = counts()
+        got5 = pcm(data)
+        sha = hashlib.sha256(got5.tobytes()).hexdigest()
+        check(status == 200 and np.array_equal(got5, want5)
+              and sha == CONFIG5_SHA256 and solo_counts == (1, 1, 0),
+              f"/render/voices, config 5 (64 voices, 60 s, {len(body5)} B "
+              f"of JSON): == render_song -> to_int16 bit for bit, sha256 "
+              f"{sha[:16]}... == the pinned {CONFIG5_SHA256[:16]}... (the "
+              f"JSON round trip keeps every voice exact); launches (setup, "
+              f"render, bus) {solo_counts}")
+
+        # eight config-5-sized requests, each transposed, queued behind a
+        # small request that the batcher holds until all eight are pending
+        bodies = [json.dumps({"duration": 60.0, "voices": [
+            dataclasses.asdict(dataclasses.replace(
+                v, frequency=v.frequency * 2 ** (k / 12))) for v in voices5]})
+            for k in range(1, 9)]
+        batcher = srv.batcher
+        entered, gate = threading.Event(), threading.Event()
+        execute = batcher._execute
+        batcher._execute = lambda batch: (entered.set(), gate.wait(60.0),
+                                          execute(batch))[2]
+        b0, r0, c0 = batcher.batches, batcher.requests, batcher.coalesced
+        plug = json.dumps({"duration": 0.1, "voices": [{"wave": "sine"}]})
+        results = [None] * 9
+
+        def send(i):
+            results[i] = request(port, "/render/voices",
+                                 plug if i == 8 else bodies[i])
+        zero()
+        threads = [threading.Thread(target=send, args=(8,))]
+        threads[0].start()
+        entered.wait(60.0)          # the worker holds the small request
+        deadline = time.time() + 60.0
+        threads += [threading.Thread(target=send, args=(i,))
+                    for i in range(8)]
+        for th in threads[1:]:
+            th.start()
+        while time.time() < deadline:
+            with batcher._cv:
+                if len(batcher._pending) >= 8:
+                    break
+            time.sleep(0.002)
+        t = time.perf_counter()
+        gate.set()
+        for th in threads:
+            th.join(timeout=300.0)
+        batch_s = time.perf_counter() - t
+        batcher._execute = execute
+        batch_counts = counts()
+        nbatch, ncoal = batcher.batches - b0, batcher.coalesced - c0
+        solos = []
+        for b in bodies:
+            status, data = request(port, "/render/voices", b)
+            solos.append(data if status == 200 else None)
+        check(nbatch == 2 and ncoal == 8 and batch_counts == (2, 2, 1)
+              and all(r is not None and r[0] == 200 for r in results),
+              f"8 concurrent config-5-sized requests (512 voices): "
+              f"{nbatch} batches with the held request, {ncoal} requests "
+              f"coalesced; launches "
+              f"(setup, render, bus) {batch_counts} with the held request's "
+              f"solo render -- one render_kernel<false, buses> launch for "
+              f"the eight; the batch in {batch_s * 1e3:.1f} ms of wall "
+              f"clock")
+        lsbs = [int(np.abs(pcm(r[1]).astype(np.int64) - pcm(s)).max())
+                if r and s and len(r[1]) == len(s) else -1
+                for r, s in zip(results[:8], solos)]
+        check(all(r and r[1] == s for r, s in zip(results[:8], solos)),
+              f"each coalesced response == its solo render (render_kernel"
+              f"<false>), bit for bit: max LSB per request {lsbs}")
+        # per batch of eight: the counts less the held request's solo
+        out.update(setup_per_request=solo_counts[0],
+                   render_per_request=solo_counts[1],
+                   setup_per_batch=batch_counts[0] - solo_counts[0],
+                   render_per_batch=batch_counts[1] - solo_counts[1],
+                   bus_per_batch=batch_counts[2])
+
+        # /render/midi and /render/song against the library calls
+        zero()
+        status, data = request(port, "/render/midi", gm_data, "audio/midi")
+        midi_counts = counts()
+        want = M.render_midi(gm_data, sparse=False,
+                             device=dev).get_frame_array()
+        check(status == 200 and np.array_equal(pcm(data), want)
+              and midi_counts == (1, 1, 0),
+              f"/render/midi, the GM file ({len(gm_data)} B): == "
+              f"render_midi(..., sparse=False) bit for bit, "
+              f"{len(want)} frames; launches {midi_counts}")
+        zero()
+        status, data = request(port, "/render/song", song_text, "text/plain")
+        song_counts = counts()
+        want = Song.from_string(song_text, sample_dir=kit,
+                                device=dev).mix().get_frame_array()
+        check(status == 200 and np.array_equal(pcm(data), want)
+              and song_counts[1] >= 1,
+              f"/render/song, the demo song: == Song.mix bit for bit, "
+              f"{len(want)} frames; launches {song_counts}")
+        patch = {"node": "echo", "after": 0.05, "amount": 4, "delay": 0.07,
+                 "decay": 0.6, "source": {
+                     "node": "amp_mod",
+                     "source": {"node": "osc", "kind": "sawtooth",
+                                "frequency": 330.0, "amplitude": 0.7,
+                                "fm_lfo": {"node": "osc", "kind": "sine",
+                                           "frequency": 5.0,
+                                           "amplitude": 0.01}},
+                     "modulator": {"node": "osc", "kind": "sine",
+                                   "frequency": 2.0, "amplitude": 0.4,
+                                   "bias": 0.6}}}
+        body_p = json.dumps({"duration": 2.0, "patch": patch})
+        status, data = request(port, "/render/patch", body_p)
+        node = S.Echo(S.AmpMod(S.Osc("sawtooth", 330.0, 0.7, fm_lfo=S.Osc(
+            "sine", 5.0, 0.01)), S.Osc("sine", 2.0, amplitude=0.4,
+                                       bias=0.6)), 0.05, 4, 0.07, 0.6)
+        want = G.to_int_device(G.render_patch(node, 2 * SR, SR, device=dev),
+                               2).cpu().numpy()
+        check(status == 200 and np.array_equal(pcm(data)[:, 0], want),
+              "/render/patch, config 4's patch for 2 s: == render_patch "
+              "bit for bit")
+
+        # latency and throughput
+        loads = {"health": ("/health", None, None, 8),
+                 "patch": ("/render/patch", body_p, "application/json", 4),
+                 "voices": ("/render/voices", body5, "application/json", 4),
+                 "midi": ("/render/midi", gm_data, "audio/midi", 2),
+                 "song": ("/render/song", song_text, "text/plain", 1)}
+        for name, (path, body, ctype, per_client) in loads.items():
+            lat = []
+            for _ in range(5):
+                t = time.perf_counter()
+                status, _ = request(port, path, body, ctype)
+                lat.append((time.perf_counter() - t) * 1e3)
+            b1 = batcher.batches
+            t = time.perf_counter()
+            with cf.ThreadPoolExecutor(8) as ex:
+                codes = list(ex.map(lambda _: request(port, path, body,
+                                                      ctype)[0],
+                                    range(8 * per_client)))
+            rps = len(codes) / (time.perf_counter() - t)
+            check(status == 200 and set(codes) == {200},
+                  f"{path}: latency {spread(lat)}; {rps:.2f} requests a "
+                  f"second with 8 clients ({len(codes)} requests"
+                  + (f", {batcher.batches - b1} batches" if name == "voices"
+                     else "") + ")")
+    finally:
+        srv.stop()
+        shutil.rmtree(kit, ignore_errors=True)
+    return out
 
 
 def main():
@@ -2166,6 +2656,8 @@ def main():
     buses = sequencer_phase(dev, card, ptxas, spread, profiled, {
         "vp": vpm, "bank": bm, "total": total_m, "seg": midi_seg, "cm": cm,
         "colm": colm, "seg_bytes": seg_bytes, "windows": windows})
+    realtime_phase(dev, card, midi_smp)
+    served = server_phase(dev, card, config5, data, spread)
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [
@@ -2179,7 +2671,9 @@ def main():
          "midi_ms": midi_setup_ms, "midi_bound_ms": msetup_bound,
          "midi_bound_by": msetup_by, "midi_bound_nofma_ms": msetup_nofma,
          "midi_segment_pass_ms": seg_setup_ms - noseg_setup_ms,
-         "midi_ms_without_segment_pass": noseg_setup_ms},
+         "midi_ms_without_segment_pass": noseg_setup_ms,
+         "server_launches_per_request": served["setup_per_request"],
+         "server_launches_per_batch_of_8": served["setup_per_batch"]},
         {"name": "voicebank_render", "route": "cuda", "source": src,
          "replaces": "synthesizer_tpu/ops/kernels.py:58",
          "launches": launches["voicebank_render"], "max_abs_err": render_err,
@@ -2191,7 +2685,10 @@ def main():
          "render_chunk_ms": statistics.median(chunk_ms),
          "main_path_ms": statistics.median(wall),
          **{k: v for k, v in midi.items() if k != "midi_launches"},
-         "midi_launches": midi_launches["voicebank_render"], **buses}]}))
+         "midi_launches": midi_launches["voicebank_render"], **buses,
+         "server_launches_per_request": served["render_per_request"],
+         "server_launches_per_batch_of_8": served["render_per_batch"],
+         "server_bus_launches_per_batch_of_8": served["bus_per_batch"]}]}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -305,12 +305,11 @@ def make_demo_kit(outdir: str, device="cuda") -> str:
 
 def make_tracker_kit(outdir: str, device="cuda") -> str:
     """The tracker song's kit and ``tracker.ini`` into ``outdir`` -> the
-    ini path.  The one change from the reference's example: the snare is
-    written as ``snare.wav``, not as an AIFF, because the port's
-    ``read_wav`` decodes PCM WAV only until the host codecs are ported
-    (ROADMAP queue 1 item 11); the song text names ``snare.wav``
-    accordingly and is otherwise verbatim."""
+    ini path.  As in the reference's example, the snare is written as an
+    AIFF, which the song loads through the in-process decoder
+    (``utils.decoders``); the song text is verbatim."""
     import os
+    import struct
     from . import oscillators as osc
     from .synth import WaveSynth
     sr = SAMPLERATE
@@ -334,7 +333,20 @@ def make_tracker_kit(outdir: str, device="cuda") -> str:
                              osc.WhiteNoise(amplitude=0.5, seed=3,
                                             samplerate=sr)),
             0.001, 0.1, 0.0, 0.2, 0.03), 0.14, "snare")
-    snare.fadeout(0.04).stereo().write_wav(out("snare.wav"))
+    snare.fadeout(0.04).stereo()
+    # AIFF: big-endian 16-bit PCM, the rate as an 80-bit extended float
+    frames = snare.get_frame_array().astype(">i2")
+    m, e = sr, 0
+    while m < (1 << 63):
+        m <<= 1
+        e += 1
+    rate80 = struct.pack(">HII", 16383 + 63 - e, m >> 32, m & 0xFFFFFFFF)
+    comm = struct.pack(">HIH", 2, len(frames), 16) + rate80
+    ssnd = struct.pack(">II", 0, 0) + frames.tobytes()
+    body = (b"AIFF" + b"COMM" + struct.pack(">I", len(comm)) + comm
+            + b"SSND" + struct.pack(">I", len(ssnd)) + ssnd)
+    with open(out("snare.aiff"), "wb") as f:
+        f.write(b"FORM" + struct.pack(">I", len(body)) + body)
     hat = synth.white_noise(duration=0.04, amplitude=0.3, seed=5)
     hat.fadeout(0.03).stereo().write_wav(out("hat.wav"))
     # one-shot melodic source: Karplus-Strong pluck, repitched per note
@@ -452,8 +464,7 @@ bass  = x... .... ..x. ....
 sub   = E1 -  -  -  -  -  -  -  -  -  -  -  -  -  -  -
 """
 
-# verbatim but for the snare (snare.wav instead of snare.aiff, see
-# make_tracker_kit)
+# verbatim
 TRACKER_INI = """\
 ; tracker-style demo: samplers + loops + accents + automation + swing
 [song]
@@ -467,7 +478,7 @@ samples = .
 
 [instruments]
 kick = kick.wav
-snare = snare.wav
+snare = snare.aiff
 hat = hat.wav
 
 [sampler.pluck]

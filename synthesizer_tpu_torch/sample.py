@@ -28,8 +28,10 @@ loudness meters (``ops/loudness.py``) and both resamplers
 or modulator ``Sample`` is used as it stands: there is no sub-program to
 fuse.
 
-Not ported yet: the compressed-audio writers, which raise
-``NotImplementedError`` naming the ROADMAP queue item they wait for.
+**File output.**  WAV goes through ``utils.wavio``, FLAC through the
+port's own encoder (``utils.flac``), MP3, Ogg Vorbis, Opus and AAC through
+the system codec libraries (``utils.codecs``, ``utils.libav``), which
+raise where a library is missing.
 """
 
 from __future__ import annotations
@@ -57,28 +59,6 @@ _NPDT = {1: np.int8, 2: np.int16, 4: np.int32}
 MAXVAL = dpcm.MAXVAL
 MINVAL = dpcm.MINVAL
 
-_WAITS_FOR = {
-    11: "the host codecs (utils/codecs.py, flac.py, libav.py)",
-}
-
-
-def _not_ported(name: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet: it comes with {_WAITS_FOR[item]} "
-        f"(ROADMAP queue 1 item {item})")
-
-
-def _waits(name: str, item: int):
-    """A method of the reference's ``Sample`` that this port does not have
-    yet: calling it raises and names the queue item it waits for."""
-    def method(self, *args, **kwargs):
-        raise _not_ported(f"Sample.{name}", item)
-    method.__name__ = name
-    method.__doc__ = (f"Not ported yet: waits for {_WAITS_FOR[item]} "
-                      f"(ROADMAP queue 1 item {item}).")
-    return method
-
-
 def _pan_gains(amt: torch.Tensor) -> torch.Tensor:
     """Per-frame pan amounts [n] -> per-channel gains [n, 2]."""
     la = torch.clamp_max(1.0 - amt, 1.0)
@@ -104,7 +84,7 @@ class Sample:
         if wave_file is not None:
             frames, rate, width, nch = wavio.read_wav(wave_file)
             self._frames = torch.from_numpy(
-                np.ascontiguousarray(frames)).to(dev)
+                np.require(frames, requirements=("C", "W"))).to(dev)
             self._samplerate = rate
             self._samplewidth = width
             if isinstance(wave_file, str) and not name:
@@ -284,15 +264,64 @@ class Sample:
                         self._samplewidth, self.nchannels)
         return self
 
-    write_flac = _waits("write_flac", 11)
-    write_mp3 = _waits("write_mp3", 11)
-    write_ogg = _waits("write_ogg", 11)
-    write_opus = _waits("write_opus", 11)
-    write_m4a = _waits("write_m4a", 11)
+    def write_flac(self, file) -> "Sample":
+        """Write the sample losslessly as FLAC (``utils.flac`` encoder:
+        fixed predictors and native Rice coding; decode is bit-identical)."""
+        from .utils.flac import write_flac
+        write_flac(file, self.get_frame_array(), self._samplerate,
+                   self._samplewidth, self.nchannels)
+        return self
+
+    def _frames_16bit(self) -> np.ndarray:
+        """int16 frame array for the lossy encoders (width-converted by
+        ``make_16bit`` on a copy, self untouched)."""
+        if self._samplewidth == 2:
+            return self.get_frame_array()
+        return self.copy().make_16bit(
+            maximize_amplitude=False).get_frame_array()
+
+    def write_mp3(self, file, bitrate: int = 192) -> "Sample":
+        """Encode to MP3 (CBR kbps, LAME info tag for gapless decode)
+        through the system libmp3lame (``utils.codecs``).  Lossy: the
+        sample is width-converted to 16-bit for the encoder."""
+        from .utils.codecs import write_mp3
+        write_mp3(file, self._frames_16bit(), self._samplerate,
+                  self.nchannels, bitrate=bitrate)
+        return self
+
+    def write_ogg(self, file, quality: float = 0.4) -> "Sample":
+        """Encode to Ogg Vorbis (VBR quality -0.1..1.0) through the system
+        libvorbisenc (``utils.codecs``).  Lossy: 16-bit input."""
+        from .utils.codecs import write_vorbis
+        write_vorbis(file, self._frames_16bit(), self._samplerate,
+                     self.nchannels, quality=quality)
+        return self
+
+    def write_opus(self, file, bitrate: int = 128000) -> "Sample":
+        """Encode to Ogg Opus through the system libopus (``utils.codecs``;
+        the Ogg mux is the port's own).  Opus encodes only at
+        8/12/16/24/48 kHz: other rates resample a copy to 48 kHz with the
+        exact ratecv first (self untouched)."""
+        from .utils.codecs import write_opus
+        smp = self
+        if self._samplerate not in (8000, 12000, 16000, 24000, 48000):
+            smp = self.copy().resample(48000)
+        write_opus(file, smp._frames_16bit(), smp._samplerate,
+                   smp.nchannels, bitrate=bitrate)
+        return self
+
+    def write_m4a(self, file, bitrate: int = 128000) -> "Sample":
+        """Encode to AAC in MP4 (.m4a), or raw ADTS when the name ends in
+        .aac, through the libav shim (``utils.libav``).  Lossy: 16-bit."""
+        from .utils.libav import write_with_libav
+        write_with_libav(os.fspath(file), self._frames_16bit(),
+                         self._samplerate, self.nchannels, bitrate=bitrate)
+        return self
 
     def write_audio(self, file) -> "Sample":
-        """Write by the filename extension.  Only WAV is ported; the
-        compressed formats raise."""
+        """Write WAV, FLAC, MP3, Ogg Vorbis, Opus, or AAC/M4A, chosen by
+        the filename extension (the lossy formats need the system codec
+        libraries)."""
         name = os.fspath(file) if isinstance(file, (str, os.PathLike)) \
             else None
         if isinstance(name, str):

@@ -1,1 +1,2 @@
-"""Host-side utilities: WAV I/O."""
+"""Host-side utilities: WAV I/O, the codecs, the native libraries, where
+tensors live."""

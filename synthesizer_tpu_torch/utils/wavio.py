@@ -3,8 +3,9 @@
 Host-side and numpy-only: audio comes from / goes to device tensors, the
 RIFF container handling stays on host.  8-bit WAV is unsigned on disk and
 signed int8 in memory (audioop convention), so width-1 data is rebiased
-here.  Only PCM WAVs are read; the reference's fallback decoders for other
-containers are not ported yet.
+here.  What the stdlib ``wave`` parser rejects (u-law, A-law, IMA-ADPCM
+and float WAVs, AIFF and AU files) falls through to the in-process
+decoders (``utils.decoders``).
 """
 
 from __future__ import annotations
@@ -21,9 +22,26 @@ FileLike = Union[str, BinaryIO]
 
 
 def read_wav(file: FileLike) -> Tuple[np.ndarray, int, int, int]:
-    """Read a PCM WAV file -> (frames [n, nch] signed int array, rate,
-    width, nch)."""
-    with wave.open(file, "rb") as w:
+    """Read a WAV file -> (frames [n, nch] signed int array, rate, width, nch).
+
+    PCM WAVs go through the stdlib ``wave`` parser; anything it rejects
+    (u-law/A-law/IMA-ADPCM/float WAVs, and AIFF/AU files handed to the
+    Sample loader) falls through to the in-process decoders."""
+    try:
+        w = wave.open(file, "rb")
+    except (wave.Error, EOFError):
+        from . import decoders
+        if isinstance(file, str):
+            return decoders.decode_audio_file(file)
+        file.seek(0)
+        magic = file.read(12)
+        file.seek(0)
+        if magic[:4] == b"FORM":
+            return decoders.read_aiff(file)
+        if magic[:4] == b".snd":
+            return decoders.read_au(file)
+        return decoders.read_wav_any(file)
+    with w:
         nch = w.getnchannels()
         width = w.getsampwidth()
         rate = w.getframerate()

@@ -44,6 +44,18 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.params",
                  "synthesizer_tpu_torch.sequencer",
                  "synthesizer_tpu_torch.effects",
+                 "synthesizer_tpu_torch.streaming",
+                 "synthesizer_tpu_torch.playback",
+                 "synthesizer_tpu_torch.voice",
+                 "synthesizer_tpu_torch.server",
+                 "synthesizer_tpu_torch.utils.native",
+                 "synthesizer_tpu_torch.utils.profiling",
+                 "synthesizer_tpu_torch.utils.flac",
+                 "synthesizer_tpu_torch.utils.decoders",
+                 "synthesizer_tpu_torch.utils.codecs",
+                 "synthesizer_tpu_torch.utils.libav",
+                 "synthesizer_tpu_torch.utils.soxr",
+                 "synthesizer_tpu_torch.utils.modules",
                  "synthesizer_tpu_torch.__main__"):
         assert want in names
 
