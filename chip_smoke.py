@@ -14,8 +14,10 @@ paths have no hand-written kernel); and songs from ``.ini`` text through
 ``sequencer.Song``, whose synth tracks render through the kernels' segment
 buses; then the realtime layer (streams, mixers, ``Output``,
 ``RealtimeVoice``) and the render server, which drives the kernels through
-HTTP -- and holds both kernels against their plain PyTorch versions on the
-card:
+HTTP; then the sharded render (``parallel.mesh``: four shards on one card)
+and the apps (``apps.trackmixer``, ``apps.keyboard_gui``,
+``apps.jukebox``) -- and holds both kernels against their plain PyTorch
+versions on the card:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the build time and ptxas' registers and spill bytes of the
@@ -139,7 +141,24 @@ card:
     solo render; ``/render/midi`` on phase 10's file == ``render_midi(...,
     sparse=False)``; ``/render/song`` of the demo song == ``Song.mix``;
     ``/render/patch``, ``/health``; each endpoint's latency (median of 5)
-    and requests a second with 8 clients.
+    and requests a second with 8 clients;
+20. the mesh (``mesh_phase``), four shards on one card:
+    ``parallel.dryrun.dryrun_multichip(4)`` with the reference dry run's
+    bounds; phase 10's GM file through ``render_midi(mesh=)`` (<= 1 LSB
+    against ``render_midi(sparse=False)``, two runs identical, 4 setup and
+    4 render launches), each shard's ``render_kernel<true>`` against its
+    plain version on a window bit for bit; the demo song without its master
+    chain through ``mix(mesh=)`` (each shard's ``render_kernel<false,
+    buses>``; <= 2 LSB against the single-device mix, each shard's bus
+    render against its plain version, streaming chunk 0 == the offline
+    slice); sharded against single-device wall clocks;
+21. the apps (``apps_phase``): ``python -m
+    synthesizer_tpu_torch.apps.trackmixer demo.ini -o out.wav`` in a
+    subprocess, its WAV == ``Song.mix()`` bit for bit; trackmixer's MIDI
+    render of the GM file == ``render_midi``; the keyboard controller's
+    keys (sine, FM routing, wavetable with echo, lowpass, arpeggio) card
+    against CPU; a jukebox crossfade into a WAV sink against the CPU
+    jukebox.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1340,6 +1359,330 @@ def server_phase(dev, card, config5, gm_data, spread):
         srv.stop()
         shutil.rmtree(kit, ignore_errors=True)
     return out
+
+
+def _lsb(a, b):
+    """Max |a - b| of two int16 arrays of one shape (-1 if the shapes
+    differ)."""
+    if a.shape != b.shape:
+        return -1
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max()) \
+        if a.size else 0
+
+
+def _host_ms(fn, reps=3):
+    """fn's result and its synchronised wall clock, ms, over reps calls."""
+    import torch
+    ts, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return out, ts
+
+
+def mesh_phase(dev, card, gm_data, spread, profiled, pick):
+    """Phase 20: the sharded render on the card, four shards on one card
+    (``VoiceMesh([cuda:0] * 4)``): ``parallel.dryrun.dryrun_multichip(4)``
+    with every bound of the reference's dry run; the GM file through
+    ``render_midi(mesh=)`` against ``render_midi(sparse=False)`` (<= 1 LSB),
+    two sharded runs bit-identical, 4 setup and 4 render launches, each
+    shard's ``render_kernel<true>`` against its plain version on a window
+    bit for bit; the demo song without its master chain through
+    ``mix(mesh=)`` (``render_kernel<false, buses>`` on each shard) against
+    the single-device mix (<= 2 LSB), each shard's bus render against its
+    plain version, streaming chunk 0 against the offline slice; sharded
+    against single-device wall clocks, and the sharded renders' kernels
+    under the profiler.  Returns the launch counts and times for the
+    ``kernels`` line."""
+    import torch
+    from synthesizer_tpu_torch import bench_song as B
+    from synthesizer_tpu_torch import midi as M
+    from synthesizer_tpu_torch.models.voicebank import BankLayout
+    from synthesizer_tpu_torch.ops import kernels as K
+    from synthesizer_tpu_torch.parallel import mesh as PM
+    from synthesizer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from synthesizer_tpu_torch.sequencer import Song
+
+    head(f"[20] the mesh: four shards on one card ({card})")
+    devs = [dev] * 4
+    mesh = PM.voice_mesh(devices=devs)
+    out = {}
+
+    def counts():
+        return (K.voice_setup.launches, K.render_stereo.launches,
+                K.render_stereo.bus_launches)
+
+    def zero():
+        K.voice_setup.launches = K.render_stereo.launches = 0
+        K.render_stereo.bus_launches = 0
+
+    t = time.perf_counter()
+    try:
+        dry = dryrun_multichip(4, devices=devs)
+        check(True, f"dryrun_multichip(4) on {mesh}: {dry} "
+              f"({time.perf_counter() - t:.1f} s)")
+    except AssertionError as e:
+        check(False, f"dryrun_multichip(4) on {mesh}: {e}")
+
+    # the MIDI workload at full width, flat render on both sides
+    single = M.render_midi(gm_data, sparse=False, device=dev)
+    single_pcm = single.get_frame_array()
+    zero()
+    sharded = M.render_midi(gm_data, mesh=mesh, device=dev)
+    pcm = sharded.get_frame_array()
+    out["midi"] = midi_counts = counts()
+    again = M.render_midi(gm_data, mesh=mesh, device=dev).get_frame_array()
+    d = _lsb(pcm, single_pcm)
+    check(midi_counts == (4, 4, 0) and sharded.device.type == "cuda"
+          and 0 <= d <= 1 and np.array_equal(again, pcm)
+          and np.abs(pcm.astype(np.int64)).max() > 1000,
+          f"GM file ({len(pcm)} frames) through render_midi(mesh=): {d} LSB "
+          f"against render_midi(sparse=False), two sharded runs "
+          f"identical, launches (setup, render, bus) {midi_counts}")
+    del again
+    _, ms_shard = _host_ms(lambda: M.render_midi(
+        gm_data, mesh=mesh, device=dev).get_frame_array())
+    _, ms_flat = _host_ms(lambda: M.render_midi(
+        gm_data, sparse=False, device=dev).get_frame_array())
+    _, ms_sparse = _host_ms(lambda: M.render_midi(
+        gm_data, device=dev).get_frame_array())
+    out["midi_ms"] = statistics.median(ms_shard)
+    out["midi_single_ms"] = statistics.median(ms_flat)
+    print(f"  render_midi to the host, wall clock: 4 shards "
+          f"{spread(ms_shard)}; one device, flat {spread(ms_flat)}; one "
+          f"device, sparse {spread(ms_sparse)}")
+    by_name, busy, pwall = profiled(lambda: M.render_midi(
+        gm_data, mesh=mesh, device=dev).get_frame_array(), 3)
+    out["midi_render_ms"] = pick(by_name, "render_kernel")
+    out["midi_setup_ms"] = pick(by_name, "setup_kernel")
+    print(f"  render_midi(mesh=) under the profiler: the 4 render_kernel "
+          f"launches {out['midi_render_ms']:.6f} ms, the 4 setup_kernel "
+          f"{out['midi_setup_ms']:.6f} ms a call; device busy {busy:.3f} of "
+          f"{pwall:.3f} ms ({100 * busy / pwall:.1f}%)")
+
+    # each shard's curve kernel against its plain version on one window.
+    # The notes come in time order, so each shard's block of voices sounds
+    # in its own stretch of the song: the window starts at the shard's
+    # median note start
+    notes = M.parse_midi(gm_data, release_grace=M.release_grace_for(None))
+    voices = M.midi_to_voices(notes, None)
+    shards, uw, ufm, ugl, ub, ua, ud = PM.song_synth_shards(voices, SR, mesh)
+    flags = dict(use_glide=ugl, use_bend=ub, use_amp=ua, use_dmod=ud)
+    nfr = 16384
+    same, starts = [], []
+    for s in shards:
+        n0 = int(s.start.double().median())
+        starts.append(n0)
+        layout = BankLayout.ungrouped(int(s.wave.shape[0]), 8, ufm)
+        kern = K.render_stereo(s, n0, nframes=nfr, samplerate=SR,
+                               layout=layout, **flags)
+        plain = K.render_stereo_reference(s, n0, nframes=nfr, samplerate=SR,
+                                          layout=layout, **flags)
+        torch.cuda.synchronize()
+        same.append(torch.equal(kern, plain)
+                    and float(kern.abs().max()) > 0.0)
+    check(all(same) and ub and ua and ud,
+          f"each of the 4 shards ({int(shards[0].wave.shape[0])} voices, "
+          f"curves bend/amp/depth {ub}/{ua}/{ud}): render_kernel<true> == "
+          f"plain on {nfr} frames from {starts}, not silent, bit for bit: "
+          f"{same}")
+
+    # the demo song without its master chain: the grouped path
+    kit = tempfile.mkdtemp(prefix="mesh")
+    try:
+        song = Song.from_ini(B.make_demo_kit(kit, device=dev), device=dev)
+        song.fx = []
+        song.automation.pop("master.volume", None)
+        single = song.mix(normalize=False).get_frame_array()
+        zero()
+        arr = song.mix(normalize=False, mesh=mesh).get_frame_array()
+        out["song"] = song_counts = counts()
+        again = song.mix(normalize=False, mesh=mesh).get_frame_array()
+        d = _lsb(arr, single)
+        check(song_counts == (4, 4, 4) and 0 <= d <= 2
+              and np.array_equal(again, arr),
+              f"demo song ({len(arr)} frames) through mix(mesh=), master "
+              f"chain removed: {d} LSB against the single-device mix, two "
+              f"sharded runs identical, launches (setup, render, bus) "
+              f"{song_counts}")
+        chunk0 = next(song.mix_generator(chunk_frames=1470, mesh=mesh)
+                      ).get_frame_array()
+        check(np.array_equal(chunk0, arr[:len(chunk0)]),
+              "demo song: sharded streaming chunk 0 == the sharded offline "
+              "slice")
+        voices, vtracks = song.compile_synth_voices(return_tracks=True)
+        fx_tracks = song._fx_synth_tracks(vtracks)
+        gsh, gseg, uw, ufm, ugl = PM.song_synth_shards_grouped(
+            voices, vtracks, fx_tracks, SR, mesh)
+        nseg = len(fx_tracks) + 1
+        same = []
+        for s, g in zip(gsh, gseg):
+            layout = BankLayout.ungrouped(int(s.wave.shape[0]), 8, ufm)
+            g = g.to(dev)
+            kern = K.render_stereo(s, 0, nframes=nfr, samplerate=SR,
+                                   layout=layout, use_glide=ugl, seg=g,
+                                   nseg=nseg)
+            plain = K.render_stereo_reference(
+                s, 0, nframes=nfr, samplerate=SR, layout=layout,
+                use_glide=ugl, seg=g, nseg=nseg)
+            torch.cuda.synchronize()
+            same.append(torch.equal(kern, plain))
+        check(all(same), f"each shard's bus render ({nseg} buses, "
+              f"render_kernel<false, buses>) == plain on frames [0, {nfr}) "
+              f"bit for bit: {same}")
+        _, ms_shard = _host_ms(lambda: song.mix(
+            normalize=False, mesh=mesh).get_frame_array())
+        _, ms_one = _host_ms(lambda: song.mix(
+            normalize=False).get_frame_array())
+        out["song_ms"] = statistics.median(ms_shard)
+        out["song_single_ms"] = statistics.median(ms_one)
+        print(f"  demo song mix() to the host, wall clock: 4 shards "
+              f"{spread(ms_shard)}; one device {spread(ms_one)}")
+        by_name, busy, pwall = profiled(lambda: song.mix(
+            normalize=False, mesh=mesh).get_frame_array(), 3)
+        out["song_render_ms"] = pick(by_name, "render_kernel")
+        print(f"  mix(mesh=) under the profiler: the 4 render_kernel<false, "
+              f"buses> launches {out['song_render_ms']:.6f} ms a call; "
+              f"device busy {busy:.3f} of {pwall:.3f} ms "
+              f"({100 * busy / pwall:.1f}%)")
+    finally:
+        shutil.rmtree(kit, ignore_errors=True)
+    return out
+
+
+def apps_phase(dev, card, gm_data, source, spread):
+    """Phase 21: the apps on the card -- ``python -m
+    synthesizer_tpu_torch.apps.trackmixer demo.ini -o out.wav`` in a
+    subprocess, its WAV against ``Song.mix()`` in this process bit for bit;
+    trackmixer's MIDI render of the GM file against ``render_midi``; the
+    keyboard controller's keys on the card against the CPU (1 LSB, the
+    filter its Biquad budget); a jukebox crossfade of two excerpts of
+    ``source`` (int16 [n, 2]) into a WAV sink against the same jukebox on
+    the CPU."""
+    import wave
+    import torch
+    from synthesizer_tpu_torch import Output
+    from synthesizer_tpu_torch import bench_song as B
+    from synthesizer_tpu_torch import midi as M
+    from synthesizer_tpu_torch.apps import keyboard_gui as KG
+    from synthesizer_tpu_torch.apps import trackmixer as TM
+    from synthesizer_tpu_torch.apps.jukebox import backend, box
+    from synthesizer_tpu_torch.playback import WavSinkAudio
+    from synthesizer_tpu_torch.sequencer import Song
+
+    head(f"[21] the apps on the card ({card})")
+
+    def read(path):
+        with wave.open(path) as w:
+            return np.frombuffer(w.readframes(w.getnframes()),
+                                 np.int16).reshape(-1, w.getnchannels())
+
+    def write(path, frames):
+        with wave.open(path, "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(SR)
+            w.writeframes(np.ascontiguousarray(frames).tobytes())
+
+    d = tempfile.mkdtemp(prefix="apps")
+    try:
+        ini = B.make_demo_kit(d, device=dev)
+        wav = os.path.join(d, "out.wav")
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "synthesizer_tpu_torch.apps.trackmixer",
+             ini, "-o", wav], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        want, mix_ms = _host_ms(lambda: Song.from_ini(
+            ini, device=dev).mix().get_frame_array(), reps=1)
+        ok = res.returncode == 0 and os.path.exists(wav)
+        check(ok and np.array_equal(read(wav), want),
+              f"python -m synthesizer_tpu_torch.apps.trackmixer demo.ini -o "
+              f"out.wav: rc {res.returncode}, {wall:.2f} s with the process "
+              f"start, it says {res.stdout.strip()!r}; the WAV == Song.mix() "
+              f"here ({mix_ms[0]:.1f} ms) bit for bit"
+              + ("" if ok else f"; stderr {res.stderr[-2000:]}"))
+
+        mid = os.path.join(d, "gm.mid")
+        with open(mid, "wb") as f:
+            f.write(gm_data)
+        t = time.perf_counter()
+        rc = TM.main([mid, "-o", os.path.join(d, "gm.wav")])
+        tm_ms = (time.perf_counter() - t) * 1e3
+        want = M.render_midi(gm_data, device=dev).get_frame_array()
+        check(rc == 0 and np.array_equal(read(os.path.join(d, "gm.wav")),
+                                         want),
+              f"trackmixer gm.mid -o gm.wav: {tm_ms:.1f} ms, the WAV == "
+              f"render_midi bit for bit")
+
+        def settings(c, case):
+            if case == "fm":
+                c.oscs[1].waveform = "sine"
+                c.oscs[1].ratio = 0.01
+                c.oscs[1].amplitude = 0.01
+                c.oscs[0].fm_source = 1
+            elif case == "wavetable+echo":
+                c.oscs[0].waveform = "wavetable"
+                c.echo.enabled = True
+            elif case == "lowpass":
+                c.oscs[0].waveform = "sawtooth"
+                c.filter.enabled = True
+                c.filter.cutoff = 500.0
+            return c
+        diffs = {}
+        for case, tol in (("sine", 1), ("fm", 1), ("wavetable+echo", 1),
+                          ("lowpass", 3)):
+            card_key = settings(KG.SynthController(device=dev), case)
+            cpu_key = settings(KG.SynthController(device="cpu"), case)
+            a = card_key.render_key(49)
+            diffs[case] = _lsb(a.get_frame_array(),
+                               cpu_key.render_key(49).get_frame_array())
+            ok = a.device.type == "cuda" and 0 <= diffs[case] <= tol
+            if not ok:
+                break
+        arp = [KG.SynthController(device=x) for x in (dev, "cpu")]
+        for c in arp:
+            c.arp.enabled = True
+        diffs["arpeggio"] = _lsb(*(c.render_arpeggio(49).get_frame_array()
+                                   for c in arp))
+        check(ok and 0 <= diffs["arpeggio"] <= 1,
+              f"keyboard controller render_key, card against CPU (LSB): "
+              f"{diffs}")
+
+        lib_dir = os.path.join(d, "lib")
+        os.makedirs(lib_dir)
+        write(os.path.join(lib_dir, "a.wav"), source[10 * SR:13 * SR])
+        write(os.path.join(lib_dir, "b.wav"), source[60 * SR:63 * SR])
+        sink = os.path.join(d, "jukebox.wav")
+        lib = backend.MusicLibrary(device=dev)
+        lib.scan(lib_dir)
+        jb = box.Jukebox(lib, crossfade=1.0, frames_per_chunk=4410,
+                         device=dev)
+        for tr in lib.search(""):
+            jb.enqueue(tr)
+        t = time.perf_counter()
+        with Output(samplerate=SR, nchannels=2, mixing="sequential",
+                    api=WavSinkAudio(SR, 2, 2, sink)) as outdev:
+            jb.play(outdev)
+        jb_s = time.perf_counter() - t
+        cpu = box.Jukebox(backend.MusicLibrary(device="cpu"), crossfade=1.0,
+                          frames_per_chunk=4410, device="cpu")
+        for tr in lib.search(""):
+            cpu.enqueue(tr)
+        want = np.concatenate([c.get_frame_array() for c in cpu.chunks()])
+        got = read(sink)
+        dj = _lsb(got, want)
+        check(0 <= dj <= 1 and 4 * SR <= len(got) <= 6 * SR,
+              f"jukebox crossfade of two 3 s tracks into a WAV sink: "
+              f"{len(got)} frames in {jb_s:.3f} s, {dj} LSB against the "
+              f"CPU jukebox")
+        lib.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def main():
@@ -2658,6 +3001,8 @@ def main():
         "colm": colm, "seg_bytes": seg_bytes, "windows": windows})
     realtime_phase(dev, card, midi_smp)
     served = server_phase(dev, card, config5, data, spread)
+    meshed = mesh_phase(dev, card, data, spread, profiled, pick)
+    apps_phase(dev, card, data, midi_pcm, spread)
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [
@@ -2673,7 +3018,10 @@ def main():
          "midi_segment_pass_ms": seg_setup_ms - noseg_setup_ms,
          "midi_ms_without_segment_pass": noseg_setup_ms,
          "server_launches_per_request": served["setup_per_request"],
-         "server_launches_per_batch_of_8": served["setup_per_batch"]},
+         "server_launches_per_batch_of_8": served["setup_per_batch"],
+         "mesh_launches": meshed["midi"][0],
+         "mesh_ms": meshed["midi_setup_ms"],
+         "mesh_song_launches": meshed["song"][0]},
         {"name": "voicebank_render", "route": "cuda", "source": src,
          "replaces": "synthesizer_tpu/ops/kernels.py:58",
          "launches": launches["voicebank_render"], "max_abs_err": render_err,
@@ -2688,7 +3036,16 @@ def main():
          "midi_launches": midi_launches["voicebank_render"], **buses,
          "server_launches_per_request": served["render_per_request"],
          "server_launches_per_batch_of_8": served["render_per_batch"],
-         "server_bus_launches_per_batch_of_8": served["bus_per_batch"]}]}))
+         "server_bus_launches_per_batch_of_8": served["bus_per_batch"],
+         "mesh_launches": meshed["midi"][1],
+         "mesh_ms": meshed["midi_render_ms"],
+         "mesh_song_launches": meshed["song"][1],
+         "mesh_song_ms": meshed["song_render_ms"],
+         "mesh_song_bus_launches": meshed["song"][2],
+         "mesh_midi_wall_ms": meshed["midi_ms"],
+         "single_midi_wall_ms": meshed["midi_single_ms"],
+         "mesh_song_wall_ms": meshed["song_ms"],
+         "single_song_wall_ms": meshed["song_single_ms"]}]}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

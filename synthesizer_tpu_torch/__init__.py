@@ -1,28 +1,47 @@
 """PyTorch/CUDA port of ``synthesizer_tpu``.
 
 The JAX package stays the reference; this package mirrors its layout
-(``models/``, ``ops/``, ``utils/``) and names, so each module sits opposite
-the one it is held against.  It imports ``torch`` and numpy and never
-``jax`` or ``synthesizer_tpu``.
+(``models/``, ``ops/``, ``parallel/``, ``utils/``) and names, so each module
+sits opposite the one it is held against.  It imports ``torch`` and numpy
+and never ``jax`` or ``synthesizer_tpu``.
 
-Ported so far: the voice-bank song mixdown (``models.voicebank``) with
-pitch, amplitude and FM-depth curves and the sparse bucketed render; its
-fused render as two hand-written Hopper kernels, a per-voice setup and a
-render that skips silent voice-tiles and takes the curves and the sparse
-rows (``ops.kernels`` and ``csrc/voicebank_render.cu``); the MIDI path
-(``midi``: SMF parse and write, GM mapping, ``render_midi``); the
-turn-unit trig helpers, ``params``, the ``sequencer.SynthDef`` and WAV
-output; and the WaveSynth -> Sample -> WAV path: the patch spec
-(``models.spec``), its lowering (``models.graph``), the ``oscillators``,
-``WaveSynth`` (``synth``), the PCM primitives (``ops.pcm``) and the
-``Sample`` core (``sample``), whose ``get_frame_array`` copies a result to
-the host through pinned memory.  Its entry points run on the card unless
-the caller passes ``device="cpu"``.
+Everything the JAX package does is ported: the voice-bank song mixdown
+(``models.voicebank``, with pitch, amplitude and FM-depth curves, the
+sparse bucketed render and the segment buses) and its fused render as two
+hand-written Hopper kernels, a per-voice setup and a tiled render
+(``ops.kernels`` and ``csrc/voicebank_render.cu``); the MIDI path
+(``midi``); the WaveSynth -> Sample -> WAV path (``models.spec``,
+``models.graph``, ``oscillators``, ``synth``, ``ops.pcm``, ``sample``);
+resampling, effects and loudness (``ops.resample``, ``ops.effects``,
+``ops.coeffs``, ``ops.loudness``); the pattern sequencer and its fx rack
+(``sequencer``, ``effects``); the realtime layer and the render server
+(``streaming``, ``playback``, ``voice``, ``server``, the host codecs in
+``utils``); the sharded render over several devices (``parallel.mesh``,
+``Song.mix(mesh=)``, ``render_midi(mesh=)``) with its dry run
+(``parallel.dryrun``); and the apps (``apps.trackmixer``,
+``apps.keyboard_gui``, ``apps.jukebox``).  Its entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 
-from . import oscillators, params
-from .sample import Sample
-from .synth import WaveSynth, key_freq, note_freq
+__version__ = "0.1.0"
 
-__all__ = ["Sample", "WaveSynth", "key_freq", "note_freq", "oscillators",
-           "params"]
+from . import oscillators, params
+from .midi import render_midi
+from .models.voicebank import Voice, VoiceBank, pack_voices
+from .ops.loudness import StreamingLoudness
+from .playback import Output, RealTimeMixer
+from .sample import LevelMeter, Sample
+from .sequencer import Song
+from .server import RenderServer
+from .streaming import (AudiofileToWavStream, EndlessFramesFilter,
+                        SampleStream, StreamMixer, VolumeFilter)
+from .synth import WaveSynth, key_freq, note_freq
+from .utils.profiling import RenderTimer
+from .voice import RealtimeVoice
+
+__all__ = ["AudiofileToWavStream", "EndlessFramesFilter", "LevelMeter",
+           "Output", "RealTimeMixer", "RealtimeVoice", "RenderServer",
+           "RenderTimer", "Sample", "SampleStream", "Song", "StreamMixer",
+           "StreamingLoudness", "Voice", "VoiceBank", "VolumeFilter",
+           "WaveSynth", "key_freq", "note_freq", "oscillators", "pack_voices",
+           "params", "render_midi"]

@@ -10,13 +10,12 @@ sound.  A minimal writer is included for tests and for exporting songs.
 The parser, the GM tables, ``midi_to_voices`` and the writer are the
 reference's pure Python, copied so the same bytes give equal results.
 
-    pcm = render_midi("song.mid")                 # int16 [frames, 2] on the card
-    pcm = render_midi("song.mid", instruments={0: SynthDef(wave="sine")})
+    smp = render_midi("song.mid")                 # int16 Sample on the card
+    smp = render_midi("song.mid", instruments={0: SynthDef(wave="sine")})
 
-Until ``Sample`` is ported, ``render_midi`` and ``render_notes`` return the
-int16 stereo tensor [frames, 2] (on the bank's device) that the reference
-wraps in ``Sample.from_jax``; a file with no notes gives an empty [0, 2]
-tensor.  ``mesh=`` (the sharded render) is not ported yet and raises.
+``render_midi`` and ``render_notes`` return a 16-bit stereo ``Sample`` on
+``device``; a file with no notes gives an empty one.  With ``mesh=`` (a
+``parallel.mesh.VoiceMesh``) the voices shard over the mesh's devices.
 
 Controllers honored: CC64 sustain pedal (note-offs while the pedal is
 down are deferred to the pedal release — the gap that audibly truncates
@@ -658,11 +657,13 @@ def render_notes(notes: Sequence[MidiNote],
     active-voice rows (``VoiceBank.sparse_plan``, bit-identical to the
     flat render); the plan's ranges come from the note list.  Dense or
     short files keep the flat grouped render through the plan's cost
-    model; ``sparse=False`` forces it."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: the sharded render "
-                                  "(mesh=) comes with the parallel slice of "
-                                  "the PyTorch port")
+    model; ``sparse=False`` forces it.
+
+    With ``mesh`` (a ``parallel.mesh.VoiceMesh``) the voice axis shards
+    over the mesh's devices like ``Song.mix(mesh=)``: each shard renders
+    its voices (curves included) in the flat render, never the sparse
+    plan, and the f32 partials add in shard order (within 1 LSB of the
+    single-device render); the result is moved to ``device``."""
     dev = _device(device)
     sr = samplerate or params.norm_samplerate
     if not notes:
@@ -670,6 +671,16 @@ def render_notes(notes: Sequence[MidiNote],
             torch.zeros((0, 2), dtype=torch.int16, device=dev), sr, 2)
     voices = midi_to_voices(notes, instruments)
     total = song_frames(voices, sr, tail_seconds)
+    if mesh is not None:
+        from .parallel.mesh import render_song_sharded, song_synth_shards
+        vp, uw, ufm, ugl, ub, ua, ud = song_synth_shards(
+            voices, sr, mesh, num_harmonics=8)
+        stereo = render_song_sharded(
+            vp, total, sr, chunk_frames=8192, num_harmonics=8, mesh=mesh,
+            used_waves=uw, use_fm=ufm, use_glide=ugl, use_bend=ub,
+            use_amp=ua, use_dmod=ud)
+        return Sample.from_torch(VoiceBank.to_int16(stereo).to(dev), sr, 2,
+                                 name="midi")
     if sparse:
         # UNSORTED pack: the rows render ungrouped anyway, and keeping the
         # note order aligned with the vp rows lets the plan's ranges come

@@ -35,7 +35,15 @@ passes ``device="cpu"``):
 budgets with fx) and seeks with ``start_frame``.  The reference's device
 functions (``_mixdown_kernel``, ``_pitched_chunk_body``, the chunk
 programs) are XLA code, not Pallas kernels; they are plain PyTorch here.
-``mesh=`` (the sharded render) is not ported yet and raises.
+
+With ``mesh=`` (a ``parallel.mesh.VoiceMesh``) ``mix`` and
+``mix_generator`` run data-parallel over the mesh's devices: the main drum
+hits and the pitched-sampler rows shard over the mesh with an exact int32
+merge, and the synth voices (grouped into their track buses when
+``[fx.TRACK]`` chains exist) shard over the same axis with the f32
+partials added in shard order (within 1 LSB of the single-device mix).
+The drum fx buses and the sidechain keys render unsharded, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -71,13 +79,6 @@ _FX_AUTO_SUBKEYS = frozenset((
     "phaser.wet", "phaser.dry", "phaser.rate", "phaser.depth",
     "tremolo.rate", "tremolo.depth", "autopan.rate", "autopan.depth",
 ))
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: the sharded render (mesh=) comes with the "
-            "parallel slice of the PyTorch port (ROADMAP queue 1 item 12)")
 
 
 @dataclasses.dataclass
@@ -1052,9 +1053,11 @@ class Song:
         return ends
 
     @staticmethod
-    def _bucket(starts, ends, nchunks: int, cf: int, start_frame: int):
+    def _bucket(starts, ends, nchunks: int, cf: int, start_frame: int,
+                ndev: int = 0):
         """Per-chunk row indices of hits [start, end) for chunks
-        [start_frame + c*cf, ...) -> (per_chunk lists, K >= 1)."""
+        [start_frame + c*cf, ...) -> (per_chunk lists, K >= 1), K padded
+        to a multiple of ``ndev`` (a mesh's size) when one is given."""
         first_c = np.maximum(0, (starts - start_frame) // cf)
         last_c = np.minimum(nchunks - 1, (ends - 1 - start_frame) // cf)
         per_chunk: List[List[int]] = [[] for _ in range(nchunks)]
@@ -1062,6 +1065,8 @@ class Song:
             for c in range(int(first_c[h]), int(last_c[h]) + 1):
                 per_chunk[c].append(h)
         K = max((len(h) for h in per_chunk), default=1) or 1
+        if ndev:
+            K += -K % ndev
         return per_chunk, K
 
     def _pitched_rows(self, per_chunk, K, idx, starts, rates, gains,
@@ -1096,16 +1101,24 @@ class Song:
                       loopu_b))
 
     def _pitched_mix(self, bank, lens, idx, starts, rates, gains,
-                     loopf, loopu, ends, total: int,
-                     cf: int = 32768) -> torch.Tensor:
+                     loopf, loopu, ends, total: int, cf: int = 32768,
+                     mesh=None) -> torch.Tensor:
         """Offline pitched-sampler mixdown -> int32 [total, C]: a loop over
-        chunks of the streaming body, rows bucketed per chunk."""
+        chunks of the streaming body, rows bucketed per chunk.  With
+        ``mesh`` the rows (padded to a multiple of the mesh size) shard
+        over its devices and merge exactly in int32."""
         nchunks = -(-total // cf)
-        per_chunk, K = self._bucket(starts, ends, nchunks, cf, 0)
+        per_chunk, K = self._bucket(starts, ends, nchunks, cf, 0,
+                                    mesh.size if mesh is not None else 0)
         rows = self._pitched_rows(per_chunk, K, idx, starts, rates, gains,
                                   loopf, loopu)
         bank_d = _t(bank, self.device)
         lens_d = _t(lens, self.device)
+        if mesh is not None:
+            from .parallel.mesh import pitched_song_sharded
+            out = pitched_song_sharded(bank_d, lens_d, *rows,
+                                       range(0, nchunks * cf, cf), cf, mesh)
+            return out.to(self.device)[:total]
         out = torch.cat([
             _pitched_chunk_body(bank_d, lens_d, *(r[c] for r in rows),
                                 c * cf, cf) for c in range(nchunks)])
@@ -1260,9 +1273,16 @@ class Song:
                 sched.gains[m], int(sched.lengths[idx]))
 
     def _scatter(self, sched: HitSchedule, mask, total: int,
-                 bank_d=None) -> torch.Tensor:
-        """The hits ``mask`` selects -> int32 [total, C]."""
+                 bank_d=None, mesh=None) -> torch.Tensor:
+        """The hits ``mask`` selects -> int32 [total, C] (sharded over
+        ``mesh`` with an exact int32 merge when one is given)."""
         dev = self.device
+        if mesh is not None:
+            from .parallel.mesh import scatter_mix_sharded
+            return scatter_mix_sharded(
+                _t(sched.bank, dev) if bank_d is None else bank_d,
+                sched.hits[mask, 0], sched.hits[mask, 1], total, mesh,
+                hits_gain=sched.gains[mask]).to(dev)
         return _mixdown_kernel(
             _t(sched.bank, dev) if bank_d is None else bank_d,
             _t(sched.hits[mask, 0], dev, torch.int64),
@@ -1415,8 +1435,12 @@ class Song:
         ``normalize`` the peak is amplified to full scale first (make_16bit
         semantics), otherwise values saturate at int16.  With a master
         chain or master volume the int16-saturated mix goes through them
-        (volume, chain) before the normalization."""
-        _no_mesh(mesh)
+        (volume, chain) before the normalization.
+
+        With ``mesh`` (a ``parallel.mesh.VoiceMesh``) the main drum hits
+        and the pitched rows shard over its devices (exact int32 merges)
+        and the synth voices shard over the same axis (f32 partials added
+        in shard order: within 1 LSB of the single-device mix)."""
         from .effects import apply_fx_sample, chain_tail_frames
         sched, voices, vtracks, pitched, pends, frames = self._compile()
         (pbank, plens, pidx, pstart, prate, pgains, ploopf,
@@ -1441,7 +1465,7 @@ class Song:
                          if len(pidx) else ()):
             bus32 = self._pitched_mix(pbank, plens, pidx[m], pstart[m],
                                       prate[m], pgains[m], ploopf[m],
-                                      ploopu[m], pends[m], total)
+                                      ploopu[m], pends[m], total, mesh=mesh)
             if tname is None:
                 out32 = out32 + bus32
             else:
@@ -1452,13 +1476,37 @@ class Song:
             main_m, drum_buses = self._drum_bus_split(sched)
             bank_d = _t(sched.bank, self.device)
             if main_m.any():
-                out32 = out32 + self._scatter(sched, main_m, total, bank_d)
+                out32 = out32 + self._scatter(sched, main_m, total, bank_d,
+                                              mesh)
             for name, m in drum_buses.items():
                 out32 = out32 + self._run_track_chain(
                     _to16(self._scatter(sched, m, total, bank_d)),
                     self.drum_fx_bus[name], name, total, sc_keys)
-        if voices:
-            if self._fx_synth_tracks(vtracks):
+        fx_tracks = self._fx_synth_tracks(vtracks)
+        if voices and mesh is not None:
+            from .parallel import mesh as PM
+            if fx_tracks:
+                # the grouped render over the mesh: each shard renders its
+                # voices into the track buses, the bus stacks add in shard
+                # order, and each fx'd bus runs its chain as below
+                vp, seg, uw, ufm, ugl = PM.song_synth_shards_grouped(
+                    voices, vtracks, fx_tracks, self.samplerate, mesh)
+                buses = PM.render_song_grouped_sharded(
+                    vp, seg, len(fx_tracks) + 1, total, self.samplerate,
+                    chunk_frames=32768, num_harmonics=8, mesh=mesh,
+                    used_waves=uw, use_fm=ufm, use_glide=ugl)
+                out32 = self._add_synth_buses(out32, buses.to(self.device),
+                                              fx_tracks, total, sc_keys)
+            else:
+                vp, uw, ufm, ugl, ub, ua, ud = PM.song_synth_shards(
+                    voices, self.samplerate, mesh)
+                stereo = PM.render_song_sharded(
+                    vp, total, self.samplerate, chunk_frames=32768,
+                    num_harmonics=8, mesh=mesh, used_waves=uw, use_fm=ufm,
+                    use_glide=ugl, use_bend=ub, use_amp=ua, use_dmod=ud)
+                out32 = out32 + _quantize(stereo.to(self.device))
+        elif voices:
+            if fx_tracks:
                 # the grouped render: the clean bus plus a stereo bus per
                 # fx'd track from one kernel launch
                 bank, vp, seg, fx_tracks = self._synth_fx_groups(
@@ -1557,10 +1605,12 @@ class Song:
         streaming processors, and silence-fed chunks drain the decay tails
         at the end: the result matches ``mix(normalize=False,
         tail_seconds=0)`` within the per-effect budgets.  Seeking with fx
-        starts the effect state cold at ``start_frame``."""
-        _no_mesh(mesh)
+        starts the effect state cold at ``start_frame``.  With ``mesh``
+        each chunk renders sharded as ``mix(mesh=)`` does, bit-identical
+        to the sharded offline mix."""
         sc_fns = self._sidechain_key_fns()
-        gen = self._mix_generator_raw(chunk_frames, start_frame, sc_fns)
+        gen = self._mix_generator_raw(chunk_frames, start_frame, sc_fns,
+                                      mesh)
         if "master.volume" in self.automation:
             gen = self._volume_chunks(gen, start_frame)
         if not self.fx:
@@ -1617,8 +1667,8 @@ class Song:
 
     def _mix_generator_raw(self, chunk_frames: Optional[int] = None,
                            start_frame: int = 0,
-                           sidechain_keys: Optional[Dict] = None
-                           ) -> Iterator[Sample]:
+                           sidechain_keys: Optional[Dict] = None,
+                           mesh=None) -> Iterator[Sample]:
         """Stream the song as fixed-size chunks, before the master volume
         and chain.  Host control walks the hit schedule; each chunk is one
         gather and sum over the hits overlapping it, the pitched rows of
@@ -1627,7 +1677,10 @@ class Song:
         cannot normalize).  ``start_frame`` seeks: every render is
         stateless in the absolute frame, so the first chunk starts exactly
         there, mid-hit and mid-note included, bit-exact with the offline
-        slice (track chains start cold at the seek)."""
+        slice (track chains start cold at the seek).  With ``mesh`` the
+        main drum rows and the pitched rows (each padded to a multiple of
+        the mesh size) and the synth voices shard as in ``mix(mesh=)``;
+        the drum fx buses stay unsharded."""
         from .effects import FxChain
         sched, voices, vtracks, pitched, pends, total = self._compile()
         (pbank, plens, pidx, pstart, prate, pgains, ploopf,
@@ -1652,16 +1705,40 @@ class Song:
         synth = None          # c0 -> (clean f32 [cf, 2], {track: bus})
         track_chains: Dict[str, "object"] = {}
         if voices and fx_tracks:
-            gbank, gvp, gseg, fx_tracks = self._synth_fx_groups(
-                voices, vtracks, chunk_frames=cf)
             nseg = len(fx_tracks) + 1
+            if mesh is not None:
+                from .parallel import mesh as PM
+                gvp, gseg, uw, ufm, ugl = PM.song_synth_shards_grouped(
+                    voices, vtracks, fx_tracks, self.samplerate, mesh)
+                gfn = PM.render_chunk_grouped_sharded_fn(
+                    mesh, cf, self.samplerate, 8, uw, ufm, nseg,
+                    use_glide=ugl)
+
+                def grouped(c0):
+                    return gfn(gvp, gseg, c0).to(dev)
+            else:
+                gbank, gvp, gseg, fx_tracks = self._synth_fx_groups(
+                    voices, vtracks, chunk_frames=cf)
+
+                def grouped(c0):
+                    return gbank.render_chunk_grouped(gvp, gseg, nseg, c0)
             track_chains = {n: track_chain(self.synth_fx[n], n)
                             for n in fx_tracks}
 
             def synth(c0):
-                buses = gbank.render_chunk_grouped(gvp, gseg, nseg, c0)
+                buses = grouped(c0)
                 return buses[:, 0], {n: buses[:, i + 1]
                                      for i, n in enumerate(fx_tracks)}
+        elif voices and mesh is not None:
+            from .parallel import mesh as PM
+            svp, uw, ufm, ugl, ub, ua, ud = PM.song_synth_shards(
+                voices, self.samplerate, mesh)
+            sfn = PM.render_chunk_sharded_fn(
+                mesh, cf, self.samplerate, 8, uw, ufm, use_glide=ugl,
+                use_bend=ub, use_amp=ua, use_dmod=ud)
+
+            def synth(c0):
+                return sfn(svp, c0).to(dev), {}
         elif voices:
             sbank, svp = self._synth_bank(voices, chunk_frames=cf)
 
@@ -1670,6 +1747,19 @@ class Song:
 
         # chunk ci covers [start_frame + ci*cf, start_frame + (ci+1)*cf)
         nchunks = -(-(total - start_frame) // cf)
+        ndev = mesh.size if mesh is not None else 0
+        drum_chunk, pitched_chunk = _stream_chunk, _pitched_chunk_body
+        if mesh is not None:
+            from .parallel import mesh as PM
+            sharded_drums = PM.stream_chunk_sharded_fn(mesh, cf)
+            sharded_pitched = PM.pitched_chunk_sharded_fn(mesh, cf)
+
+            # the sharded fns hold cf: the bodies' last argument drops
+            def drum_chunk(*a):
+                return sharded_drums(*a[:-1]).to(dev)
+
+            def pitched_chunk(*a):
+                return sharded_pitched(*a[:-1]).to(dev)
         pitched_groups = []     # (rows, chain or None)
         if len(pidx):
             pbank_d = _t(pbank, dev)
@@ -1677,7 +1767,7 @@ class Song:
             for m, tname in self._sampler_fx_masks(
                     self._last_pitched_tracks):
                 pper, PK = self._bucket(pstart[m], pends[m], nchunks, cf,
-                                        start_frame)
+                                        start_frame, ndev)
                 rows = self._pitched_rows(pper, PK, pidx[m], pstart[m],
                                           prate[m], pgains[m], ploopf[m],
                                           ploopu[m])
@@ -1690,7 +1780,7 @@ class Song:
         main_m, drum_buses = self._drum_bus_split(sched)
         ends = starts + sched.lengths[insts]
         main_rows = self._rows(*self._bucket(starts[main_m], ends[main_m],
-                                             nchunks, cf, start_frame),
+                                             nchunks, cf, start_frame, ndev),
                                insts[main_m], starts[main_m],
                                sched.gains[main_m])
         bus_rows = {
@@ -1701,14 +1791,14 @@ class Song:
             for name, m in drum_buses.items()}
 
         for ci, c0 in enumerate(range(start_frame, total, cf)):
-            acc = _stream_chunk(bank, *(r[ci] for r in main_rows), c0, cf)
+            acc = drum_chunk(bank, *(r[ci] for r in main_rows), c0, cf)
             for rows, chain in bus_rows.values():
                 b16 = _to16(_stream_chunk(bank, *(r[ci] for r in rows), c0,
                                           cf))
                 acc = acc + chain.process(b16).to(torch.int32)
             for rows, chain in pitched_groups:
-                pc = _pitched_chunk_body(pbank_d, plens_d,
-                                         *(r[ci] for r in rows), c0, cf)
+                pc = pitched_chunk(pbank_d, plens_d,
+                                   *(r[ci] for r in rows), c0, cf)
                 acc = acc + (pc if chain is None else
                              chain.process(_to16(pc)).to(torch.int32))
             synth_chunk = None

@@ -56,8 +56,39 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.utils.libav",
                  "synthesizer_tpu_torch.utils.soxr",
                  "synthesizer_tpu_torch.utils.modules",
+                 "synthesizer_tpu_torch.parallel",
+                 "synthesizer_tpu_torch.parallel.mesh",
+                 "synthesizer_tpu_torch.parallel.dryrun",
+                 "synthesizer_tpu_torch.apps",
+                 "synthesizer_tpu_torch.apps.trackmixer",
+                 "synthesizer_tpu_torch.apps.keyboard_gui",
+                 "synthesizer_tpu_torch.apps.jukebox",
+                 "synthesizer_tpu_torch.apps.jukebox.backend",
+                 "synthesizer_tpu_torch.apps.jukebox.box",
                  "synthesizer_tpu_torch.__main__"):
         assert want in names
+
+
+def _reference_exports():
+    """The names the JAX package's ``__init__.py`` imports into its top
+    level (read from its source: importing it would load jax)."""
+    tree = ast.parse((ROOT / "synthesizer_tpu" / "__init__.py").read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return names
+
+
+def test_top_level_exports_every_reference_name():
+    ref = _reference_exports()
+    assert len(ref) == 23 and {"Song", "RenderServer", "render_midi",
+                               "RealtimeVoice", "StreamingLoudness"} <= ref
+    assert ref <= set(synthesizer_tpu_torch.__all__)
+    for name in synthesizer_tpu_torch.__all__:
+        obj = getattr(synthesizer_tpu_torch, name)
+        mod = getattr(obj, "__module__", None) or obj.__name__
+        assert mod.startswith("synthesizer_tpu_torch"), (name, mod)
 
 
 def test_port_sources_name_no_jax():

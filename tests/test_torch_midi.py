@@ -187,11 +187,21 @@ def test_empty_mesh_and_device():
     assert isinstance(empty, Sample)
     assert (empty.nframes, empty.nchannels, empty.samplewidth) == (0, 2, 2)
     assert empty.torch_frames.dtype == torch.int16
-    notes = [TM.MidiNote(0.0, 0.2, 60, 100, 0)]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TM.render_notes(notes, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TM.render_midi(TM.write_midi(notes), mesh=object(), device="cpu")
+    # mesh= shards the voices (parallel.mesh): within 1 LSB of the
+    # single-device render, on the device asked for
+    from synthesizer_tpu_torch.parallel.mesh import voice_mesh
+    mesh = voice_mesh(2, devices=[torch.device("cpu")] * 2)
+    notes = [TM.MidiNote(0.0, 0.2, 60, 100, 0),
+             TM.MidiNote(0.1, 0.2, 64, 90, 1)]
+    assert TM.render_notes([], mesh=mesh, device="cpu").nframes == 0
+    single = TM.render_notes(notes, device="cpu").get_frame_array()
+    for got in (TM.render_notes(notes, mesh=mesh, device="cpu"),
+                TM.render_midi(TM.write_midi(notes), mesh=mesh,
+                               device="cpu")):
+        assert isinstance(got, Sample) and got.device.type == "cpu"
+        a = got.get_frame_array().astype(np.int64)
+        assert a.shape == single.shape and np.abs(single).max() > 1000
+        assert np.abs(a - single).max() <= 1
 
 
 def test_render_entry_points_default_to_the_card(monkeypatch):

@@ -419,11 +419,18 @@ def test_song_defaults_to_the_card(kit):
 
 
 def test_mesh_raises_naming_item_12(songs):
+    """mesh= no longer raises (queue 1 item 12 is ported,
+    ``parallel.mesh``): the drum song's hits shard with an exact int32
+    merge, offline and streamed."""
+    from synthesizer_tpu_torch.parallel.mesh import voice_mesh
     _, ts, _, _ = songs["drums"]
-    for call in (lambda: ts.mix(mesh=object()),
-                 lambda: list(ts.mix_generator(mesh=object()))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    mesh = voice_mesh(4, devices=[torch.device("cpu")] * 4)
+    want = ts.mix(normalize=False).get_frame_array()
+    np.testing.assert_array_equal(
+        ts.mix(normalize=False, mesh=mesh).get_frame_array(), want)
+    got = np.concatenate([c.get_frame_array() for c in
+                          ts.mix_generator(chunk_frames=2000, mesh=mesh)])
+    np.testing.assert_array_equal(got, want[:len(got)])
 
 
 BAD_SONGS = [
