@@ -90,8 +90,8 @@ versions on the card:
 14. resample at full width: the MIDI render (7,905,280 stereo frames)
     through the exact ratecv and the windowed-sinc resampler at 44100 ->
     48000 and 48000 -> 44100, card == CPU bit for bit, streamed in chunks
-    of 1470 and 65536 == whole, and on a 0.2 s excerpt in chunks of 1, 7, 160
-    and 997; the ratecv at 22050 -> 44100 and 44100 -> 44101 at widths 1, 2
+    of 65536 (the whole render) and 1470 (its first 30 s) == whole, and on
+    a 0.05 s excerpt in chunks of 1, 7, 160 and 997; the ratecv at 22050 -> 44100 and 44100 -> 44101 at widths 1, 2
     and 4 on 1 M frames; times by CUDA events, wall clock and profiler;
 15. config 3 of ``bench.py`` (16 sines rendered at 22050 Hz, resampled to
     44100, amplified, faded, made stereo and mixed) on the card == on the
@@ -111,7 +111,7 @@ versions on the card:
     (dry bit for bit, with fx within the chain's summed budgets),
     streaming in chunks of 1470 against offline, a seek, two card runs;
     the same song 14 times as long (183.75 s): ``mix()`` wall clock (median
-    of 3) and under the profiler, the grouped render (the segment-bus
+    of 2; the profiler pass on the song as written), the grouped render (the segment-bus
     specialisation ``render_kernel<false, buses>``) against its plain
     version on three windows
     and each bus against its solo render bit for bit, its device time and
@@ -158,7 +158,15 @@ versions on the card:
     render of the GM file == ``render_midi``; the keyboard controller's
     keys (sine, FM routing, wavetable with echo, lowpass, arpeggio) card
     against CPU; a jukebox crossfade into a WAV sink against the CPU
-    jukebox.
+    jukebox;
+22. the on-card battery (``battery_phase``): the four sections of
+    ``synthesizer_tpu_torch.gpu_verify`` -- every waveform through the
+    graph and the bank, the MIDI curves, the configs, the effects rack --
+    against the numpy oracles (``goldref``) with the reference battery's
+    bounds, each check one of this script's; then the four examples
+    (``fm_bell``, ``midi_demo``, ``render_server_demo``,
+    ``sharded_mixdown``) in-process on the card, their WAVs checked and
+    their render kernel launches counted.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -350,9 +358,12 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
             out.append(rs.flush()[0])
         return torch.cat(out)
 
-    # 0.2 s: the chunk-1 streams are launch-bound (PR 7 ran them on 1 s in
-    # about three minutes), cut so that the whole script stays in its time
-    excerpt = x_g[60 * SR:60 * SR + SR // 5]
+    # 0.05 s: the chunk-1 streams are launch-bound (on 1 s they took about
+    # three minutes, on 0.2 s 31-43 s), cut so that the whole script stays
+    # in its time; the chunk-1470 streams on the first 30 s (on the whole
+    # render 17-23 s), the chunk-65536 ones on the whole
+    excerpt = x_g[60 * SR:60 * SR + SR // 20]
+    x30 = x_g[:30 * SR]
     for a, b in ((44100, 48000), (48000, 44100)):
         for kind, make in (("linear", linear), ("hq", hq)):
             fn = make(a, b)
@@ -363,17 +374,18 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
                   f"for bit")
             text, _ = described(lambda: fn(x_g))
             print(f"  {kind} {a} -> {b} on the card: {text}")
-            for chunk in (1470, 65536):
+            for chunk, x_s, y_s in ((1470, x30, fn(x30)),
+                                    (65536, x_g, y_g)):
                 t = time.perf_counter()
-                same = torch.equal(stream(kind, a, b, x_g, chunk), y_g)
-                check(same, f"{kind} {a} -> {b}: streamed in chunks of "
-                      f"{chunk} == whole, bit for bit "
+                same = torch.equal(stream(kind, a, b, x_s, chunk), y_s)
+                check(same, f"{kind} {a} -> {b}: {x_s.shape[0]} frames "
+                      f"streamed in chunks of {chunk} == whole, bit for bit "
                       f"({time.perf_counter() - t:.2f} s)")
             whole = fn(excerpt)
             t = time.perf_counter()
             bad = [c for c in (1, 7, 160, 997)
                    if not torch.equal(stream(kind, a, b, excerpt, c), whole)]
-            check(not bad, f"{kind} {a} -> {b} on a 0.2 s excerpt: streamed in "
+            check(not bad, f"{kind} {a} -> {b} on a 0.05 s excerpt: streamed in "
                   f"chunks of 1, 7, 160 and 997 == whole, bit for bit"
                   f"{'' if not bad else ', EXCEPT ' + str(bad)} "
                   f"({time.perf_counter() - t:.2f} s)")
@@ -662,23 +674,27 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
           f"long demo song ({len(long_pcm) / SR:.2f} s of audio): mix() "
           f"through the grouped render, launches {launches}; first call "
           f"{first_s:.2f} s")
-    # the first call is one of the three timed runs, for the script's time:
-    # the song is warm by then (phase 17's earlier songs built every path)
+    # the first call is one of the two timed runs, for the script's time:
+    # the song is warm by then (phase 17's earlier songs built every path);
+    # each run takes about 12 s, so a third run would add one more
     wall = [first_s * 1e3]
-    for _ in range(2):
-        t = time.perf_counter()
-        host(long_fx.mix())
-        wall.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    host(long_fx.mix())
+    wall.append((time.perf_counter() - t) * 1e3)
     print(f"  long demo song, mix() to the int16 on the host, wall clock: "
           f"{spread(wall)} ({len(long_pcm) / SR / statistics.median(wall) * 1e3:.1f}"
           f"x realtime)")
-    # one call under the profiler (device activity only: about a million
-    # launches; the song is warm)
-    by_name, busy, pwall = profiled(lambda: host(long_fx.mix()), 1,
+    # one call under the profiler (device activity only), on the demo song
+    # as written: the long song's 603,152 device operations took the
+    # profiler about a minute and a half to read, and its busy share
+    # (6.7%) is the short song's work repeated
+    demo_fx_song = songs["fx"][0]
+    by_name, busy, pwall = profiled(lambda: host(demo_fx_song.mix()), 1,
                                     cpu=False, warm=False)
     mix_ops = profiled.launches
-    print(f"  long demo song under the profiler: {pwall:.3f} ms wall, "
-          f"{mix_ops:.0f} device operations, device busy {busy:.3f} ms "
+    print(f"  the demo song as written ({len(outs['fx']) / SR:.2f} s) under "
+          f"the profiler: {pwall:.3f} ms wall, {mix_ops:.0f} device "
+          f"operations, device busy {busy:.3f} ms "
           f"({100 * busy / pwall:.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {ms:.3f} ms  {name[:80]}")
@@ -1683,6 +1699,75 @@ def apps_phase(dev, card, gm_data, source, spread):
         lib.close()
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+def battery_phase(dev, card):
+    """Phase 22: the on-card battery (``gpu_verify``) through this script's
+    checks, then the four examples of ``synthesizer_tpu_torch/examples``
+    in-process on the card, their WAVs checked."""
+    import wave
+
+    from synthesizer_tpu_torch import gpu_verify as GV
+    from synthesizer_tpu_torch.examples import (fm_bell, midi_demo,
+                                                render_server_demo,
+                                                sharded_mixdown)
+    from synthesizer_tpu_torch.ops import kernels as K
+    head(f"[22] the on-card battery: gpu_verify's four sections against "
+         f"the numpy oracles ({card})")
+    na = []
+
+    def bcheck(name, ok, detail=""):
+        if ok is None:
+            na.append(name)
+            print(f"  n/a  {name}  {detail}", flush=True)
+        else:
+            check(ok, f"{name}  {detail}")
+
+    t0 = time.perf_counter()
+    for name, fn in GV.SECTIONS:
+        t = time.perf_counter()
+        fn(dev, bcheck)
+        print(f"  section {name}: {time.perf_counter() - t:.1f} s")
+    battery_s = time.perf_counter() - t0
+    check(na == ["fx/chorus_banded_vs_gather"],
+          f"the battery's only N/A is the TPU chorus layout: {na}")
+
+    head(f"[22] the four examples on the card (the battery took "
+         f"{battery_s:.1f} s)")
+
+    def wav(path):
+        with wave.open(path) as w:
+            a = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+            return a.reshape(-1, w.getnchannels())
+
+    with tempfile.TemporaryDirectory() as d:
+        runs = ((fm_bell, [d], ["bell_graph.wav", "bell_eager.wav",
+                                "bell_chord.wav"]),
+                (midi_demo, [d], ["midi_demo.wav"]),
+                (render_server_demo, [d], ["served_patch.wav",
+                                           "served_voices.wav"]),
+                (sharded_mixdown, [os.path.join(d, "sharded.wav")],
+                 ["sharded.wav"]))
+        for mod, argv, files in runs:
+            name = mod.__name__.rsplit(".", 1)[1]
+            before = K.render_stereo.launches
+            t = time.perf_counter()
+            mod.main(argv)          # --device defaults to the card
+            took = time.perf_counter() - t
+            launched = K.render_stereo.launches - before
+            for f in files:
+                a = wav(os.path.join(d, f))
+                peak = int(np.abs(a.astype(np.int64)).max())
+                stereo = a.shape[1] == 2 or f == "served_patch.wav"
+                differ = (name != "midi_demo"
+                          or bool((a[:, 0] != a[:, 1]).any()))
+                check(peak > 1000 and stereo and differ,
+                      f"examples/{name}: {f}, {a.shape[0]} frames x "
+                      f"{a.shape[1]}, peak {peak}"
+                      + (", L != R" if name == "midi_demo" else ""))
+            check(launched > 0,
+                  f"examples/{name}: {took:.2f} s, {launched} render "
+                  f"kernel launch(es) in this process")
 
 
 def main():
@@ -3003,6 +3088,7 @@ def main():
     served = server_phase(dev, card, config5, data, spread)
     meshed = mesh_phase(dev, card, data, spread, profiled, pick)
     apps_phase(dev, card, data, midi_pcm, spread)
+    battery_phase(dev, card)
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     print(json.dumps({"kernels": [

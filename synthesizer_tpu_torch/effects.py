@@ -253,7 +253,14 @@ def swept_biquad_chunk(x: torch.Tensor, n0: int, kind: str, q: float,
     graph engine's LFO-swept Biquad formulas), applied through the
     companion scan with carried (x1, x2, y1, y2) state.  Stateless in the
     absolute frame ``n0`` apart from the filter state.  Returns (y_int,
-    new_state)."""
+    new_state).
+
+    The scan runs in f64 on the f32 coefficients and input, rounded back
+    to f32.  In f32, without the fused multiply-adds that XLA's 2x2
+    products get on the CPU, a sweep that ends at a low, resonant cutoff
+    (300 Hz, Q 2, over one second) drifted 10 LSB from the sequential f64
+    recurrence (the JAX package: 4), past the 8 LSB the reference allows
+    between streaming and offline; the f64 scan stays within 1 LSB."""
     if kind not in ("lowpass", "highpass", "bandpass"):
         raise ValueError("fx.filter.cutoff automation supports "
                          "lowpass/highpass/bandpass only (shelving kinds "
@@ -286,7 +293,7 @@ def swept_biquad_chunk(x: torch.Tensor, n0: int, kind: str, q: float,
               (one - alpha) * a0r)
     if state is None:
         state = _zero_state(x.shape[1], False, dev)
-    y, state = dfx.biquad_apply(s, coeffs, state)
+    y, state = dfx.biquad_apply(s, coeffs, state, torch.float64)
     return dfx.to_int_samples(y, width), state
 
 

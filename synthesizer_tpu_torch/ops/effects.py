@@ -217,7 +217,8 @@ def _compose(l, r):
     return M, c
 
 
-def companion_scan(u: torch.Tensor, a1, a2, y1, y2) -> torch.Tensor:
+def companion_scan(u: torch.Tensor, a1, a2, y1, y2,
+                   dtype=torch.float32) -> torch.Tensor:
     """y_n = u_n - a1_n y_{n-1} - a2_n y_{n-2} as a PARALLEL affine scan
     over 2x2 companion matrices.  ``a1``/``a2`` may be scalars
     (constant-coefficient biquads) or [B] tensors (swept filters);
@@ -226,18 +227,23 @@ def companion_scan(u: torch.Tensor, a1, a2, y1, y2) -> torch.Tensor:
     The f32 rounding depends on how the scan groups its products, so the
     result agrees with the sequential f64 recurrence within the budgets of
     the reference's filter tests (a few LSB at 16 bit, more as the poles
-    approach the unit circle), not bit for bit."""
+    approach the unit circle), not bit for bit.  ``dtype=torch.float64``
+    runs the scan on the f32 inputs in f64 and rounds the result to f32
+    (see ``effects.swept_biquad_chunk``)."""
     dev = u.device
+    u = u.to(dtype)
     ones = torch.ones_like(u)
     zeros = torch.zeros_like(u)
-    a1 = _f32(a1, dev)
-    a2 = _f32(a2, dev)
+    a1 = _f32(a1, dev).to(dtype)
+    a2 = _f32(a2, dev).to(dtype)
     row0 = torch.stack([-a1 * ones, -a2 * ones], dim=-1)      # [B, 2]
     row1 = torch.stack([ones, zeros], dim=-1)
     M = torch.stack([row0, row1], dim=-2)                     # [B, 2, 2]
     c = torch.stack([u, zeros], dim=-1)                       # [B, 2]
     M, c = associative_scan(_compose, (M, c))
-    return M[:, 0, 0] * _f32(y1, dev) + M[:, 0, 1] * _f32(y2, dev) + c[:, 0]
+    y = (M[:, 0, 0] * _f32(y1, dev).to(dtype)
+         + M[:, 0, 1] * _f32(y2, dev).to(dtype) + c[:, 0])
+    return y.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -394,11 +400,13 @@ def biquad_apply_ff(s: torch.Tensor, coeff_pairs, state=None):
     return out, new_state
 
 
-def biquad_apply(s: torch.Tensor, coeffs, state=None):
+def biquad_apply(s: torch.Tensor, coeffs, state=None,
+                 scan_dtype=torch.float32):
     """Biquad on a normalized f32 signal [n, ch]:
     y_n = b0 x_n + b1 x_{n-1} + b2 x_{n-2} - a1 y_{n-1} - a2 y_{n-2},
     channels independent; coefficients are scalars or [n] grids.  ``state``
     carries (x1, x2, y1, y2) each [ch] across chunks (zeros at start).
+    ``scan_dtype`` is the companion scan's (f32, or f64 rounded to f32).
     Returns (y, new_state).  Spec: goldref.effects.biquad_filter."""
     n, nch = s.shape
     dev = s.device
@@ -412,7 +420,7 @@ def biquad_apply(s: torch.Tensor, coeffs, state=None):
         x = s[:, c]
         xp1, xp2 = _delayed(x, x1[c], x2[c])
         u = b0 * x + b1 * xp1 + b2 * xp2
-        y = companion_scan(u, a1, a2, y1[c], y2[c])
+        y = companion_scan(u, a1, a2, y1[c], y2[c], scan_dtype)
         cols.append(y)
         ny1.append(y[-1])
         ny2.append(y[-2] if n >= 2 else y1[c])

@@ -388,3 +388,45 @@ def test_chorus_core_with_phase_grid_matches_jax():
     d = np.abs(want - got.numpy()).max() * 32767
     assert d <= BUDGETS["chorus"], d
     assert not math.isnan(d)
+
+
+def test_swept_cutoff_tracks_the_f64_recurrence():
+    """A one-second cutoff sweep that ends at a low, resonant cutoff (the
+    on-card battery's fx/automation_filter_sweep: 300 -> 6000 -> 300 Hz,
+    Q 2): the whole-signal call and 1470-frame chunks stay within 1 LSB of
+    the sequential f64 recurrence on the same f32 coefficients (the f32
+    scan drifted 10 LSB, past the reference's 8 between streaming and
+    offline), and within 8 of each other."""
+    n, tickf, q = 46306, SR / 16.0, 2.0
+    t = np.arange(n) / SR
+    saw = 0.4 * (2.0 * ((130.8128 * t) % 1.0) - 1.0)
+    x = np.repeat(np.rint(saw * 32767).astype(np.int16)[:, None], 2, 1)
+    xs, vs = TE._curve([(0, 300.0), (8, 6000.0), (16, 300.0)])
+    whole, _ = TE.swept_biquad_chunk(torch.from_numpy(x), 0, "lowpass", q,
+                                     xs, vs, tickf, SR)
+    chunks, state = [], None
+    for i in range(0, n, 1470):
+        y, state = TE.swept_biquad_chunk(torch.from_numpy(x[i:i + 1470]), i,
+                                         "lowpass", q, xs, vs, tickf, SR,
+                                         state)
+        chunks.append(y.numpy())
+    # the oracle: the same f32 cutoff grid and RBJ formulas, the
+    # recurrence in f64, frame by frame
+    fc = np.clip(np.interp(np.arange(n, dtype=np.float32)
+                           / np.float32(tickf), xs, vs).astype(np.float32),
+                 10.0, np.float32(0.49 * SR))
+    w0 = (np.float32(2.0 * math.pi / SR) * fc).astype(np.float64)
+    alpha, cw = np.sin(w0) / (2.0 * q), np.cos(w0)
+    b0, b1, a0 = (1 - cw) / 2, 1 - cw, 1 + alpha
+    a1, a2 = -2 * cw, 1 - alpha
+    s = x[:, 0].astype(np.float64) / 32767.0
+    y = np.zeros(n)
+    x1 = x2 = y1 = y2 = 0.0
+    for i in range(n):
+        y[i] = (b0[i] * s[i] + b1[i] * x1 + b0[i] * x2 - a1[i] * y1
+                - a2[i] * y2) / a0[i]
+        x2, x1, y2, y1 = x1, s[i], y1, y[i]
+    want = np.clip(np.rint(y * 32767), -32768, 32767)
+    assert _lsb(whole.numpy()[:, 0], want) <= 1
+    assert _lsb(np.concatenate(chunks)[:, 0], want) <= 1
+    assert _lsb(np.concatenate(chunks), whole.numpy()) <= 8

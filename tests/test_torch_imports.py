@@ -65,6 +65,12 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.apps.jukebox",
                  "synthesizer_tpu_torch.apps.jukebox.backend",
                  "synthesizer_tpu_torch.apps.jukebox.box",
+                 "synthesizer_tpu_torch.gpu_verify",
+                 "synthesizer_tpu_torch.examples",
+                 "synthesizer_tpu_torch.examples.fm_bell",
+                 "synthesizer_tpu_torch.examples.midi_demo",
+                 "synthesizer_tpu_torch.examples.render_server_demo",
+                 "synthesizer_tpu_torch.examples.sharded_mixdown",
                  "synthesizer_tpu_torch.__main__"):
         assert want in names
 
@@ -155,3 +161,26 @@ def test_chip_smoke_imports_no_jax():
     names = modules | {f"{m}.{n}" for m, ns in imports for n in ns}
     assert not [n for n in names if _is_jax(n)], sorted(names)
     _loads_no_jax(imports)
+
+
+def test_gpu_verify_imports_no_jax_nor_tests():
+    """The battery loads neither jax, the JAX package nor the JAX suite's
+    oracles (it keeps its own copies), and names no test module."""
+    tree = ast.parse((ROOT / "synthesizer_tpu_torch" / "gpu_verify.py")
+                     .read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else [node.module or ""])
+            assert not [m for m in mods if _is_jax(m)
+                        or m.split(".")[0].startswith("test")], mods
+    code = ("import sys\n"
+            "import synthesizer_tpu_torch.gpu_verify\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'synthesizer_tpu', 'test_voicebank', 'tests'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
