@@ -111,18 +111,23 @@ versions on the card:
     (dry bit for bit, with fx within the chain's summed budgets),
     streaming in chunks of 1470 against offline, a seek, two card runs;
     the same song 14 times as long (183.75 s): ``mix()`` wall clock (median
-    of 2; the profiler pass on the song as written), the grouped render (the segment-bus
-    specialisation ``render_kernel<false, buses>``) against its plain
-    version on three windows
-    and each bus against its solo render bit for bit, its device time and
-    bound, ptxas' 48 registers and no spill, streamed chunks a second; the
-    curve kernel's bus mode (``render_kernel<true, buses>``) on phase 10's
-    MIDI bank split over three buses by channel, through
-    ``VoiceBank.render_song_grouped``: against its plain version on three
-    windows and each bus against its solo render bit for bit, its device
-    time and bound; the tracker song (looped and one-shot samplers, swing,
-    accents, a sidechain, recurrence-internal automation), card against CPU
-    and streaming against offline;
+    of 2; the profiler pass on the song as written), the grouped render
+    (the span pass ``span_kernel`` and the segment-bus specialisation
+    ``render_kernel<false, buses>``) against its plain version on three
+    windows, its span lists against ``bus_span_candidates`` entry for
+    entry, its voice-tiles against the flat render's, and each bus against
+    its solo render bit for bit, its device time and bound, ptxas' 48
+    registers and no spill, streamed chunks a second; the curve kernel's
+    bus mode (``render_kernel<true, buses>``) on phase 10's MIDI bank split
+    over three buses by channel, through ``VoiceBank.render_song_grouped``:
+    the same checks; the tracker song (looped and one-shot samplers,
+    swing, accents, a sidechain, recurrence-internal automation), card
+    against CPU and streaming against offline; then each bus kernel's
+    three profiled passes (before the long song, after it, after the
+    tracker song: the largest <= 1.15x the smallest), and the server's
+    batch of eight config-5 requests on 1, 2 and 8 buses (kernel == plain
+    on a window; the time less the output's write time at 8 buses <= 1.5x
+    that at 1);
 18. the realtime layer (``realtime_phase``): four files the phase writes
     (FLAC, AIFF, AU, u-law WAV; 10 s excerpts of the MIDI render) through
     ``AudiofileToWavStream`` -> ``SampleStream`` (1470 frames) ->
@@ -138,7 +143,9 @@ versions on the card:
     sockets -- ``/render/voices`` with config 5 == ``render_song`` ->
     ``to_int16`` (the pinned sha256), eight concurrent config-5-sized
     requests in one ``render_kernel<false, buses>`` launch, each == its
-    solo render; ``/render/midi`` on phase 10's file == ``render_midi(...,
+    solo render, and the batch's kernel time and share of its bound (the
+    same bank, timed in-process); ``/render/midi`` on phase 10's file ==
+    ``render_midi(...,
     sparse=False)``; ``/render/song`` of the demo song == ``Song.mix``;
     ``/render/patch``, ``/health``; each endpoint's latency (median of 5)
     and requests a second with 8 clients;
@@ -259,6 +266,35 @@ def song_bound(vpx, cols, bankx, totalx, extra_bytes):
     opsx = int((audible * per).sum())
     nbytes = totalx * 8 + extra_bytes
     return (opsx, nbytes) + bound(opsx, nbytes)
+
+
+def bus_kernel_ms(fn, reps=10):
+    """A bus render's device time under the profiler (device activity
+    only), over reps calls after one to warm up -> {"render": ms a launch of
+    render_kernel, "span": ms a launch of span_kernel, "ms": their sum,
+    "launches": the render launches seen}.  Each is the kernel's total over
+    the launches the profiler saw: a pass can lose events, and a total over
+    reps would then read low."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    got = {"render": [0.0, 0], "span": [0.0, 0]}
+    for ev in prof.key_averages():
+        for part in got:
+            if f"{part}_kernel" in ev.key:
+                us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+                got[part][0] += us / 1e3
+                got[part][1] += ev.count
+    out = {k: t / max(n, 1) for k, (t, n) in got.items()}
+    out["ms"] = out["render"] + out["span"]
+    out["launches"] = got["render"][1]
+    return out
 
 
 def check(ok, what):
@@ -522,11 +558,14 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
     streaming against offline, the seek, the grouped render's segment
     buses against their plain version and their solo renders, and the
     times; then the curve kernel's bus mode on phase 10's MIDI bank
-    (``midi_bank``) split over three buses.  Returns the bus modes' fields
+    (``midi_bank``, with the sparse flat render's time as ``flat_ms``)
+    split over three buses; the bus kernels' three timing passes and the
+    bus-count sweep.  Returns the bus modes' and the span pass's fields
     for the ``kernels`` line."""
     import torch
     from synthesizer_tpu_torch import bench_song as B
     from synthesizer_tpu_torch import sequencer as Q
+    from synthesizer_tpu_torch.ab_smoke import bus_banks
     from synthesizer_tpu_torch.ops import kernels as K
     from synthesizer_tpu_torch.ops.effects import BUDGETS
     from synthesizer_tpu_torch.synth import WaveSynth
@@ -559,6 +598,38 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
                   + list(song.sampler_fx.values())
                   + list(song.drum_fx_bus.values()))
         return 1 + sum(BUDGETS[names[n]] for c in chains for n, _ in c)
+
+    def span_lists(vpx, totalx, layoutx, segx, nsegx, name):
+        """The span kernel's lists from the last bus launch (a whole song)
+        against bus_span_candidates -> (the largest difference of an entry
+        or a count, the plain version's ms, the lists' entries)."""
+        cand, counts = K.render_stereo.spans
+        t = time.perf_counter()
+        want, want_n = K.bus_span_candidates(vpx, 0, totalx, samplerate=SR,
+                                             layout=layoutx, seg=segx,
+                                             nseg=nsegx)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        keep = (torch.arange(cand.shape[1], device=cand.device)[None, :]
+                < counts[:, None])
+        got = torch.where(keep[..., None], cand, 0)
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((counts.long() - want_n.long()).abs().max()))
+        check(err == 0, f"span_kernel on {name}: {counts.shape[0]} spans of "
+              f"{K.span_tiles(totalx, cand.shape[1])} tiles, "
+              f"{int(counts.sum())} entries (at most {int(counts.max())} a "
+              f"span, of {cand.shape[1]} voices) == bus_span_candidates, "
+              f"entry for entry; the plain version {plain_ms:.3f} ms")
+        return err, plain_ms, int(counts.sum())
+
+    def span_bound_of(vpx, totalx, entries):
+        """The span pass's bound: each voice's start, t4, flags and bus
+        read once, the entries and counts written once; a dozen operations
+        a (span, voice) test."""
+        V = vpx.wave.shape[0]
+        nspans = -(-totalx // (K.span_tiles(totalx, V) * K.TILE))
+        return (nspans * V * 12, 16 * V + 16 * entries + 4 * nspans) + bound(
+            nspans * V * 12, 16 * V + 16 * entries + 4 * nspans)
 
     # -- the verify battery's config 5 song ------------------------------
     head(f"[17] sequencer: songs from .ini text on the card ({card})")
@@ -660,15 +731,43 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
                                  device=dev)
     long_dry = Q.Song.from_string(B.repeated(demo_dry, 14), demo_dir,
                                   device=dev)
+    # the two bus kernels: the long song's grouped render (its synth voices,
+    # the clean bus and one a track with fx) and the MIDI file's bank with
+    # each voice on the bus of its channel mod 3; each timed here, after
+    # the long song and at the end of the phase
+    voices, vtracks = long_fx.compile_synth_voices(return_tracks=True)
+    bank, vp, seg, fx_tracks = long_fx._synth_fx_groups(voices, vtracks,
+                                                        32768)
+    nseg = len(fx_tracks) + 1
+    total = long_fx.duration_frames(0.3)
+    layout = bank._kernel_layout(vp)
+    vpc, bc, total_c = midi_bank["vp"], midi_bank["bank"], midi_bank["total"]
+    seg_c = midi_bank["seg"]
+    nseg_c = 3
+    seg_ct = torch.from_numpy(seg_c).to(dev)
+    lay_c = bc._kernel_layout(vpc)
+    passes = {"bus": [], "curves": []}
+
+    def time_buses():
+        passes["bus"].append(bus_kernel_ms(
+            lambda: bank.render_song_grouped(vp, seg, nseg, total)))
+        passes["curves"].append(bus_kernel_ms(
+            lambda: bc.render_song_grouped(vpc, seg_ct, nseg_c, total_c)))
+
+    time_buses()
     K.render_stereo.launches = K.render_stereo.bus_launches = 0
+    K.render_stereo.span_launches = 0
     K.voice_setup.launches = 0
     t = time.perf_counter()
     long_pcm = host(long_fx.mix())
     first_s = time.perf_counter() - t
     launches = {"voicebank_setup": K.voice_setup.launches,
                 "voicebank_render": K.render_stereo.launches,
-                "bus launches": K.render_stereo.bus_launches}
-    check(launches["bus launches"] >= 1 and long_pcm.dtype == np.int16
+                "bus launches": K.render_stereo.bus_launches,
+                "span launches": K.render_stereo.span_launches}
+    check(launches["bus launches"] >= 1
+          and launches["span launches"] == launches["bus launches"]
+          and long_pcm.dtype == np.int16
           and long_pcm.shape[1] == 2 and np.abs(long_pcm.astype(np.int64))
           .max() > 30000,
           f"long demo song ({len(long_pcm) / SR:.2f} s of audio): mix() "
@@ -700,18 +799,14 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
         print(f"    {ms:.3f} ms  {name[:80]}")
 
     # the grouped render on its own: kernel against its plain version,
-    # each bus against its solo render, device time and bound
-    sched = long_fx.compile_schedule()
-    voices, vtracks = long_fx.compile_synth_voices(return_tracks=True)
-    bank, vp, seg, fx_tracks = long_fx._synth_fx_groups(voices, vtracks,
-                                                        32768)
-    nseg = len(fx_tracks) + 1
-    total = long_fx.duration_frames(0.3)
-    layout = bank._kernel_layout(vp)
+    # its span lists against theirs, each bus against its solo render,
+    # device time and bound
     K.render_stereo.bus_launches = 0
     buses = bank.render_song_grouped(vp, seg, nseg, total)
     torch.cuda.synchronize()
     bus_tiles = int(K.render_stereo.voice_tiles.item())
+    span_err, span_plain_ms, ncand = span_lists(vp, total, layout, seg,
+                                                nseg, "the long song")
     want_tiles = int(K.active_voice_tiles(vp, 0, total, samplerate=SR,
                                           layout=layout).sum())
     check(K.render_stereo.bus_launches == 1 and bus_tiles == want_tiles,
@@ -741,10 +836,8 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
               f"bus {b} ({'clean' if b == 0 else fx_tracks[b - 1]}, "
               f"{sub.wave.shape[0]} voices) == its solo flat render, bit "
               f"for bit")
-    by_name, _, _ = profiled(
-        lambda: bank.render_song_grouped(vp, seg, nseg, total), 10)
-    bus_ms = max(sum(v for k, v in by_name.items() if "render_kernel" in k),
-                 1e-9)
+    time_buses()
+    bus_ms = max(passes["bus"][-1]["ms"], 1e-9)
     c = K.voice_constants(vp, SR, bank.num_harmonics)
     cols = {name: c[:, j] for j, name in enumerate(K.CONST_COLUMNS)}
     aux = (vp.table.numel() * 4
@@ -758,9 +851,16 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
                               **bank._flags())
     torch.cuda.synchronize()
     plain_window_ms = (time.perf_counter() - t) * 1e3
+    span_ops, span_bytes, span_bound, span_by, _ = span_bound_of(
+        vp, total, ncand)
+    print(f"  span pass (span_kernel): {passes['bus'][-1]['span']:.6f} ms a "
+          f"launch; bound {span_ops:.4g} ops and {span_bytes} B -> "
+          f"{span_bound:.6f} ms ({span_by}); its plain version "
+          f"(bus_span_candidates) {span_plain_ms:.3f} ms")
     print(f"  grouped render kernel (render_kernel<false, buses>, {nseg} "
           f"buses): "
-          f"{bus_ms:.6f} ms a call (profiler, 10 calls); bound "
+          f"{bus_ms:.6f} ms a call with its span pass (profiler, 10 "
+          f"calls); bound "
           f"{ops:.4g} ops and {nbytes} B -> {bus_bound:.6f} ms ({bus_by}; "
           f"{bus_nofma:.6f} ms without FMA), kernel at "
           f"{100 * bus_bound / bus_ms:.1f}%; plain version on a 131072-frame "
@@ -775,30 +875,32 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
     # the curve kernel's bus mode (render_kernel<true, buses>): the MIDI
     # file's bank (bends, CC7/CC11 and depth curves) with each voice on the
     # bus of its channel mod 3, through VoiceBank.render_song_grouped
-    vpc, bc, tc = midi_bank["vp"], midi_bank["bank"], midi_bank["total"]
-    seg_c = midi_bank["seg"]
-    nseg_c = 3
-    seg_ct = torch.from_numpy(seg_c).to(dev)
-    lay_c = bc._kernel_layout(vpc)
     K.render_stereo.launches = K.render_stereo.bus_launches = 0
     K.voice_setup.launches = 0
-    cbuses = bc.render_song_grouped(vpc, seg_ct, nseg_c, tc)
+    cbuses = bc.render_song_grouped(vpc, seg_ct, nseg_c, total_c)
     torch.cuda.synchronize()
     curve_launches = K.render_stereo.bus_launches
     curve_tiles = int(K.render_stereo.voice_tiles.item())
+    want_c = int(K.active_voice_tiles(vpc, 0, total_c, samplerate=SR,
+                                      layout=lay_c).sum())
+    check(curve_tiles == want_c, f"curve bus render: {curve_tiles} "
+          f"voice-tiles == active_voice_tiles {want_c} (the flat render's)")
+    span_err_c, _, _ = span_lists(vpc, total_c, lay_c, seg_ct, nseg_c,
+                                  "the MIDI bank")
+    span_err = max(span_err, span_err_c)
     check(curve_launches == 1 and bc.use_bend and bc.use_amp and bc.use_dmod
-          and cbuses.shape == (tc, nseg_c, 2)
+          and cbuses.shape == (total_c, nseg_c, 2)
           and bool(torch.isfinite(cbuses).all()),
           f"curve bus render: {vpc.wave.shape[0]} MIDI voices (bend, amp and "
           f"depth curves) on {nseg_c} buses by channel "
           f"({np.bincount(seg_c, minlength=nseg_c).tolist()} voices), "
-          f"{tc} frames in one launch of render_kernel<true, buses>; "
+          f"{total_c} frames in one launch of render_kernel<true, buses>; "
           f"{curve_tiles} voice-tiles")
     curve_worst = 0.0
     curve_plain_ms = 0.0
     wn_c = 16384        # the plain version holds [voices, frames] arrays
     for wname, w0 in midi_bank["windows"].items():
-        w0 = min(w0, tc - wn_c)
+        w0 = min(w0, total_c - wn_c)
         kern = bc._render(vpc, w0, wn_c, seg_ct, nseg_c)
         t = time.perf_counter()
         plain = K.render_stereo_reference(vpc, w0, nframes=wn_c,
@@ -815,24 +917,24 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
               f"for bit (peak {float(plain.abs().max()):.4f})")
     for b in range(nseg_c):
         sub, ly = K.solo_params(vpc, lay_c, np.flatnonzero(seg_c == b))
-        solo = K.render_stereo(sub, 0, nframes=tc, samplerate=SR, layout=ly,
-                               **bc._flags())
+        solo = K.render_stereo(sub, 0, nframes=total_c, samplerate=SR,
+                               layout=ly, **bc._flags())
         torch.cuda.synchronize()
         check(torch.equal(solo, cbuses[:, b]),
               f"curve bus {b} ({sub.wave.shape[0]} voices) == its solo flat "
               f"render, bit for bit")
     del cbuses, solo
-    by_name, _, _ = profiled(
-        lambda: bc.render_song_grouped(vpc, seg_ct, nseg_c, tc), 10)
-    curve_ms = max(sum(v for k, v in by_name.items() if "render_kernel" in k),
-                   1e-9)
+    curve_ms = max(passes["curves"][-1]["ms"], 1e-9)
     cm_c = midi_bank["cm"]
     ops_c, nbytes_c, curve_bound, curve_by, curve_nofma = song_bound(
-        vpc, midi_bank["colm"], bc, tc, cm_c.numel() * 4
+        vpc, midi_bank["colm"], bc, total_c, cm_c.numel() * 4
         + midi_bank["seg_bytes"] + seg_ct.numel() * 4
-        + tc * (nseg_c - 1) * 8)
+        + total_c * (nseg_c - 1) * 8)
     print(f"  curve bus render kernel (render_kernel<true, buses>, {nseg_c} "
-          f"buses): {curve_ms:.6f} ms a call (profiler, 10 calls); bound "
+          f"buses): {curve_ms:.6f} ms a call with its span pass (profiler, "
+          f"10 calls; the sparse flat render_kernel<true> on the MIDI file "
+          f"{midi_bank['flat_ms']:.6f} ms, "
+          f"{curve_ms / midi_bank['flat_ms']:.3f}x); bound "
           f"{ops_c:.4g} ops and {nbytes_c} B -> {curve_bound:.6f} ms "
           f"({curve_by}; {curve_nofma:.6f} ms without FMA), kernel at "
           f"{100 * curve_bound / curve_ms:.1f}%; plain version on the "
@@ -891,12 +993,77 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
     check(0 <= d <= bound_tr, f"tracker song: mix_generator(1470) against "
           f"offline {d} LSB (bound {bound_tr})")
     shutil.rmtree(tmp, ignore_errors=True)
-    return {"bus_launches": launches["bus launches"], "bus_ms": bus_ms,
+
+    # -- the bus kernels' times -------------------------------------------
+    head("[17] the bus kernels: three timing passes and the bus-count sweep")
+    time_buses()
+    spreads = {}
+    for key, name, target in (
+            ("bus", f"render_kernel<false, buses> on the long song "
+                    f"({nseg} buses)", 0.110),
+            ("curves", f"render_kernel<true, buses> on the MIDI bank "
+                       f"({nseg_c} buses)", 0.80)):
+        ms = [x["ms"] for x in passes[key]]
+        spreads[key] = max(ms) / min(ms)
+        check(spreads[key] <= 1.15,
+              f"{name} with its span pass, three profiled passes (before "
+              f"the long song, after it, after the tracker song): "
+              f"{', '.join(f'{x:.6f}' for x in ms)} ms, the largest "
+              f"{spreads[key]:.4f}x the smallest (<= 1.15)")
+        spans = ", ".join(f"{x['span']:.6f}" for x in passes[key])
+        print(f"  {name}: median {statistics.median(ms):.6f} ms, the "
+              f"target {target} ms {'met' if max(ms) <= target else 'missed'}"
+              f"; span pass {spans} ms")
+    flat_ms = midi_bank["flat_ms"]
+    print(f"  the curve bus render against the sparse flat render_kernel<true>"
+          f" on the MIDI file ({flat_ms:.6f} ms): "
+          f"{max(x['ms'] for x in passes['curves']) / flat_ms:.3f}x at most "
+          f"(the target 1.15x)")
+    # the server's batch of eight config-5 requests (512 voices, 60 s), on
+    # 1, 2 and 8 buses: the time less its output's bytes over 3.35 TB/s
+    sweep, less = {}, {}
+    banks = bus_banks()
+    for n in (1, 2, 8):
+        sb = banks["server_bus_bank"](dev, n)
+        seg_n = sb[0]._seg(sb[2], n)
+        kern = sb[0]._render(sb[1], 0, 65536, seg_n, n)
+        plain = K.render_stereo_reference(sb[1], 0, nframes=65536,
+                                          samplerate=SR,
+                                          layout=sb[0]._kernel_layout(sb[1]),
+                                          seg=seg_n, nseg=n,
+                                          **sb[0]._flags())
+        torch.cuda.synchronize()
+        check(torch.equal(kern, plain), f"the server batch on {n} bus(es): "
+              f"kernel == plain version on frames [0, 65536), bit for bit")
+        sweep[n] = bus_kernel_ms(lambda: banks["grouped"](sb))
+        less[n] = sweep[n]["ms"] - sb[4] * n * 8 / HBM_BYTES_S * 1e3
+        print(f"  the server batch on {n} bus(es): {sweep[n]['ms']:.6f} ms "
+              f"(span pass {sweep[n]['span']:.6f}), less the "
+              f"{sb[4] * n * 8} B written at 3.35 TB/s: {less[n]:.6f} ms")
+    check(less[8] <= 1.5 * less[1],
+          f"bus-count sweep: time less write time on 8 buses "
+          f"{less[8]:.6f} ms = {less[8] / less[1]:.3f}x that on 1 "
+          f"({less[1]:.6f} ms; <= 1.5x)")
+    return {"bus_launches": launches["bus launches"],
+            "bus_ms": statistics.median(x["ms"] for x in passes["bus"]),
+            "bus_ms_passes": [x["ms"] for x in passes["bus"]],
+            "bus_span_ms": passes["bus"][1]["span"],
+            "bus_curves_ms_passes": [x["ms"] for x in passes["curves"]],
+            "bus_curves_span_ms": passes["curves"][1]["span"],
+            "bus_spread": spreads["bus"],
+            "bus_curves_spread": spreads["curves"],
+            "bus_sweep_ms": {n: x["ms"] for n, x in sweep.items()},
+            "bus_sweep_less_writes_ms": less,
+            "span_launches": launches["span launches"],
+            "span_max_abs_err": span_err, "span_plain_ms": span_plain_ms,
+            "span_bound_ms": span_bound, "span_bound_by": span_by,
             "bus_bound_ms": bus_bound, "bus_bound_by": bus_by,
             "bus_bound_nofma_ms": bus_nofma, "bus_max_abs_err": worst,
             "bus_plain_window_ms": plain_window_ms, "bus_nseg": nseg,
             "bus_voice_tiles": bus_tiles,
-            "bus_curves_launches": curve_launches, "bus_curves_ms": curve_ms,
+            "bus_curves_launches": curve_launches,
+            "bus_curves_ms": statistics.median(
+                x["ms"] for x in passes["curves"]),
             "bus_curves_bound_ms": curve_bound,
             "bus_curves_bound_by": curve_by,
             "bus_curves_bound_nofma_ms": curve_nofma,
@@ -1173,6 +1340,7 @@ def server_phase(dev, card, config5, gm_data, spread):
     import torch
     from synthesizer_tpu_torch import bench_song as B
     from synthesizer_tpu_torch import midi as M
+    from synthesizer_tpu_torch.ab_smoke import bus_banks
     from synthesizer_tpu_torch.models import graph as G
     from synthesizer_tpu_torch.models import spec as S
     from synthesizer_tpu_torch.ops import kernels as K
@@ -1298,6 +1466,26 @@ def server_phase(dev, card, config5, gm_data, spread):
         check(all(r and r[1] == s for r, s in zip(results[:8], solos)),
               f"each coalesced response == its solo render (render_kernel"
               f"<false>), bit for bit: max LSB per request {lsbs}")
+        # the batch's kernels, timed in this process (the handlers are
+        # threads): the same eight requests' bank in request order, tagged
+        # as RenderBatcher tags them
+        banks = bus_banks()
+        sb = banks["server_bus_bank"](dev, 8)
+        bt = bus_kernel_ms(lambda: banks["grouped"](sb))
+        cb = K.voice_constants(sb[1], SR, sb[0].num_harmonics)
+        colb = {name: cb[:, j] for j, name in enumerate(K.CONST_COLUMNS)}
+        ops_b, bytes_b, bound_b, by_b, _ = song_bound(
+            sb[1], colb, sb[0], sb[4], cb.numel() * 4
+            + sb[1].table.numel() * 4
+            + sb[1].harm_amps[:, :sb[0].num_harmonics].numel() * 4
+            + sb[1].wave.shape[0] * 4 + sb[4] * 7 * 8)
+        print(f"  the batch's kernels (render_kernel<false, buses> on 8 buses "
+              f"and its span pass): {bt['ms']:.6f} ms ({bt['span']:.6f} of it "
+              f"the span pass; profiler, 10 calls); bound {ops_b:.4g} ops and "
+              f"{bytes_b} B -> {bound_b:.6f} ms ({by_b}), kernel at "
+              f"{100 * bound_b / bt['ms']:.1f}%")
+        out.update(batch_kernel_ms=bt["ms"], batch_span_ms=bt["span"],
+                   batch_bound_ms=bound_b, batch_bound_by=by_b)
         # per batch of eight: the counts less the held request's solo
         out.update(setup_per_request=solo_counts[0],
                    render_per_request=solo_counts[1],
@@ -1823,10 +2011,10 @@ def main():
                     ptxas[entry][key] = int(found.group(1))
     kernel_names = ("setup_kernel", "render_kernel<false>",
                     "render_kernel<true>", "render_kernel<false, buses>",
-                    "render_kernel<true, buses>")
+                    "render_kernel<true, buses>", "span_kernel")
     check(all(set(ptxas.get(k, ())) >= {"registers", "spill_bytes"}
               for k in kernel_names),
-          f"ptxas resources of the five kernels: {ptxas}")
+          f"ptxas resources of the six kernels: {ptxas}")
 
     def to16(x):
         return VoiceBank.to_int16(x).to(torch.int32)
@@ -3083,7 +3271,8 @@ def main():
           f"one MIDI voice a note ({len(notes)} of the bank's {Vm} rows)")
     buses = sequencer_phase(dev, card, ptxas, spread, profiled, {
         "vp": vpm, "bank": bm, "total": total_m, "seg": midi_seg, "cm": cm,
-        "colm": colm, "seg_bytes": seg_bytes, "windows": windows})
+        "colm": colm, "seg_bytes": seg_bytes, "windows": windows,
+        "flat_ms": midi_render_ms})
     realtime_phase(dev, card, midi_smp)
     served = server_phase(dev, card, config5, data, spread)
     meshed = mesh_phase(dev, card, data, spread, profiled, pick)
@@ -3091,6 +3280,9 @@ def main():
     battery_phase(dev, card)
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
+    span = {k: buses.pop(k) for k in ("span_launches", "span_max_abs_err",
+                                      "span_plain_ms", "span_bound_ms",
+                                      "span_bound_by")}
     print(json.dumps({"kernels": [
         {"name": "voicebank_setup", "route": "cuda", "source": src,
          "replaces": "synthesizer_tpu/ops/kernels.py:58",
@@ -3131,7 +3323,19 @@ def main():
          "mesh_midi_wall_ms": meshed["midi_ms"],
          "single_midi_wall_ms": meshed["midi_single_ms"],
          "mesh_song_wall_ms": meshed["song_ms"],
-         "single_song_wall_ms": meshed["song_single_ms"]}]}))
+         "single_song_wall_ms": meshed["song_single_ms"],
+         "server_batch_ms": served["batch_kernel_ms"],
+         "server_batch_bound_ms": served["batch_bound_ms"],
+         "server_batch_bound_by": served["batch_bound_by"]},
+        {"name": "voicebank_bus_spans", "route": "cuda", "source": src,
+         "replaces": "synthesizer_tpu/ops/kernels.py:58",
+         "launches": span["span_launches"],
+         "max_abs_err": span["span_max_abs_err"],
+         "ms": buses["bus_span_ms"], "plain_ms": span["span_plain_ms"],
+         "bound_ms": span["span_bound_ms"],
+         "bound_by": span["span_bound_by"], "library_ms": None,
+         **ptxas["span_kernel"], "midi_ms": buses["bus_curves_span_ms"],
+         "server_batch_ms": served["batch_span_ms"]}]}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

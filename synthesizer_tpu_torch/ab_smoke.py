@@ -7,9 +7,10 @@ parent (so that a drift of the card over the call shows as a difference
 between a tree's two runs, not between the trees), each from its own root
 so that each builds and loads its own kernels.  It prints, per tree and
 run, the numbers of the ``{"kernels": [...]}`` line that the trees are
-compared on, the sha256 of the three workloads' int16 bytes (rendered once
-more by each tree's package after the timed runs, so that a parent whose
-``chip_smoke.py`` prints no digest is held too), and ptxas' registers and
+compared on, the sha256 of the int16 bytes of three flat renders and two
+bus renders (rendered once more by each tree's package after the timed
+runs, so that a parent whose ``chip_smoke.py`` prints no digest is held
+too), and ptxas' registers and
 spill bytes and the count of SASS operations of each kernel in the tree's
 built library (from ``cuobjdump -sass``).  It ends with one JSON line of
 everything and a line that says whether the two trees' digests are equal.
@@ -18,7 +19,10 @@ A tree's run that fails, or digests that differ, make the exit code 1.
 With ``--kernels`` each run is ``KERNEL_TIMES`` instead of the whole
 ``chip_smoke.py`` (about a minute a run instead of eight): the tree's
 build, ptxas' lines and the kernels' device times on config 5, the sparse
-workload and the MIDI file under the profiler, in the same order of runs.
+workload and the MIDI file, and the bus renders' (``BUS_BANKS``: the demo
+song 14 times, the MIDI bank on three buses, the server's batch of eight
+requests on 1, 2 and 8 buses) under the profiler, in the same order of
+runs.
 With ``--reverb`` each run is ``REVERB_TIMES``: the streaming reverb (the
 stereo Freeverb networks from zero state, in chunks of 1470) with the
 tree's ``ops.effects``, its host wall clock and its device operations and
@@ -43,14 +47,72 @@ from pathlib import Path
 #: the keys of a tree's kernels line that are printed side by side
 KEYS = ("ms", "midi_ms", "midi_render_ms", "midi_render_flat_ms",
         "midi_setup_ms", "sparse_workload_render_ms", "midi_wall_ms",
-        "midi_bound_ms", "midi_fallback_share", "bus_ms", "song_mix_ms")
+        "midi_bound_ms", "midi_fallback_share", "bus_ms", "bus_curves_ms",
+        "server_batch_ms", "bus_sweep_less_writes_ms", "song_mix_ms")
 
-#: renders config 5, the sparse workload and the MIDI file with the package
-#: of the tree it is run in, and prints the sha256 of their int16 bytes
-DIGESTS = """
-import hashlib, json, torch
+#: the bus renders' banks, each -> (bank, vp, seg, nseg, frames), built with
+#: the package of the tree the snippet runs in (so only with what every
+#: tree since the buses has): the demo song 14 times as long (its synth
+#: voices, the clean bus and one a track with fx), the MIDI file's bank with
+#: each note on the bus of its channel mod 3 (padding rows on bus 0), and
+#: the server's batch of eight config-5 requests, each transposed, tagged
+#: as ``RenderBatcher`` tags them (request k on bus k * nseg // 8)
+BUS_BANKS = """
+import dataclasses, tempfile
+import numpy as np
+import torch
 from synthesizer_tpu_torch import bench_song, midi
+from synthesizer_tpu_torch import sequencer as Q
 from synthesizer_tpu_torch.models.voicebank import VoiceBank, pack_voices
+def demo_bus_bank(dev):
+    kit = tempfile.mkdtemp(prefix="bus_demo")
+    bench_song.make_demo_kit(kit, device=dev)
+    song = Q.Song.from_string(bench_song.repeated(bench_song.DEMO_INI, 14),
+                              kit, device=dev)
+    voices, tracks = song.compile_synth_voices(return_tracks=True)
+    bank, vp, seg, fx = song._synth_fx_groups(voices, tracks, 32768)
+    return bank, vp, seg, len(fx) + 1, song.duration_frames(0.3)
+def midi_bus_bank(dev, data):
+    notes = midi.parse_midi(data, release_grace=midi.release_grace_for(None))
+    voices = midi.midi_to_voices(notes)
+    vp = pack_voices(voices, 44100, num_harmonics=8, device=dev)
+    V = vp.wave.shape[0]
+    bank = VoiceBank.for_voices(voices, 44100, num_harmonics=8, nvoices=V,
+                                device=dev)
+    seg = np.zeros(V, np.int32)
+    seg[:len(notes)] = [n.channel % 3 for n in notes]
+    return (bank, vp, torch.from_numpy(seg).to(dev), 3,
+            midi.song_frames(voices, 44100))
+def server_bus_bank(dev, nseg=8):
+    song = bench_song.build_song(64, 60.0)
+    allv, tags = [], []
+    for k in range(8):
+        up = 2 ** ((k + 1) / 12)
+        allv += [dataclasses.replace(v, frequency=v.frequency * up)
+                 for v in song]
+        tags += [k * nseg // 8] * len(song)
+    vp, layout, seg = pack_voices(allv, 44100, num_harmonics=8,
+                                  sort_by_wave=True, tags=tags, device=dev)
+    bank = VoiceBank.for_voices(allv, 44100, num_harmonics=8, layout=layout,
+                                nvoices=layout.nvoices, device=dev)
+    return bank, vp, seg, nseg, int(60.0 * 44100)
+def grouped(b):
+    return b[0].render_song_grouped(b[1], b[2], b[3], b[4])
+"""
+
+
+def bus_banks() -> dict:
+    """``BUS_BANKS``' functions, with this tree's package."""
+    ns = {}
+    exec(BUS_BANKS, ns)
+    return ns
+
+
+#: renders config 5, the sparse workload, the MIDI file and the two bus
+#: renders with the package of the tree it is run in, and prints the sha256
+#: of their int16 bytes
+DIGESTS = BUS_BANKS + """
+import hashlib, json
 dev, SR = torch.device("cuda"), 44100
 sha = lambda pcm: hashlib.sha256(pcm.cpu().numpy().tobytes()).hexdigest()
 bank, vp, total = bench_song.song_bank(device=dev)
@@ -59,22 +121,27 @@ vps, lys = pack_voices(sv, SR, num_harmonics=8, sort_by_wave=True, device=dev)
 bs = VoiceBank.for_voices(sv, SR, num_harmonics=8, layout=lys,
                           chunk_frames=bench_song.CHUNK_FRAMES,
                           nvoices=lys.nvoices, device=dev)
+data = bench_song.gm_file(3000, 180.0, 0)
 print(json.dumps({"digests": {
     "config5_sha256": sha(bank.to_int16(bank.render_song(vp, total))),
     "sparse_workload_sha256": sha(VoiceBank.to_int16(
         bs.render_song_sparse(vps, int(300.0 * SR)))),
-    "midi_sha256": sha(midi.render_midi(bench_song.gm_file(3000, 180.0, 0),
-                                        device=dev).torch_frames)}}))
+    "midi_sha256": sha(midi.render_midi(data, device=dev).torch_frames),
+    "bus_demo_sha256": sha(VoiceBank.to_int16(grouped(demo_bus_bank(dev)))),
+    "bus_midi_sha256": sha(VoiceBank.to_int16(
+        grouped(midi_bus_bank(dev, data))))}}))
 """
 
 
 def kernel_name(symbol: str) -> str:
     """A kernel's name from its mangled symbol (or a ptxas line that holds
-    it): ``setup_kernel``, or ``render_kernel<curves>`` with ``, buses``
-    for the bus mode (a tree from before the buses has the curve flag
-    only)."""
+    it): ``setup_kernel``, ``span_kernel`` (the bus render's span pass),
+    or ``render_kernel<curves>`` with ``, buses`` for the bus mode (a tree
+    from before the buses has the curve flag only)."""
     if "setup_kernel" in symbol:
         return "setup_kernel"
+    if "span_kernel" in symbol:
+        return "span_kernel"
     found = re.search(r"ILb([01])E(?:Lb([01])E)?", symbol)
     curves = bool(found) and found.group(1) == "1"
     buses = bool(found) and found.group(2) == "1"
@@ -84,13 +151,14 @@ def kernel_name(symbol: str) -> str:
 
 #: the kernels' device times with the package of the tree it is run in:
 #: config 5 (render and setup kernels), the sparse workload and the MIDI
-#: file (render kernel), profiler, printed as chip_smoke.py prints them
-#: (ptxas' lines raw: ``run_tree`` names their kernels)
-KERNEL_TIMES = """
-import json, torch
+#: file (render kernel), and the bus renders of ``BUS_BANKS`` (the render
+#: kernel and, where the tree has it, its span pass), profiler, printed as
+#: chip_smoke.py prints them (ptxas' lines raw: ``run_tree`` names their
+#: kernels); ``bus_sweep_less_writes_ms`` is each bus count's time less
+#: its output's bytes over 3.35 TB/s
+KERNEL_TIMES = BUS_BANKS + """
+import json
 from torch.profiler import ProfilerActivity, profile
-from synthesizer_tpu_torch import bench_song, midi
-from synthesizer_tpu_torch.models.voicebank import VoiceBank, pack_voices
 from synthesizer_tpu_torch.ops import kernels as K
 _, log = K.build_library()
 for line in log.splitlines():
@@ -98,7 +166,8 @@ for line in log.splitlines():
             or "spill" in line):
         print("  ptxas:", line.strip())
 dev, SR = torch.device("cuda"), 44100
-def ms(fn, word, reps):
+def ms(fn, words, reps):
+    words = (words,) if isinstance(words, str) else words
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -106,7 +175,8 @@ def ms(fn, word, reps):
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if word in e.key) / 1e3 / reps
+               if any(w in e.key for w in words)) / 1e3 / reps
+bus = ("render_kernel", "span_kernel")
 bank, vp, total = bench_song.song_bank(device=dev)
 sv = bench_song.sparse_voices()
 vps, lys = pack_voices(sv, SR, num_harmonics=8, sort_by_wave=True, device=dev)
@@ -117,12 +187,23 @@ data = bench_song.gm_file(3000, 180.0, 0)
 song = lambda: bank.render_song(vp, total)
 sparse = lambda: bs.render_song_sparse(vps, int(300.0 * SR))
 mid = lambda: midi.render_midi(data, device=dev)
+demo, midb = demo_bus_bank(dev), midi_bus_bank(dev, data)
+sweep = {}
+for n in (1, 2, 8):
+    batch = server_bus_bank(dev, n)
+    sweep[n] = ms(lambda: grouped(batch), bus, 10)
 print(json.dumps({"kernels": [
     {"name": "voicebank_setup", "ms": ms(song, "setup_kernel", 20),
      "midi_ms": ms(mid, "setup_kernel", 5)},
     {"name": "voicebank_render", "ms": ms(song, "render_kernel", 20),
      "sparse_workload_render_ms": ms(sparse, "render_kernel", 20),
-     "midi_render_ms": ms(mid, "render_kernel", 5)}]}))
+     "midi_render_ms": ms(mid, "render_kernel", 5),
+     "bus_ms": ms(lambda: grouped(demo), bus, 10),
+     "bus_curves_ms": ms(lambda: grouped(midb), bus, 10),
+     "server_batch_ms": sweep[8], "bus_sweep_ms": sweep,
+     "bus_sweep_less_writes_ms": {
+         n: t - int(60.0 * 44100) * n * 8 / 3.35e12 * 1e3
+         for n, t in sweep.items()}}]}))
 """
 
 

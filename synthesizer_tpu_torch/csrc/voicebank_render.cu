@@ -132,16 +132,42 @@
 //     would add exact zeros to the flat sum, so the sparse render equals
 //     the flat one bit for bit.  A tile never straddles two chunks: the
 //     chunk is a multiple of kTile frames.
-//   * Segment buses: with a per-voice bus column, blockIdx.y is the bus.
-//     A block admits into its list only the voices of its bus, with the
-//     same ballot and prefix count in the same packed order, and writes
-//     out[i * nseg + bus].  So bus b is the render of bus b's voices alone,
-//     bit for bit, and a voice is evaluated only by its own bus's blocks:
-//     the voice-tile count is the flat render's.  The buses are a template
-//     flag of render_tile: a render without the column runs the flat
-//     render's code (with the bus test in the one kernel, config 5's
-//     render took 2% and the sparse workload's 8% more time than without,
-//     registers unchanged).
+//   * Segment buses (a per-voice bus column, out[i * nseg + bus]) run their
+//     own code, render_bus_tile, so the flat kernels keep theirs.  A block
+//     that walked every voice once per (tile, bus) paid nseg * V tests a
+//     tile for a few dozen audible voices, and wrote each 32-byte sector
+//     in nseg parts tens of megabytes apart.  Instead:
+//       - span_kernel makes one pass over the voices for each span of
+//         span_tiles tiles (16384 frames or more) and writes the ordered
+//         list of those that may sound in it on a bus in [0, nseg): the
+//         same exact test over the span's first and last frame, so a voice
+//         silent on the span is silent on each of its tiles; a voice that
+//         is not cull-safe is in every list.  An entry carries what a tile
+//         needs to test it (start, t4, bus, code, the cull-safe bit);
+//       - a tile's block walks only its span's list, once whatever nseg,
+//         admits with the flat render's exact tile test (so the voice-tile
+//         count is the flat render's), buckets the admitted voices stably
+//         by bus in shared memory (an entry's place is the count of
+//         entries with a lower bus or the same bus and an earlier place),
+//         and renders bus after bus: a bus's voices still add serially in
+//         packed order, so bus b is the render of bus b's voices alone,
+//         bit for bit.  At a change of bus the accumulators go to out and
+//         the buses without a voice get zeros, so one block writes every
+//         bus of its frames, whole sectors within microseconds.  More
+//         than kBusList admitted voices are taken in pieces: a later
+//         piece reloads the sums the block stored (a stored f32 reloads
+//         the same bits), so the sum stays serial;
+//       - a launch of few tiles (a 32768-frame streamed chunk is 64) splits
+//         a tile's frames over 2-8 blocks of fewer threads, then its buses
+//         over blocks run back to back, for at least 2 blocks an SM.  The
+//         test stays the whole tile's and only the first frame part counts
+//         its voice-tiles and windows.
+//     What bounds it then is the voices' arithmetic, the flat kernels'
+//     code: on an H100 the demo song 14 times as long (2 voices a tile)
+//     read 0.160 ms with the stores left out against 0.170 ms with them,
+//     and 0.216-0.240 ms through the flat kernel on one bus.  Holding the
+//     span list and its voices' constants in shared memory for a group of
+//     tiles gained nothing there and cost up to 2x with larger groups.
 // The sum stays serial in packed voice order, as the plain version sums,
 // so the output is bit-identical to it, deterministic and chunk-invariant
 // (a frame depends only on its absolute index).  That pinned order is why
@@ -166,6 +192,13 @@ constexpr int kMaxGroups = 16;
 constexpr int kTableLen = 256;
 constexpr int kBatch = 32;    // voices staged at a time by the curve kernel
 constexpr int kWin = 4;       // segments of one curve in a tile's window
+// the segment buses: the span pass's threads, the admitted voices a bus
+// tile buckets at a time, and the fields of a span entry's key word (bus
+// id, the render's wave code, evaluated on every tile)
+constexpr int kSpanThreads = 256;
+constexpr int kBusList = 256;
+constexpr int kKeyCodeShift = 16;
+constexpr int kKeyUnsafe = 1 << 25;
 
 // The VoiceParams columns the setup kernel reads, in the order of
 // KERNEL_COLUMNS in ops/kernels.py.  u32 fields are int64 tensors holding
@@ -1030,18 +1063,22 @@ struct Render {
   int nseg;
   float2* out;
   int* counts;
+  // the segment buses: the span lists ([spans, nslots] entries, their
+  // lengths), tiles a span, and the blocks a tile's frames and buses are
+  // split over
+  int4* cand;
+  int* ncand;
+  int span_tiles, fparts, bparts;
 };
 
-// one block's tile of the render
-template <bool CURVES, bool BUSES>
+// one block's tile of the flat render
+template <bool CURVES>
 __device__ __forceinline__ void render_tile(const Render& r) {
   const uint32_t* __restrict__ consts = r.consts;
   const float* __restrict__ harm = r.harm;
   const float* __restrict__ table = r.table;
   const uint32_t* __restrict__ seg = r.seg;
   const int32_t* __restrict__ idx = r.idx;
-  const int32_t* __restrict__ bus = r.bus;
-  const int b = BUSES ? (int)blockIdx.y : 0;       // this block's bus
   float2* __restrict__ out = r.out;
   int* __restrict__ counts = r.counts;
   const Groups& groups = r.groups;
@@ -1093,7 +1130,7 @@ __device__ __forceinline__ void render_tile(const Render& r) {
         while (g + 1 < groups.n && s >= groups.slot0[g + 1]) ++g;
         v = groups.start[g] + (s - groups.slot0[g]);
       }
-      if (v >= 0 && v < V && (!BUSES || bus[v] == b)) {
+      if (v >= 0 && v < V) {
         const uint32_t* c = consts + (size_t)v * C;
         const int wid = groups.wid[g] < 0 ? (int)c[K_WAVE] : groups.wid[g];
         code = wid | (groups.has_fm[g] ? 0x100 : 0);
@@ -1173,44 +1210,317 @@ __device__ __forceinline__ void render_tile(const Render& r) {
 #pragma unroll
   for (int f = 0; f < kFrames; ++f) {
     const int i = i0 + f * kThreads + tid;
-    if (i < nframes)
-      out[BUSES ? (size_t)i * r.nseg + b : (size_t)i] =
-          make_float2(acc_l[f], acc_r[f]);
+    if (i < nframes) out[(size_t)i] = make_float2(acc_l[f], acc_r[f]);
   }
   if (tid == 0 && evaluated > 0) atomicAdd(counts, evaluated);
   if (CURVES && tid < kCounts - 1 && s_nwin[tid] > 0)
     atomicAdd(counts + 1 + tid, s_nwin[tid]);
 }
 
+// The flat render's exact tile test for a cull-safe voice of the given
+// start and envelope end t4: silent on frames [n_first, n_last] iff its
+// note-relative frames there do not wrap i32 and lie wholly before its
+// start or at or after t4 (see the header).
+__device__ __forceinline__ bool silent_on(uint32_t start, float t4,
+                                          uint32_t n_first, uint32_t n_last,
+                                          float sr_r) {
+  const int m_first = (int)(n_first - start);
+  const int m_last = (int)(n_last - start);
+  return m_first <= m_last
+         && ((float)m_last * sr_r < 0.0f || (float)m_first * sr_r >= t4);
+}
+
+// The bus render's span pass, one block a span of r.span_tiles tiles: the
+// voices that may sound on the span's frames on a bus in [0, nseg), in the
+// flat render's slot (packed) order, as entries (voice, key, start, t4's
+// bits), key = bus | (wave code & 0x1ff) << kKeyCodeShift | kKeyUnsafe for
+// a voice that is not cull-safe, at cand[span * nslots]; their count at
+// ncand[span].
+__global__ void __launch_bounds__(kSpanThreads)
+span_kernel(const __grid_constant__ Render r) {
+  constexpr int kWarps = kSpanThreads / 32;
+  __shared__ int s_count[kWarps];
+  const Groups& groups = r.groups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long i0 = (long long)blockIdx.x * r.span_tiles * kTile;
+  const long long iend = i0 + (long long)r.span_tiles * kTile;
+  const long long ilast = (iend < r.nframes ? iend : r.nframes) - 1;
+  const uint32_t n_first = (uint32_t)(r.n0 + i0);
+  const uint32_t n_last = (uint32_t)(r.n0 + ilast);
+  int4* __restrict__ list = r.cand + (size_t)blockIdx.x * groups.nslots;
+  int count = 0;
+  for (int base = 0; base < groups.nslots; base += kSpanThreads) {
+    const int s = base + tid;
+    bool keep = false;
+    int4 e = make_int4(0, 0, 0, 0);
+    if (s < groups.nslots) {
+      int g = 0;
+      while (g + 1 < groups.n && s >= groups.slot0[g + 1]) ++g;
+      const int v = groups.start[g] + (s - groups.slot0[g]);
+      const int b = v >= 0 && v < r.V ? r.bus[v] : -1;
+      if (b >= 0 && b < r.nseg) {
+        const uint32_t* c = r.consts + (size_t)v * r.C;
+        const int wid = groups.wid[g] < 0 ? (int)c[K_WAVE] : groups.wid[g];
+        const int code = wid | (groups.has_fm[g] ? 0x100 : 0);
+        const uint32_t flags = c[K_FLAGS];
+        const bool safe = (flags & kSafe)
+                          && (wid != 12 || (flags & kPluckSafe));
+        const uint32_t start = c[K_START];
+        const float t4 = f32_of(c, K_T4);
+        keep = !(safe && silent_on(start, t4, n_first, n_last, r.sr_r));
+        e = make_int4(v, b | ((code & 0x1ff) << kKeyCodeShift)
+                             | (safe ? 0 : kKeyUnsafe),
+                      (int)start, __float_as_int(t4));
+      }
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_count[warp] = __popc(ballot);
+    __syncthreads();
+    int pos = count + __popc(ballot & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      pos += k < warp ? s_count[k] : 0;
+      total += s_count[k];
+    }
+    if (keep) list[pos] = e;
+    count += total;
+    __syncthreads();                    // the next round reuses s_count
+  }
+  if (tid == 0) r.ncand[blockIdx.x] = count;
+}
+
+// One block of the bus render (see the header): a tile or, in a launch of
+// few tiles, a contiguous 1/fparts of its frames, strided by the block's
+// threads; on the buses [b_lo, b_hi) of its bus part.  Blocks run in tile
+// order, bus part fastest.
+template <bool CURVES>
+__device__ __forceinline__ void render_bus_tile(const Render& r) {
+  const uint32_t* __restrict__ consts = r.consts;
+  const float* __restrict__ harm = r.harm;
+  const float* __restrict__ table = r.table;
+  float2* __restrict__ out = r.out;
+  const Curves& cv = r.cv;
+  const int C = r.C, harm_stride = r.harm_stride, H = r.H, n0 = r.n0;
+  const int nframes = r.nframes, modes = r.modes, nseg = r.nseg;
+  const float sr_r = r.sr_r;
+  constexpr int kThreads = CURVES ? kCurveThreads : kPlainThreads;
+  constexpr int kFrames = kTile / kThreads;     // frames per thread
+  // voices whose constants (and, with curves, windows) are staged at a time
+  constexpr int kStaged = CURVES ? kBatch : kThreads;
+  __shared__ uint32_t s_const[kStaged][kBase];
+  // the admitted voices, their keys, and their order bus by bus
+  __shared__ int s_voice[kBusList];
+  __shared__ int s_key[kBusList];
+  __shared__ int s_order[kBusList];
+  __shared__ int s_count[kThreads / 32];
+  __shared__ int s_nwin[kCounts - 1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int bp = blockIdx.x % r.bparts;
+  const int fp = (blockIdx.x / r.bparts) % r.fparts;
+  const int tile = blockIdx.x / (r.bparts * r.fparts);
+  const int b_lo = (int)((long long)nseg * bp / r.bparts);
+  const int b_hi = (int)((long long)nseg * (bp + 1) / r.bparts);
+  const int span = tile / r.span_tiles;
+  const int4* __restrict__ cand = r.cand + (size_t)span * r.groups.nslots;
+  const int ncand = r.ncand[span];
+  const Segments sg = CURVES ? segment_rows(const_cast<uint32_t*>(r.seg),
+                                            r.V, cv)
+                             : Segments();
+  if (CURVES && tid < kCounts - 1) s_nwin[tid] = 0;
+  int evaluated = 0;
+  // the whole tile's ends for the test and the windows, as the flat
+  // render takes them
+  const int i0 = tile * kTile;
+  const int ilast = min(i0 + kTile, nframes) - 1;
+  const uint32_t n_first = (uint32_t)(n0 + i0);
+  const uint32_t n_last = (uint32_t)(n0 + ilast);
+  const int j0 = i0 + fp * nthreads * kFrames;  // the block's first frame
+  int n[kFrames];
+  float acc_l[kFrames], acc_r[kFrames];
+#pragma unroll
+  for (int f = 0; f < kFrames; ++f) {
+    n[f] = n0 + min(j0 + f * nthreads + tid, nframes - 1);
+    acc_l[f] = 0.0f;
+    acc_r[f] = 0.0f;
+  }
+  // bus b's sums (or zeros) to out, and back
+  auto store = [&](int b, bool zero) {
+#pragma unroll
+    for (int f = 0; f < kFrames; ++f) {
+      const int i = j0 + f * nthreads + tid;
+      if (i < nframes)
+        out[(size_t)i * nseg + b] = zero ? make_float2(0.0f, 0.0f)
+                                         : make_float2(acc_l[f], acc_r[f]);
+    }
+  };
+  auto load = [&](int b) {
+#pragma unroll
+    for (int f = 0; f < kFrames; ++f) {
+      const int i = j0 + f * nthreads + tid;
+      const float2 x = i < nframes ? out[(size_t)i * nseg + b]
+                                   : make_float2(0.0f, 0.0f);
+      acc_l[f] = x.x;
+      acc_r[f] = x.y;
+    }
+  };
+  // at a change of bus: the held bus's sums to out, in the first piece
+  // zeros for the buses between, then the new bus's sums from 0 (first
+  // piece) or as stored
+  auto to_bus = [&](int& cur, int b, bool first) {
+    if (cur >= 0) store(cur, false);
+    if (first)
+      for (int z = cur + 1; z < b; ++z) store(z, true);
+    cur = b;
+    if (first) {
+#pragma unroll
+      for (int f = 0; f < kFrames; ++f) acc_l[f] = acc_r[f] = 0.0f;
+    } else {
+      load(b);
+    }
+  };
+  int next = 0;
+  bool first = true;                  // the first piece writes every bus
+  do {
+    // admit the span's next candidates that may sound in the tile, in
+    // packed order, up to kBusList
+    int count = 0;
+    while (next < ncand && count + nthreads <= kBusList) {
+      const int s = next + tid;
+      bool active = false;
+      int4 e = make_int4(0, 0, 0, 0);
+      if (s < ncand) {
+        e = cand[s];
+        const int b = e.y & 0xffff;
+        active = b >= b_lo && b < b_hi
+                 && ((e.y & kKeyUnsafe)
+                     || !silent_on((uint32_t)e.z, __int_as_float(e.w),
+                                   n_first, n_last, sr_r));
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, active);
+      if (lane == 0) s_count[warp] = __popc(ballot);
+      __syncthreads();
+      int pos = count + __popc(ballot & ((1u << lane) - 1u)), total = 0;
+      for (int k = 0; k < nwarps; ++k) {
+        pos += k < warp ? s_count[k] : 0;
+        total += s_count[k];
+      }
+      if (active) {
+        s_voice[pos] = e.x;
+        s_key[pos] = e.y;
+      }
+      count += total;
+      next += nthreads;
+      __syncthreads();                // the next round reuses s_count
+    }
+    // bucket the list stably by bus: entry j goes to the count of
+    // entries with a lower bus, or the same bus and a lower index
+    for (int j = tid; j < count; j += nthreads) {
+      int at = j;
+      if (b_hi - b_lo > 1) {
+        const int bj = s_key[j] & 0xffff;
+        at = 0;
+        for (int k = 0; k < count; ++k) {
+          const int bk = s_key[k] & 0xffff;
+          at += (bk < bj || (bk == bj && k < j)) ? 1 : 0;
+        }
+      }
+      s_order[at] = j;
+    }
+    __syncthreads();
+    // bus after bus; a bus's voices in packed order
+    int cur = first ? b_lo : -1;      // the bus the accumulators hold
+    for (int b0 = 0; b0 < count; b0 += kStaged) {
+      const int nb = min(kStaged, count - b0);
+      for (int e = tid; e < nb * kBase; e += nthreads) {
+        const int j = e / kBase, k = e - j * kBase;
+        s_const[j][k] = consts[(size_t)s_voice[s_order[b0 + j]] * C + k];
+      }
+      if constexpr (CURVES) {
+        __shared__ uint4 s_seg[kBatch][4 * kWin];   // bend, amp, depth x 2
+        __shared__ int s_width[kBatch][3];
+        for (int e = tid; e < nb * 3; e += nthreads) {
+          const int j = e / 3, k = e - j * 3;
+          const int at = s_order[b0 + j];
+          const int vj = s_voice[at];
+          s_width[j][k] = stage_window(
+              k, consts + (size_t)vj * C,
+              (s_key[at] >> kKeyCodeShift) & 0xff, modes, cv, sg,
+              (size_t)vj, n_first, n_last, s_seg[j] + k * kWin, s_nwin);
+        }
+        __syncthreads();
+        for (int j = 0; j < nb; ++j) {
+          const int at = s_order[b0 + j];
+          const int key = s_key[at];
+          if ((key & 0xffff) != cur) to_bus(cur, key & 0xffff, first);
+          Window win;
+          win.s = s_seg[j];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) win.width[k] = s_width[j][k];
+          eval_voice<true, kFrames>(
+              (key >> kKeyCodeShift) & 0x1ff,
+              s_const[j], consts, C, harm, harm_stride, table, H, modes,
+              cv, sg, win, s_voice[at], n, sr_r, acc_l, acc_r);
+        }
+      } else {
+        __syncthreads();
+        for (int j = 0; j < nb; ++j) {
+          const int at = s_order[b0 + j];
+          const int key = s_key[at];
+          if ((key & 0xffff) != cur) to_bus(cur, key & 0xffff, first);
+          eval_voice<false, kFrames>(
+              (key >> kKeyCodeShift) & 0x1ff,
+              s_const[j], consts, C, harm, harm_stride, table, H, modes,
+              cv, Segments(), Window(), s_voice[at], n, sr_r, acc_l, acc_r);
+        }
+      }
+      __syncthreads();                // the next batch reuses s_*
+    }
+    if (cur >= 0) store(cur, false);
+    if (first)
+      for (int z = cur + 1; z < b_hi; ++z) store(z, true);
+    evaluated += count;
+    first = false;
+  } while (next < ncand);
+  if (fp == 0 && tid == 0 && evaluated > 0) atomicAdd(r.counts, evaluated);
+  if (CURVES && fp == 0 && tid < kCounts - 1 && s_nwin[tid] > 0)
+    atomicAdd(r.counts + 1 + tid, s_nwin[tid]);
+}
+
 // The render kernels, each without and with the segment buses: the
 // curve-free one keeps the registers the compiler gives it (48, 10 blocks
-// an SM); the curve kernel is held to kCurveBlocks blocks an SM, since it
-// runs faster with more warps in flight than with more registers each.
+// an SM; its bus mode 66, 7 blocks: held to 64 it read 3% less on the demo
+// song and 3% more on the server's dense batch, held to 56 or 48 it
+// spilled); the curve kernel is held to kCurveBlocks blocks an SM, since
+// it runs faster with more warps in flight than with more registers each
+// (its bus mode at 3 blocks and 80 registers read 11% longer on the MIDI
+// bank; both on an H100).  The bus kernels launch with kThreads / fparts
+// threads.
 template <bool CURVES, bool BUSES>
 __global__ void render_kernel(const __grid_constant__ Render r);
 
 template <>
 __global__ void __launch_bounds__(kPlainThreads)
 render_kernel<false, false>(const __grid_constant__ Render r) {
-  render_tile<false, false>(r);
+  render_tile<false>(r);
 }
 
 template <>
 __global__ void __launch_bounds__(kPlainThreads)
 render_kernel<false, true>(const __grid_constant__ Render r) {
-  render_tile<false, true>(r);
+  render_bus_tile<false>(r);
 }
 
 template <>
 __global__ void __launch_bounds__(kCurveThreads, kCurveBlocks)
 render_kernel<true, false>(const __grid_constant__ Render r) {
-  render_tile<true, false>(r);
+  render_tile<true>(r);
 }
 
 template <>
 __global__ void __launch_bounds__(kCurveThreads, kCurveBlocks)
 render_kernel<true, true>(const __grid_constant__ Render r) {
-  render_tile<true, true>(r);
+  render_bus_tile<true>(r);
 }
 
 Curves make_curves(const void* const* p, const int* dims) {
@@ -1281,7 +1591,11 @@ extern "C" int voicebank_setup(const void* const* cols,
 // takes its voices from row n / chunk_frames.  With `bus` (device [V]
 // int32 bus ids) the output is [nframes, nseg, 2] and bus b sums only the
 // voices whose id is b (a voice with an id outside [0, nseg) sounds on no
-// bus); without it nseg must be 1 and the output is [nframes, 2].
+// bus): span_kernel first writes the span lists into `spans` (int32,
+// 16-byte aligned: spans * nslots int4 entries, then spans counts, for
+// spans = ceil(tiles / span_tiles) and nslots the groups' voices), then
+// the bus render reads them.  Without `bus` nseg must be 1 and the output
+// is [nframes, 2].
 extern "C" int voicebank_render(const uint32_t* consts, int C,
                                 const float* harm, int harm_stride,
                                 const float* table, const int32_t* groups,
@@ -1290,10 +1604,13 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
                                 int n0, int nframes, float sr_r, int modes,
                                 const int32_t* idx, int K, int chunk_frames,
                                 int V, const int32_t* bus, int nseg,
-                                float* out, int* counts, void* stream) {
+                                int span_tiles, int32_t* spans, float* out,
+                                int* counts, void* stream) {
   const bool curves_on = (modes & (kUseBend | kUseAmp | kUseDmod)) != 0;
   if (ngroups < 1 || ngroups > kMaxGroups || nframes <= 0 || nseg < 1
       || nseg > 65535 || (bus == nullptr && nseg != 1) || (bus && idx)
+      || (bus && (span_tiles < 1 || (span_tiles & (span_tiles - 1)) != 0
+                  || spans == nullptr))
       || (curves_on && seg == nullptr)
       || (idx && (ngroups != 1 || K < 1 || chunk_frames <= 0
                   || chunk_frames % kTile != 0 || n0 % chunk_frames != 0)))
@@ -1308,19 +1625,44 @@ extern "C" int voicebank_render(const uint32_t* consts, int C,
     gs.slot0[g] = gs.nslots;
     gs.nslots += gs.count[g];
   }
-  const dim3 blocks((nframes + kTile - 1) / kTile, nseg);
-  const Render r = {consts, C, harm, harm_stride, table, gs,
-                    make_curves(curves, dims), seg, H, n0, nframes, sr_r,
-                    modes, idx, K, chunk_frames, V, bus, nseg,
-                    reinterpret_cast<float2*>(out), counts};
+  const int tiles = (nframes + kTile - 1) / kTile;
+  Render r = {consts, C, harm, harm_stride, table, gs,
+              make_curves(curves, dims), seg, H, n0, nframes, sr_r,
+              modes, idx, K, chunk_frames, V, bus, nseg,
+              reinterpret_cast<float2*>(out), counts};
   cudaStream_t st = (cudaStream_t)stream;
-  if (curves_on && bus)
-    render_kernel<true, true><<<blocks, kCurveThreads, 0, st>>>(r);
-  else if (curves_on)
-    render_kernel<true, false><<<blocks, kCurveThreads, 0, st>>>(r);
-  else if (bus)
-    render_kernel<false, true><<<blocks, kPlainThreads, 0, st>>>(r);
-  else
-    render_kernel<false, false><<<blocks, kPlainThreads, 0, st>>>(r);
+  if (bus) {
+    // at least 2 blocks an SM: split a tile's frames (down to a warp a
+    // block), then its buses
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long want = 2LL * sms;
+    const int threads = curves_on ? kCurveThreads : kPlainThreads;
+    int fparts = 1;
+    while ((long long)tiles * fparts < want && threads / (2 * fparts) >= 32)
+      fparts *= 2;
+    const long long per_bus = (long long)tiles * fparts;
+    long long bparts = (want + per_bus - 1) / per_bus;
+    bparts = bparts > nseg ? nseg : bparts < 1 ? 1 : bparts;
+    const int nspans = (tiles + span_tiles - 1) / span_tiles;
+    r.cand = reinterpret_cast<int4*>(spans);
+    r.ncand = spans + (size_t)4 * nspans * gs.nslots;
+    r.span_tiles = span_tiles;
+    r.fparts = fparts;
+    r.bparts = (int)bparts;
+    span_kernel<<<nspans, kSpanThreads, 0, st>>>(r);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const unsigned blocks = (unsigned)(per_bus * bparts);
+    if (curves_on)
+      render_kernel<true, true><<<blocks, threads / fparts, 0, st>>>(r);
+    else
+      render_kernel<false, true><<<blocks, threads / fparts, 0, st>>>(r);
+  } else if (curves_on) {
+    render_kernel<true, false><<<tiles, kCurveThreads, 0, st>>>(r);
+  } else {
+    render_kernel<false, false><<<tiles, kPlainThreads, 0, st>>>(r);
+  }
   return (int)cudaGetLastError();
 }

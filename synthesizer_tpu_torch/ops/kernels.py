@@ -15,9 +15,12 @@ sparse render, per-chunk rows of candidate voices (``idx``).  For CPU
 tensors it runs ``render_stereo_reference``, the plain ``render_block``
 over the same layout and rows.  With per-voice bus ids (``seg``, ``nseg``)
 the render gives each voice's signal to its own stereo bus (the segment
-buses of ``render_block``): on the card the render kernel's bus
-specialisation, a row of blocks per bus.  There is no fallback between the
-two: a CUDA tensor launches the kernels or raises.
+buses of ``render_block``): on the card a span pass (plain version:
+``bus_span_candidates``) lists the voices that may sound in each span of
+tiles, and the render kernel's bus specialisation walks a tile's span list
+once, buckets the voices it admits by bus and renders bus after bus (plain
+version of the order: ``bus_tile_lists``).  There is no fallback between
+the two: a CUDA tensor launches the kernels or raises.
 
 Nothing here imports a GPU toolchain at import time, so the CPU tests can
 import the module.
@@ -99,6 +102,15 @@ COUNTS = 3
 #: segment's entry (``CurveSegments``)
 CURVES = ("bend", "amp", "depth")
 SEGMENT_WORDS = (4, 4, 8)
+#: the bus render's span lists: tiles a span (at least SPAN_TILES, doubled
+#: while the lists would hold more than SPAN_ENTRIES entries), and the
+#: fields of an entry's key word (bus id in the low 16 bits, the wave code
+#: & 0x1ff from KEY_CODE_SHIFT, KEY_UNSAFE for a voice that is not
+#: cull-safe); an entry is (voice, key, start, t4's f32 bits)
+SPAN_TILES = 32
+SPAN_ENTRIES = 1 << 22
+KEY_CODE_SHIFT = 16
+KEY_UNSAFE = 1 << 25
 MAX_GROUPS = 16
 _REFERENCE_BLOCK = 131072
 _EPS = float(np.float32(1e-30))
@@ -170,6 +182,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,    # idx, K, chunk_frames
         ctypes.c_int,                                   # V
         ctypes.c_void_p, ctypes.c_int,                  # bus [V] int32, nseg
+        ctypes.c_int, ctypes.c_void_p,                  # span tiles, lists
         ctypes.c_void_p,                                # out [nframes, (nseg,) 2]
         ctypes.c_void_p,                                # counters [COUNTS]
         ctypes.c_void_p]                                # cudaStream_t
@@ -348,9 +361,11 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
 
     ``seg`` (int32 [V] on vp's device, with ``nseg``): segment buses ->
     [nframes, nseg, 2], bus b the sum of the voices whose id is b, in
-    packed order.  The kernel launches a row of blocks per bus; its
-    launch is counted in ``render_stereo.launches`` and, besides, in
-    ``render_stereo.bus_launches``.
+    packed order.  On CUDA the span pass and then the render kernel's bus
+    mode: the render is counted in ``render_stereo.launches`` and, besides,
+    in ``render_stereo.bus_launches``, the span pass in
+    ``render_stereo.span_launches``; ``render_stereo.spans`` is then its
+    lists (``bus_span_candidates``' layout).
 
     ``idx`` (int32 [nchunks, K], with ``chunk_frames``): sparse rows, as
     ``VoiceBank.sparse_plan`` makes them.  The frames of absolute chunk c
@@ -388,6 +403,13 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
     groups = [int(x) for g in layout.groups for x in g]
     out = torch.empty((nframes, 2) if seg is None else (nframes, nseg, 2),
                       dtype=torch.float32, device=vp.device)
+    span, spans = 0, None
+    if seg is not None:
+        nslots = sum(g[3] for g in layout.groups)
+        span = span_tiles(nframes, nslots)
+        nspans = -(-nframes // (span * TILE))
+        spans = torch.empty(nspans * (4 * nslots + 1), dtype=torch.int32,
+                            device=vp.device)
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(_library().voicebank_render(
@@ -399,10 +421,15 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
             _sr_r(samplerate), modes, 0 if idx is None else idx.data_ptr(),
             0 if idx is None else idx.shape[1], int(chunk_frames), V,
             0 if seg is None else seg.data_ptr(), 1 if seg is None else nseg,
+            span, 0 if spans is None else spans.data_ptr(),
             out.data_ptr(), counts.data_ptr(), stream), "voicebank_render")
     render_stereo.launches += 1
+    render_stereo.spans = None
     if seg is not None:
         render_stereo.bus_launches += 1
+        render_stereo.span_launches += 1
+        render_stereo.spans = (spans[:nspans * nslots * 4].view(
+            nspans, nslots, 4), spans[nspans * nslots * 4:])
     render_stereo.voice_tiles = counts[:1]
     render_stereo.windows = counts[1:3]
     return out
@@ -410,6 +437,8 @@ def render_stereo(vp: VoiceParams, n0: int, *, nframes: int,
 
 render_stereo.launches = 0
 render_stereo.bus_launches = 0
+render_stereo.span_launches = 0
+render_stereo.spans = None
 render_stereo.voice_tiles = None
 render_stereo.windows = None
 
@@ -655,6 +684,115 @@ def active_voice_tiles(vp: VoiceParams, n0: int, nframes: int, *,
         cand[rows[ok], tiles[ok]] = True
         walked = walked & cand
     return ~silent & walked
+
+
+def span_tiles(nframes: int, nslots: int) -> int:
+    """Tiles in a span of the bus render's candidate lists for a window of
+    nframes and a layout of nslots voices: SPAN_TILES, doubled while the
+    lists ([spans, nslots] entries) would exceed SPAN_ENTRIES."""
+    tiles = -(-nframes // TILE)
+    span = SPAN_TILES
+    while span < tiles and -(-tiles // span) * nslots > SPAN_ENTRIES:
+        span *= 2
+    return span
+
+
+def _bus_slots(vp: VoiceParams, samplerate: int, layout: BankLayout, seg,
+               nseg: int):
+    """The layout's slots in walk order with what the span pass reads ->
+    (entries int64 [nslots, 4]: voice, key, start, t4's bits; safe, on a
+    bus in [0, nseg), start, t4 [nslots])."""
+    c = voice_constants(vp, samplerate, layout.num_harmonics)
+    col = {name: c[:, j].to(torch.int64) for j, name in
+           enumerate(CONST_COLUMNS)}
+    dev = vp.device
+    voice, wid, code = [], [], []
+    for (gw, fm, start, count) in layout.groups:
+        v = torch.arange(start, start + count, dtype=torch.int64, device=dev)
+        w = vp.wave.to(torch.int64)[v] if gw < 0 else torch.full_like(v, gw)
+        voice.append(v)
+        wid.append(w)
+        code.append(w | (0x100 if fm else 0))
+    voice, wid, code = torch.cat(voice), torch.cat(wid), torch.cat(code)
+    flags = col["flags"][voice]
+    safe = ((flags & FLAG_SAFE) != 0) & ((wid != 12)
+                                         | ((flags & FLAG_PLUCK_SAFE) != 0))
+    bus = torch.as_tensor(seg, device=dev).to(torch.int64)[voice]
+    on_bus = (bus >= 0) & (bus < nseg)
+    key = (bus & 0xffff) | ((code & 0x1ff) << KEY_CODE_SHIFT) | torch.where(
+        safe, 0, KEY_UNSAFE)
+    start, t4 = col["start"][voice], col["t4"][voice]
+    entries = torch.stack([voice, key, start, t4], dim=1)
+    return entries, safe, on_bus, start, t4.to(torch.int32).view(torch.float32)
+
+
+def _silent_on(safe, start, t4, n0: int, nframes: int, frames: int,
+               sr_r: float):
+    """The kernels' exact test over windows of ``frames`` frames -> bool
+    [nslots, nwindows]: True where a voice is silent on the window."""
+    _, m_first, m_last = _tile_ends(start, n0, nframes, frames)
+    return safe[:, None] & (m_first <= m_last) & (
+        (m_last.to(torch.float32) * sr_r < 0.0)
+        | (m_first.to(torch.float32) * sr_r >= t4[:, None]))
+
+
+def bus_span_candidates(vp: VoiceParams, n0: int, nframes: int, *,
+                        samplerate: int, layout: BankLayout, seg, nseg: int,
+                        span: Optional[int] = None):
+    """The bus render's span pass (``span_kernel``) as plain PyTorch ->
+    (entries int32 [spans, nslots, 4], counts int32 [spans]).  Span s
+    covers window frames [s * span * TILE, (s+1) * span * TILE) (``span``
+    tiles, by default ``span_tiles``); its first counts[s] entries are the
+    layout's slots, in walk (packed) order, that may sound on the span on
+    a bus in [0, nseg) -- every voice that is not cull-safe, and a
+    cull-safe one unless the exact tile test over the span's first and
+    last frame finds it silent -- as (voice, key, start, t4's bits); the
+    rest is zero."""
+    nslots = sum(g[3] for g in layout.groups)
+    span = span or span_tiles(nframes, nslots)
+    entries, safe, on_bus, start, t4 = _bus_slots(vp, samplerate, layout,
+                                                  seg, nseg)
+    keep = on_bus[:, None] & ~_silent_on(safe, start, t4, n0, nframes,
+                                         span * TILE, _sr_r(samplerate))
+    nspans = keep.shape[1]
+    out = torch.zeros((nspans, nslots, 4), dtype=torch.int32,
+                      device=vp.device)
+    counts = keep.sum(dim=0).to(torch.int32)
+    for s in range(nspans):
+        rows = entries[keep[:, s]]
+        out[s, :rows.shape[0]] = rows.to(torch.int32)
+    return out, counts
+
+
+def bus_tile_lists(vp: VoiceParams, n0: int, nframes: int, *,
+                   samplerate: int, layout: BankLayout, seg, nseg: int,
+                   span: Optional[int] = None) -> list:
+    """What the bus render kernel evaluates on each tile, in its order, as
+    plain PyTorch -> one int64 [k, 3] tensor a tile of (voice, bus, wave
+    code): the entries of the tile's span list (``bus_span_candidates``)
+    that the exact tile test admits, bucketed stably by bus (bus order,
+    packed order within a bus).  A tile's buses summed over these lists
+    are the render, bit for bit."""
+    cand, counts = bus_span_candidates(vp, n0, nframes, samplerate=samplerate,
+                                       layout=layout, seg=seg, nseg=nseg,
+                                       span=span)
+    span = span or span_tiles(nframes, sum(g[3] for g in layout.groups))
+    sr_r = _sr_r(samplerate)
+    ntiles = -(-nframes // TILE)
+    out = []
+    for j in range(ntiles):
+        e = cand[j // span, :int(counts[j // span])].to(torch.int64)
+        key = e[:, 1]
+        a, b = j * TILE, min((j + 1) * TILE, nframes)
+        silent = _silent_on(~((key & KEY_UNSAFE) != 0), e[:, 2],
+                            e[:, 3].to(torch.int32).view(torch.float32),
+                            n0 + a, b - a, TILE, sr_r)[:, 0]
+        e, key = e[~silent], key[~silent]
+        bus = key & 0xffff
+        order = torch.sort(bus, stable=True).indices
+        out.append(torch.stack([e[order, 0], bus[order],
+                                (key[order] >> KEY_CODE_SHIFT) & 0x1ff], 1))
+    return out
 
 
 class CurveSegments(NamedTuple):
