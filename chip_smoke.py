@@ -173,7 +173,12 @@ versions on the card:
     bounds, each check one of this script's; then the four examples
     (``fm_bell``, ``midi_demo``, ``render_server_demo``,
     ``sharded_mixdown``) in-process on the card, their WAVs checked and
-    their render kernel launches counted.
+    their render kernel launches counted;
+23. the bench program (``bench_phase``): ``python3 -m
+    synthesizer_tpu_torch.bench`` in a subprocess (its own limit 600 s):
+    exit code 0, a last line with every key of ``bench.py``'s line and the
+    program's own, each number finite, each rate positive, no ``error``;
+    the line is printed here.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -200,12 +205,6 @@ import numpy as np
 SR = 44100
 FAILURES = []
 STARTED = time.perf_counter()
-#: sha256 of config 5's int16 output from the plain path on the CPU:
-#: python -c "import hashlib; from synthesizer_tpu_torch import bench_song as b;
-#:   k, vp, n = b.song_bank(device='cpu');
-#:   print(hashlib.sha256(k.to_int16(k.render_song(vp, n)).numpy().tobytes()).hexdigest())"
-CONFIG5_SHA256 = ("3294c70b55a4ba87991a4feefb9f38d6"
-                  "04ee8ec402f1668b91d70d34581735d4")
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and f32 operations/s
 #: outside the tensor cores (67 TFLOP/s counts an FMA as two; the kernels
 #: issue no FMA, so this bound is generous by up to 2x)
@@ -1138,10 +1137,10 @@ def realtime_phase(dev, card, source):
     import threading
     import wave
     import torch
+    from synthesizer_tpu_torch import bench_song
     from synthesizer_tpu_torch import oscillators as O
     from synthesizer_tpu_torch import playback as P
     from synthesizer_tpu_torch import streaming as ST
-    from synthesizer_tpu_torch.models import spec as S
     from synthesizer_tpu_torch.sample import Sample
     from synthesizer_tpu_torch.voice import RealtimeVoice
 
@@ -1279,11 +1278,7 @@ def realtime_phase(dev, card, source):
           f"the second chunk; both ended-callbacks fired ({out_s:.2f} s)")
 
     # RealtimeVoice with config 4's patch
-    patch4 = S.Echo(
-        S.AmpMod(S.Osc("sawtooth", 330.0, 0.7,
-                       fm_lfo=S.Osc("sine", 5.0, 0.01)),
-                 S.Osc("sine", 2.0, amplitude=0.4, bias=0.6)),
-        0.05, 4, 0.07, 0.6)
+    patch4 = bench_song.config4_patch()
 
     def voice(device, lookahead, release_at=None):
         return RealtimeVoice(O.Oscillator(patch4, SR), 0.01, 0.02, 0.7, 0.3,
@@ -1400,10 +1395,10 @@ def server_phase(dev, card, config5, gm_data, spread):
         got5 = pcm(data)
         sha = hashlib.sha256(got5.tobytes()).hexdigest()
         check(status == 200 and np.array_equal(got5, want5)
-              and sha == CONFIG5_SHA256 and solo_counts == (1, 1, 0),
+              and sha == B.CONFIG5_SHA256 and solo_counts == (1, 1, 0),
               f"/render/voices, config 5 (64 voices, 60 s, {len(body5)} B "
               f"of JSON): == render_song -> to_int16 bit for bit, sha256 "
-              f"{sha[:16]}... == the pinned {CONFIG5_SHA256[:16]}... (the "
+              f"{sha[:16]}... == the pinned {B.CONFIG5_SHA256[:16]}... (the "
               f"JSON round trip keeps every voice exact); launches (setup, "
               f"render, bus) {solo_counts}")
 
@@ -1958,6 +1953,45 @@ def battery_phase(dev, card):
                   f"kernel launch(es) in this process")
 
 
+def bench_phase(card):
+    """Phase 23: the bench program on the card, in a subprocess that the
+    limit kills; its section lines and its JSON line printed here."""
+    from synthesizer_tpu_torch import bench as BN
+    head(f"[23] the bench program: python3 -m synthesizer_tpu_torch.bench "
+         f"({card})")
+    t = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, "-m", "synthesizer_tpu_torch.bench"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        check(False, "the bench program finished within 600 s")
+        return
+    took = time.perf_counter() - t
+    lines = res.stdout.strip().splitlines() or [""]
+    for ln in lines[:-1]:
+        if ln.startswith("[") and ln.endswith(")"):
+            print(f"  {ln}")
+    print(f"  bench line: {lines[-1]}", flush=True)
+    try:
+        line = json.loads(lines[-1])
+    except ValueError:
+        line = {}
+    keys = BN.BENCH_PY_KEYS + BN.EXTRA_KEYS
+    missing = [k for k in keys if k not in line]
+    numbers = {k: v for k, v in line.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    bad = [k for k, v in numbers.items() if not math.isfinite(v)]
+    bad += [k for k in BN.RATE_KEYS if k in line and not line[k] > 0]
+    check(res.returncode == 0 and "error" not in line and not missing
+          and not bad,
+          f"the bench program: exit code {res.returncode} in {took:.1f} s; "
+          f"{len(line)} keys, missing {missing}, not finite or not "
+          f"positive {bad}; value {line.get('value')} x realtime"
+          + (f"; stderr: {res.stderr[-2000:]}" if res.returncode else ""))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2351,8 +2385,8 @@ def main():
     peak = int(np.abs(pcm_np.astype(np.int64)).max())
     check(peak > 1000, f"peak {peak}")
     sha = hashlib.sha256(pcm_np.tobytes()).hexdigest()
-    check(sha == CONFIG5_SHA256, f"sha256(int16) {sha} == the CPU plain "
-          f"path's {CONFIG5_SHA256[:16]}...")
+    check(sha == bench_song.CONFIG5_SHA256, f"sha256(int16) {sha} == the "
+          f"CPU plain path's {bench_song.CONFIG5_SHA256[:16]}...")
 
     # -- 6. scale --------------------------------------------------------
     head("[6] scale")
@@ -2747,10 +2781,14 @@ def main():
           f"active_voice_tiles {want}; candidates tested: rows "
           f"{ntiles_s * Ks}, flat {-(-total_s // T) * Vs}")
     win = 4 * bs.chunk_frames
+    t = time.perf_counter()
     plain_s = K.render_stereo_reference(vps, 0, nframes=win, samplerate=SR,
                                         layout=lay1, idx=idx_s,
                                         chunk_frames=bs.chunk_frames,
                                         **bs._flags())
+    torch.cuda.synchronize()
+    print(f"  plain version on frames [0, {win}): "
+          f"{(time.perf_counter() - t) * 1e3:.3f} ms (wall, first call)")
     render_err = max(render_err, compare(
         f"sparse rows, kernel vs plain on frames [0, {win})",
         sparse_s[:win], plain_s))
@@ -3117,11 +3155,7 @@ def main():
     check(noise_sha == "7d5f6f9b694b18a5" and torch.equal(
         noise_g.cpu(), G.render_patch(noise_node, 10000, SR, device="cpu")),
         f"noise digest on the card {noise_sha} == 7d5f6f9b694b18a5, == CPU")
-    patch4 = S.Echo(
-        S.AmpMod(S.Osc("sawtooth", 330.0, 0.7,
-                       fm_lfo=S.Osc("sine", 5.0, 0.01)),
-                 S.Osc("sine", 2.0, amplitude=0.4, bias=0.6)),
-        0.05, 4, 0.07, 0.6)
+    patch4 = bench_song.config4_patch()
     CH, NCH = 1470, 30
 
     def stream4(device):
@@ -3204,11 +3238,12 @@ def main():
     song5 = bench_song.song_sample(*config5)
     host5 = song5.get_frame_array(out=pinned)
     sha5 = hashlib.sha256(host5.tobytes()).hexdigest()
-    check(pinned.is_pinned() and sha5 == CONFIG5_SHA256
+    check(pinned.is_pinned() and sha5 == bench_song.CONFIG5_SHA256
           and np.array_equal(song5.get_frame_array(), host5),
           f"config 5 through Sample.from_torch(...).get_frame_array(out="
-          f"pinned): sha256 {sha5[:16]}... == {CONFIG5_SHA256[:16]}...; the "
-          f"sample's own pinned buffer holds the same bytes")
+          f"pinned): sha256 {sha5[:16]}... == "
+          f"{bench_song.CONFIG5_SHA256[:16]}...; the sample's own pinned "
+          f"buffer holds the same bytes")
 
     def main_pageable():
         bank5, vp5, total5 = config5
@@ -3278,6 +3313,7 @@ def main():
     meshed = mesh_phase(dev, card, data, spread, profiled, pick)
     apps_phase(dev, card, data, midi_pcm, spread)
     battery_phase(dev, card)
+    bench_phase(card)
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     span = {k: buses.pop(k) for k in ("span_launches", "span_max_abs_err",

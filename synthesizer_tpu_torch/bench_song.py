@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .midi import MidiNote, write_midi
+from .models import spec as S
 from .models.voicebank import Voice, VoiceBank, pack_voices
 from .sample import Sample
 
@@ -33,6 +34,13 @@ NVOICES = 64
 DURATION = 60.0
 CHUNK_FRAMES = 131072
 NUM_HARMONICS = 8
+#: sha256 of config 5's int16 output from the plain path on the CPU (the
+#: kernel on the card equals it bit for bit):
+#: python -c "import hashlib; from synthesizer_tpu_torch import bench_song as b;
+#:   k, vp, n = b.song_bank(device='cpu');
+#:   print(hashlib.sha256(k.to_int16(k.render_song(vp, n)).numpy().tobytes()).hexdigest())"
+CONFIG5_SHA256 = ("3294c70b55a4ba87991a4feefb9f38d6"
+                  "04ee8ec402f1668b91d70d34581735d4")
 
 _WAVES = ("sine", "triangle", "square", "sawtooth", "pulse",
           "semicircle", "pointy", "harmonics")
@@ -94,6 +102,37 @@ def sparse_voices(nnotes: int = 600, duration: float = 300.0, seed: int = 5):
         start=round(float(rng.uniform(0, duration - 1.0)), 3),
         duration=0.4, attack=0.005, decay=0.05, sustain_level=0.7,
         release=0.1) for i in range(nnotes)]
+
+
+def config2_voices():
+    """Config 2 of ``bench.py``: an 8-voice FM + harmonics + ADSR bank,
+    rendered to stereo for 2 s (nharm 4, chunk 16384)."""
+    voices = []
+    for i in range(8):
+        fm = i % 2 == 0
+        voices.append(Voice(
+            wave="harmonics" if i % 4 == 3 else "sine",
+            frequency=220.0 * 2 ** (i / 12), amplitude=0.1,
+            pan=(i - 3.5) / 4, start=0.01 * i, duration=1.6,
+            attack=0.01, decay=0.05, sustain_level=0.7, release=0.1,
+            fm_frequency=5.0 if fm else 0.0, fm_depth=0.02 if fm else 0.0,
+            harmonics=(1.0, 0.5, 0.33) if i % 4 == 3 else ()))
+    return voices
+
+
+def config1_patch() -> S.Node:
+    """Config 1 of ``bench.py``: a 440 Hz sine (2 s at block 32768)."""
+    return S.Osc("sine", 440.0, 0.9999)
+
+
+def config4_patch() -> S.Node:
+    """Config 4 of ``bench.py``: an LFO-modulated sawtooth under an
+    amplitude LFO into an echo chain (30 blocks of 1470 frames)."""
+    return S.Echo(
+        S.AmpMod(S.Osc("sawtooth", 330.0, 0.7,
+                       fm_lfo=S.Osc("sine", 5.0, 0.01)),
+                 S.Osc("sine", 2.0, amplitude=0.4, bias=0.6)),
+        0.05, 4, 0.07, 0.6)
 
 
 def gm_events(nnotes: int, duration: float, seed: int = 0):

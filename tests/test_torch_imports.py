@@ -40,6 +40,7 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.utils.device",
                  "synthesizer_tpu_torch.utils.wavio",
                  "synthesizer_tpu_torch.bench_song",
+                 "synthesizer_tpu_torch.bench",
                  "synthesizer_tpu_torch.midi",
                  "synthesizer_tpu_torch.params",
                  "synthesizer_tpu_torch.sequencer",
