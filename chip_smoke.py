@@ -178,7 +178,23 @@ versions on the card:
     synthesizer_tpu_torch.bench`` in a subprocess (its own limit 600 s):
     exit code 0, a last line with every key of ``bench.py``'s line and the
     program's own, each number finite, each rate positive, no ``error``;
-    the line is printed here.
+    the line is printed here;
+24. programs (``programs_phase``): each device program of
+    ``utils.program`` at full width -- the patch step (config 4, 1470
+    frames) and render (config 1's three blocks), ``RealtimeVoice``'s
+    block, the reverb's whole-signal networks (the bench's 20 s), the
+    slab of a longer signal's comb stage, the streamed networks, every
+    streaming processor of the fx rack on 1470-frame chunks and a
+    ``Sample`` chain on 10 s -- as a fresh program: (eager calls,
+    captures, replays) after calls 1-3, each call's output ==
+    ``Program.eager`` bit for bit and both replays' outputs still right
+    after both, the host's launches of one call eager and replayed under
+    the profiler, and both times; a 40 s reverb in slabs == its whole
+    loop run eagerly, bit for bit; the demo song at 1-10 repeats of its
+    patterns, each mixed three times (the same bits), with
+    ``torch.cuda.memory_reserved()`` and the bytes and keys the programs
+    hold (within ``utils.program.MAX_BYTES`` and ``MAX_KEYS``); then one
+    ``{"programs": [...]}`` line.
 
 It prints a ``{"kernels": [...]}`` line and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -464,36 +480,43 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
                     Sample.from_torch(ir_g, SR, 2))
     ops_c = _fx_ops(Sample.from_torch(key_g.cpu(), SR, 2),
                     Sample.from_torch(ir_g.cpu(), SR, 2))
+    def run_op(op, x):
+        """The op on a fresh Sample of ``x``, its staged program run."""
+        r = op(Sample.from_torch(x, SR, 2))
+        return r.torch_frames if isinstance(r, Sample) else r
+
     for (name, op, budget), (_, op_c, _) in zip(ops_g, ops_c):
+        # three runs: the program's eager first call, its capture and a
+        # replay, whose time is the op's
         runs = []
-        for _ in range(2):
+        for _ in range(3):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            runs.append(op(Sample.from_torch(ex_g, SR, 2)))
+            runs.append(run_op(op, ex_g))
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
-        ref = op_c(Sample.from_torch(ex_g.cpu(), SR, 2))
+        ref = run_op(op_c, ex_g.cpu())
         cpu_ms = (time.perf_counter() - t) * 1e3
-        if isinstance(ref, Sample):
-            a, b = runs[0].torch_frames, runs[1].torch_frames
-            d = lsb(a, ref.torch_frames) if a.shape == ref.torch_frames.shape \
-                else float("inf")
-            again = torch.equal(a, b)
+        if isinstance(ref, torch.Tensor):
+            a = runs[0]
+            d = lsb(a, ref) if a.shape == ref.shape else float("inf")
+            again = all(torch.equal(a, b) for b in runs[1:])
             unit = "LSB"
         elif isinstance(ref, dict):
             d = max(abs(runs[0][k] - ref[k]) if runs[0][k] != ref[k] else 0.0
                     for k in ref)
-            again, unit = runs[0] == runs[1], "LU"
+            again, unit = runs[0] == runs[1] == runs[2], "LU"
         else:
             d = abs(runs[0] - ref) if runs[0] != ref else 0.0
-            again, unit = runs[0] == runs[1], "dB"
-        profiled(lambda: op(Sample.from_torch(ex_g, SR, 2)), 1, cpu=False)
+            again, unit = runs[0] == runs[1] == runs[2], "dB"
+        profiled(lambda: run_op(op, ex_g), 1, cpu=False)
         check(d <= budget and again,
-              f"{name}: card vs CPU {d:.6g} {unit} (budget {budget}), two "
-              f"card runs bit-identical; {ms:.3f} ms on the card, "
-              f"{cpu_ms:.3f} ms on the CPU; {profiled.launches:.0f} device "
-              f"operations a call (profiler)")
+              f"{name}: card vs CPU {d:.6g} {unit} (budget {budget}), three "
+              f"card runs (eager, captured, replayed) bit-identical; "
+              f"{ms:.3f} ms on the card, {cpu_ms:.3f} ms on the CPU; "
+              f"{profiled.launches:.0f} device operations a call "
+              f"(profiler)")
 
     def chain(s, steps=None):
         """filter -> eq -> compress -> reverb -> limit -> normalize_lufs;
@@ -510,6 +533,7 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
             t = time.perf_counter()
             op(s)
             if steps is not None:
+                s.torch_frames          # the step's staged program runs
                 torch.cuda.synchronize()
                 steps[name] = (time.perf_counter() - t) * 1e3
         return s
@@ -541,7 +565,8 @@ def resample_and_effects(dev, card, render, spread, timed, profiled):
     # under the profiler on the 10 s excerpt: a whole-render pass records
     # about a million device operations, whose trace takes minutes to read
     by_name, busy, pwall = profiled(
-        lambda: chain(Sample.from_torch(ex_g, SR, 2)), 1, cpu=False)
+        lambda: chain(Sample.from_torch(ex_g, SR, 2)).torch_frames, 1,
+        cpu=False)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     print(f"  the chain on the 10 s excerpt under the profiler: "
           f"{profiled.launches:.0f} device operations, device busy "
@@ -772,16 +797,20 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
           f"long demo song ({len(long_pcm) / SR:.2f} s of audio): mix() "
           f"through the grouped render, launches {launches}; first call "
           f"{first_s:.2f} s")
-    # the first call is one of the two timed runs, for the script's time:
-    # the song is warm by then (phase 17's earlier songs built every path);
-    # each run takes about 12 s, so a third run would add one more
+    # the first call is one of the three timed runs, for the script's time:
+    # the song's programs run eagerly at the first call, are captured at
+    # the second and replayed at the third
     wall = [first_s * 1e3]
-    t = time.perf_counter()
-    host(long_fx.mix())
-    wall.append((time.perf_counter() - t) * 1e3)
+    for _ in range(2):
+        t = time.perf_counter()
+        again = host(long_fx.mix())
+        wall.append((time.perf_counter() - t) * 1e3)
+        check(np.array_equal(again, long_pcm),
+              "long demo song: mix() again == its first call, bit for bit")
     print(f"  long demo song, mix() to the int16 on the host, wall clock: "
-          f"{spread(wall)} ({len(long_pcm) / SR / statistics.median(wall) * 1e3:.1f}"
-          f"x realtime)")
+          f"eager {wall[0]:.1f} ms, captured {wall[1]:.1f} ms, replayed "
+          f"{wall[2]:.1f} ms ({len(long_pcm) / SR / wall[2] * 1e3:.1f}x "
+          f"realtime replayed)")
     # one call under the profiler (device activity only), on the demo song
     # as written: the long song's 603,152 device operations took the
     # profiler about a minute and a half to read, and its busy share
@@ -1990,6 +2019,338 @@ def bench_phase(card):
           f"{len(line)} keys, missing {missing}, not finite or not "
           f"positive {bad}; value {line.get('value')} x realtime"
           + (f"; stderr: {res.stderr[-2000:]}" if res.returncode else ""))
+
+
+#: the CUDA runtime calls that put work on the device: a kernel, a copy, a
+#: fill or a whole graph
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                 "cudaGraphLaunch")
+
+
+def _launches(fn):
+    """One call of ``fn`` under the profiler -> (the host's launch calls by
+    name, the device's kernels, copies and fills)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host, device = {}, 0
+    for ev in prof.key_averages():
+        if ev.key in _LAUNCH_CALLS:
+            host[ev.key] = host.get(ev.key, 0) + ev.count
+        elif str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            device += ev.count
+    return host, device
+
+
+def _wall_ms(fn, reps=3):
+    import torch
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def _same(x, y) -> bool:
+    import torch
+    from torch.utils import _pytree as pytree
+    a, b = pytree.tree_leaves(x), pytree.tree_leaves(y)
+    return len(a) == len(b) and all(
+        p.shape == q.shape and p.dtype == q.dtype and torch.equal(p, q)
+        for p, q in zip(a, b))
+
+
+def _program_case(name, prog, a, b, rows, differ=True):
+    """One program through phase 24's checks: calls 1-3 of a fresh program
+    of the same body (eager, capture and replay, replay), each output
+    against ``Program.eager`` on the same inputs, the two replays' outputs
+    both right after both calls, the launches of one call eager and
+    replayed, and the time of each."""
+    from synthesizer_tpu_torch.utils.program import Program
+    fresh = Program(prog.body, prog.name, prog.device, prog.static)
+    (aa, ka), (ab, kb) = a, b
+    counts, outs = [], []
+    try:
+        for args, kw in ((aa, ka), (aa, ka), (ab, kb)):
+            outs.append(fresh(*args, **kw))
+            counts.append((fresh.eager_calls, fresh.captures, fresh.replays))
+    except RuntimeError as exc:
+        check(False, f"program {name}: {exc}")
+        return
+    ea, eb = prog.eager(*aa, **ka), prog.eager(*ab, **kb)
+    check(counts == [(1, 0, 0), (1, 1, 1), (1, 1, 2)],
+          f"{name}: (eager calls, captures, replays) after calls 1-3 "
+          f"{counts}")
+    check(_same(outs[0], ea) and _same(outs[1], ea) and _same(outs[2], eb)
+          and (not differ or not _same(ea, eb)),
+          f"{name}: the eager first call and both replays == Program.eager "
+          f"bit for bit on their inputs, after both replays (the two "
+          f"inputs' outputs {'differ' if differ else 'are one'})")
+    host_e, dev_e = _launches(lambda: prog.eager(*aa, **ka))
+    host_r, dev_r = _launches(lambda: fresh(*aa, **ka))
+    n_e, n_r = sum(host_e.values()), sum(host_r.values())
+    check(host_r.get("cudaGraphLaunch", 0) == 1 and n_r < n_e,
+          f"{name}: host launches a call {n_e} eager ({dev_e} on the "
+          f"device) -> {n_r} replayed ({dev_r} on the device): {host_r}")
+    ms_e = _wall_ms(lambda: prog.eager(*aa, **ka))
+    ms_r = _wall_ms(lambda: fresh(*aa, **ka))
+    print(f"  {name}: {ms_e:.3f} ms eager, {ms_r:.3f} ms replayed "
+          f"({ms_e / ms_r:.1f}x; synchronised wall clock, median of 3)",
+          flush=True)
+    rows.append({"name": name, "eager_launches": n_e, "replay_launches": n_r,
+                 "eager_device_ops": dev_e, "replay_device_ops": dev_r,
+                 "eager_ms": ms_e, "replay_ms": ms_r})
+
+
+def _processor_calls(proc, chunks):
+    """The program calls ``proc.process`` makes on ``chunks`` -> (program,
+    [(args, kw), ...])."""
+    calls = []
+    real = proc._prog
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    proc._prog = record
+    for c in chunks:
+        proc.process(c)
+    proc._prog = real
+    return real, calls
+
+
+def programs_phase(dev, card):
+    """Phase 24: the JAX package's compiled programs as CUDA graphs
+    (``utils.program.Program``): the patch step and render, the realtime
+    voice's block, the reverb's whole-signal and streamed networks, every
+    streaming processor of the fx rack and a ``Sample`` chain, each through
+    ``_program_case``."""
+    import torch
+
+    from synthesizer_tpu_torch import bench_song
+    from synthesizer_tpu_torch import effects as E
+    from synthesizer_tpu_torch import sample as SM
+    from synthesizer_tpu_torch import voice as V
+    from synthesizer_tpu_torch.models import graph as G
+    from synthesizer_tpu_torch.ops import coeffs as C
+    from synthesizer_tpu_torch.ops import effects as F
+    from synthesizer_tpu_torch.oscillators import Oscillator
+    from synthesizer_tpu_torch.utils import profiling
+    from synthesizer_tpu_torch.utils import program as P
+    head(f"[24] programs: calls 1-3, replays against Program.eager, "
+         f"launches and times ({card})")
+    dev = torch.zeros(0, device=dev).device     # the programs' keys: cuda:N
+    rows = []
+    rng = np.random.default_rng(24)
+    B = 1470
+    # -- the patch step and render
+    node4 = bench_song.config4_patch()
+    init, step = G._stream_step(node4, SR, B, 2, dev)
+    st = init
+    for k in range(3):
+        _, st = step.eager(st, i=(k * B,))
+    _program_case("stream_step: config 4, 1470 frames, int16", step,
+                  ((init,), {"i": (0,)}), ((st,), {"i": (3 * B,)}), rows)
+    # patch_values' program: config 1's 3 blocks in one replay
+    node1 = bench_song.config1_patch()
+    init1, render = G._stream_step(node1, SR, 32768, None, dev, blocks=3)
+    _, st1 = render.eager(init1, i=(0,))
+    _program_case("render_patch: config 1, 3 blocks of 32768", render,
+                  ((init1,), {"i": (0,)}), ((st1,), {"i": (3 * 32768,)}),
+                  rows)
+    # -- the realtime voice
+    rv = V.RealtimeVoice(Oscillator(node4, SR), 0.01, 0.05, 0.7, 0.3,
+                         blocksize=B, echo=(0.05, 3, 0.07, 0.5), device=dev)
+    carry = rv._carry
+    for k in range(3):
+        _, carry = rv._program.eager(carry, f=(1.0,), i=(k * B, V._HELD))
+    _program_case(
+        "voice_block: config 4's patch, gate and echo, 1470 frames",
+        rv._program, ((rv._carry,), {"f": (1.0,), "i": (0, V._HELD)}),
+        ((carry,), {"f": (0.625,), "i": (3 * B, 3 * B + 700)}), rows)
+    # -- the reverb
+    nets = tuple((tuple(c), tuple(a)) for c, a in (
+        C.reverb_delays(SR, ch) for ch in range(2)))
+    # the bench's reverb: 20 s and its half-second tail, one program
+    n20 = 20 * SR + SR // 2
+    mono = [torch.from_numpy((rng.standard_normal(n20) * 0.05)
+                             .astype(np.float32)).to(dev) for _ in range(2)]
+    check(F.whole_reverb_route(n20, nets) == "one",
+          f"the bench's reverb ({n20} frames) is one program")
+    F._reverb_networks_whole(mono[0], nets, 0.84, 0.2)
+    _program_case("reverb_whole: the bench's 20 s, both channels' networks",
+                  P.program("reverb_whole", nets, None, dev),
+                  ((mono[0],), {"f": (0.84, 0.2)}),
+                  ((mono[1],), {"f": (0.91, 0.3)}), rows)
+    # a longer signal: the comb stage in slabs of SLAB_STEPS steps, each
+    # slab a replay, the same bits as the whole loop run eagerly
+    all_ds = tuple(D for c, _ in nets for D in c)
+    n40 = 40 * SR
+    long_in = torch.from_numpy((rng.standard_normal(n40) * 0.05)
+                               .astype(np.float32)).to(dev)
+    t = time.perf_counter()
+    slabs = F._reverb_networks_whole(long_in, nets, 0.84, 0.2)
+    torch.cuda.synchronize()
+    slab_ms = (time.perf_counter() - t) * 1e3
+    fd = torch.tensor([0.84, 0.2], dtype=torch.float64,
+                      device=dev).to(torch.float32)
+    t = time.perf_counter()
+    whole = F._whole_body(long_in, nets, fd[0], fd[1])
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t) * 1e3
+    check(F.whole_reverb_route(n40, nets) == "slabs"
+          and all(torch.equal(a, b) for a, b in zip(slabs, whole)),
+          f"40 s reverb: the comb stage in slabs of {F.SLAB_STEPS} steps "
+          f"({slab_ms:.1f} ms) == the whole loop run eagerly "
+          f"({whole_ms:.1f} ms), bit for bit")
+    rows40 = F._comb_rows(long_in, all_ds, 2 * F.SLAB_STEPS)
+    z = torch.zeros((len(all_ds), max(all_ds)), dtype=torch.float32,
+                    device=dev)
+    zf = torch.zeros(len(all_ds), dtype=torch.float32, device=dev)
+    combs = P.program("reverb_combs", all_ds, None, dev)
+    y1, b1, f1 = combs.eager(z, zf, rows40[:F.SLAB_STEPS], f=(0.84, 0.2))
+    _program_case(f"reverb_combs: a slab of {F.SLAB_STEPS} comb steps",
+                  combs, ((z, zf, rows40[:F.SLAB_STEPS]), {"f": (0.84, 0.2)}),
+                  ((b1, f1, rows40[F.SLAB_STEPS:]), {"f": (0.91, 0.3)}),
+                  rows)
+    states = [F.reverb_zero_state(c, a, dev) for c, a in nets]
+    st2, _ = F.reverb_networks_apply(states, mono[0][:B], nets, 0.84, 0.2)
+    _program_case("reverb_networks: one 1470-frame chunk",
+                  P.program("reverb_networks", (nets, False), None, dev),
+                  ((states, mono[0][:B], ()), {"f": (0.84, 0.2)}),
+                  ((st2, mono[0][B:2 * B], ()), {"f": (0.91, 0.3)}), rows)
+    # -- the fx rack, each processor on stereo int16 chunks of 1470
+    t = np.arange(4 * B)[:, None] / SR
+    music = (0.3 * np.sin(2 * np.pi * 220.0 * t + np.array([0.0, 0.4]))
+             + 0.05 * rng.standard_normal((4 * B, 2)))
+    chunks = list(torch.from_numpy(np.rint(music * 32767).astype(np.int16))
+                  .to(dev).split(B))
+    cv = dict(tickf=500.0)
+    procs = [
+        ("compress", E.StreamingCompressor(SR, -18.0, 4.0, device=dev)),
+        ("compress, curves", E.StreamingCompressor(
+            SR, makeup_curve=[(0, 0.0), (8, 6.0)],
+            attack_curve=[(0, 0.005), (8, 0.02)], **cv, device=dev)),
+        ("filter", E.StreamingBiquad(SR, 2, "lowpass", 5000.0, device=dev)),
+        ("filter, float-float", E.StreamingBiquad(
+            SR, 2, "lowshelf", 60.0, gain_db=6.0, device=dev)),
+        ("eq, a swept band", E.StreamingEQ(
+            SR, 2, mid_db=-2.0, mid_freq=4000.0,
+            high_curve=[(0, 0.0), (8, 6.0)], **cv, device=dev)),
+        ("swept eq band", E.SweptEQBand(SR, 2, "highshelf", 8000.0, 0.7071,
+                                        [(0, -6.0), (8, 6.0)], 500.0,
+                                        device=dev)),
+        ("swept gain-kind filter", E.SweptGainKindBiquad(
+            SR, 2, "highshelf", 0.7071, 6.0, [(0, 500.0), (8, 4000.0)],
+            500.0, device=dev)),
+        ("swept filter", E.SweptStreamingBiquad(
+            SR, 2, "lowpass", 1.0, [(0, 300.0), (8, 6000.0)], 500.0,
+            device=dev)),
+        ("gate", E.StreamingGate(SR, -40.0, device=dev)),
+        ("reverb", E.StreamingReverb(SR, 2, device=dev)),
+        ("reverb, curves", E.StreamingReverb(
+            SR, 2, wet_curve=[(0, 0.2), (8, 0.5)],
+            roomsize_curve=[(0, 0.5), (8, 0.9)], **cv, device=dev)),
+        ("chorus", E.StreamingChorus(SR, 2, device=dev)),
+        ("chorus, curves", E.StreamingChorus(
+            SR, 2, rate_curve=[(0, 0.5), (8, 2.0)],
+            depth_curve=[(0, 0.001), (8, 0.003)], **cv, device=dev)),
+        ("convolve", E.StreamingConvolver(
+            (rng.standard_normal(2048) * np.exp(-np.arange(2048) / 300.0)
+             * 0.2).astype(np.float32), device=dev)),
+        ("echo", E.StreamingFeedbackEcho(SR, 2, delay=0.01, device=dev)),
+        ("echo, curves", E.StreamingFeedbackEcho(
+            SR, 2, delay=0.01, feedback_curve=[(0, 0.2), (8, 0.6)], **cv,
+            device=dev)),
+        ("width", E.StreamingWidth(SR, 2, amount=1.5, device=dev)),
+        ("limiter", E.StreamingLimiter(SR, 2, -3.0, device=dev)),
+        ("limiter, curves", E.StreamingLimiter(
+            SR, 2, ceiling_curve=[(0, -3.0), (8, -1.0)],
+            release_curve=[(0, 0.05), (8, 0.1)], **cv, device=dev)),
+        ("phaser", E.StreamingPhaser(SR, 2, device=dev)),
+        ("phaser, float-float, 2 stages", E.StreamingPhaser(
+            SR, 2, min_freq=40.0, stages=2, device=dev)),
+        ("tremolo", E.StreamingTremolo(SR, 2, device=dev)),
+        ("autopan", E.StreamingAutopan(SR, 2, device=dev)),
+    ]
+    for name, proc in procs:
+        proc.process(chunks[0])
+        prog, calls = _processor_calls(proc, chunks[1:3])
+        _program_case(f"fx {name}: 1470 frames", prog, calls[0], calls[1],
+                      rows)
+    # -- a Sample chain (the JAX package's fused effects chain), 10 s
+    sig = [torch.from_numpy((rng.standard_normal((10 * SR, 2)) * 6000)
+                            .astype(np.int16)).to(dev) for _ in range(2)]
+    staged = []
+    for s_, knobs in zip(sig, ((-15.0, 4.0, 0.3, 0.9), (-9.0, 2.0, 0.9,
+                                                         0.7))):
+        smp = SM.Sample.from_torch(s_, SR, 2)
+        smp.compress(threshold_db=knobs[0], ratio=knobs[1]).chorus() \
+            .reverb(roomsize=knobs[2], tail=0.1).fadeout(0.01) \
+            .amplify(knobs[3])
+        staged.append(smp)
+    a_, b_ = staged
+    chain = SM._compile_program(tuple(a_._ops), dev)
+    nprogs = len(P.programs("sample_chain"))
+    with profiling.count_program_launches() as n:
+        a_.copy().get_frame_array()
+        b_.copy().get_frame_array()
+    check(n[0] == 2 and len(P.programs("sample_chain")) == nprogs
+          and len(chain) == 1 and tuple(b_._ops) == tuple(a_._ops),
+          f"a Sample chain of {len(a_._ops)} ops is one program a "
+          f"materialisation ({n[0]} for two), and other knobs reuse it")
+    _program_case("sample chain: compress, chorus, reverb, fadeout, amplify "
+                  "on 10 s", chain, ((a_._base, ()), {"f": a_._dyn}),
+                  ((b_._base, ()), {"f": b_._dyn}), rows)
+    # -- memory over many request lengths: the demo song at 1-10 repeats of
+    # its patterns, each mixed three times (first calls, captures, replays)
+    from synthesizer_tpu_torch import sequencer as Q
+    demo_dir = os.path.join(tempfile.mkdtemp(prefix="lengths"), "demo")
+    bench_song.make_demo_kit(demo_dir, device=dev)
+    series = []
+    for k in range(1, 11):
+        song = Q.Song.from_string(bench_song.repeated(bench_song.DEMO_INI, k),
+                                  demo_dir, device=dev)
+        walls, pcms, caps = [], [], []
+        for _ in range(3):
+            cap0 = sum(p.capture_s for p in list(P._PROGRAMS.values()))
+            t = time.perf_counter()
+            pcms.append(song.mix().get_frame_array())
+            walls.append((time.perf_counter() - t) * 1e3)
+            caps.append((sum(p.capture_s for p in list(P._PROGRAMS.values()))
+                         - cap0) * 1e3)
+        pcm = pcms[0]
+        check(all(np.array_equal(p, pcm) for p in pcms[1:]),
+              f"song of {len(pcm) / SR:.1f} s: three mix() calls bit-identical")
+        series.append((len(pcm) / SR, walls,
+                       torch.cuda.memory_reserved() / 2 ** 20,
+                       P.held_bytes() / 2 ** 20, len(P._LRU)))
+        print(f"  song of {series[-1][0]:.1f} s: mix() {walls[0]:.1f} ms, "
+              f"then {walls[1]:.1f} ms, {walls[2]:.1f} ms (captures "
+              f"{caps[0]:.1f}, {caps[1]:.1f}, {caps[2]:.1f} ms of them); "
+              f"memory_reserved "
+              f"{series[-1][2]:.1f} MiB, programs hold {series[-1][3]:.1f} "
+              f"MiB in {series[-1][4]} keys", flush=True)
+    check(all(h <= P.MAX_BYTES / 2 ** 20 and k <= P.MAX_KEYS
+              for _, _, _, h, k in series),
+          f"10 song lengths: the programs held at most "
+          f"{max(h for *_, h, _ in series):.1f} MiB (bound "
+          f"{P.MAX_BYTES / 2 ** 20:.0f}) and {max(k for *_, k in series)} "
+          f"keys (bound {P.MAX_KEYS}); memory_reserved "
+          f"{series[0][2]:.1f} -> {series[-1][2]:.1f} MiB")
+    print(f"  torch.cuda.memory_reserved() after the phase: "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB (max "
+          f"{torch.cuda.max_memory_reserved() / 2**20:.1f} MiB)", flush=True)
+    print(json.dumps({"programs": rows}), flush=True)
+    return rows
 
 
 def main():
@@ -3201,7 +3562,7 @@ def main():
               f"Biquad {bname}: card vs CPU {d:.0f} LSB (budget {tol})")
     for tname, fn in (
             ("config 1: WaveSynth.sine(440, 2.0), 88200 frames",
-             lambda: ws_g.sine(440.0, 2.0)),
+             lambda: ws_g.sine(440.0, 2.0).torch_frames),
             ("config 1 to the host (get_frame_array)",
              lambda: ws_g.sine(440.0, 2.0).get_frame_array()),
             (f"config 4: {NCH} chunks of {CH} through block_stream, to the "
@@ -3314,6 +3675,8 @@ def main():
     apps_phase(dev, card, data, midi_pcm, spread)
     battery_phase(dev, card)
     bench_phase(card)
+    programs_phase(dev, card)
+    head("[end] phases 1-24")
 
     src = "synthesizer_tpu_torch/csrc/voicebank_render.cu"
     span = {k: buses.pop(k) for k in ("span_launches", "span_max_abs_err",

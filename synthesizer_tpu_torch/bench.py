@@ -18,8 +18,10 @@ the CPU, not of a device.
 config 3 (the chainable ``Sample`` API); 1024 voices for 10 s; 64 voices for
 600 s; the sparse workload (600 notes over 300 s through
 ``VoiceBank.sparse_plan``, which must not fall back to the flat render);
-configs 1 and 4 through ``models.graph.lower``'s step loop (2 s at block
-32768, 30 blocks of 1470); config 2 (8 voices, nharm 4, chunk 16384, 2 s);
+configs 1 and 4 through ``models.graph.patch_values``' program (2 s at
+block 32768, 30 blocks of 1470), and again block by block through the
+per-block program (``config{1,4}_step_rtf``); config 2 (8 voices, nharm
+4, chunk 16384, 2 s);
 the reverb, the stretch, the chorus and the hq resampler on a 20 s stereo
 int32 signal from ``default_rng(7)``, each cut to its input's frames; then
 config 5's path to the host, one ``render_chunk``, ``render_midi`` on the
@@ -85,6 +87,8 @@ op on the CPU, on a 1 s slice; the render kernel's voice-tiles equal
 reported, not checked.  ``tf32_*`` records PyTorch's TF32 flags and the
 device kernels of every timed call whose names mark a matrix or convolution
 unit (none is allowed: the port's ops use no matmul or convolution).
+``cuda_memory_reserved_mib`` is ``torch.cuda.memory_reserved()`` at the
+end, the device programs' graph pools included (``utils.program``).
 """
 
 from __future__ import annotations
@@ -132,7 +136,9 @@ EXTRA_KEYS = (
     "demo_song_mix_ms", "demo_song_stream_fx_chunks_per_sec",
     "realtime_voice_blocks_per_sec_lookahead1",
     "realtime_voice_blocks_per_sec_lookahead4", "tf32_matmul_allowed",
-    "tf32_cudnn_allowed", "tf32_capable_kernels", "spread")
+    "tf32_cudnn_allowed", "tf32_capable_kernels",
+    "cuda_memory_reserved_mib", "config1_step_rtf", "config4_step_rtf",
+    "spread")
 #: the keys that are rates: each must be positive
 RATE_KEYS = tuple(k for k in BENCH_PY_KEYS + EXTRA_KEYS
                   if k in ("value", "vs_baseline") or k.endswith(
@@ -308,15 +314,26 @@ def checksum(pcm: torch.Tensor) -> float:
     return (pcm.to(torch.float32).abs().mean() % 1).item()
 
 
-def patch_render(lowered, total: int, block: int) -> torch.Tensor:
-    """Configs 1 and 4: a patch lowered by ``graph.lower(node, SR, block,
-    device)``, its step over ``ceil(total / block)`` blocks from its initial
-    state (a step replaces the state, so the lowering serves every call) ->
-    the f32 values of every block, concatenated."""
-    state, step = lowered
+def patch_render(node, total: int, block: int, device) -> torch.Tensor:
+    """Configs 1 and 4: the patch's step over ``ceil(total / block)``
+    blocks from its initial state, as ``graph.patch_values``' one device
+    program (``bench.py`` scans the blocks inside one program) -> the f32
+    values of every block, concatenated."""
+    from .models import graph as G
+    return G.patch_values(node, -(-total // block) * block, SR, block,
+                          device)
+
+
+def patch_steps(node, total: int, block: int, device) -> torch.Tensor:
+    """Configs 1 and 4 as a stream: the per-block program
+    (``graph._stream_step``) called once a block over the blocks of
+    :func:`patch_render` -> the same values.  It times the streaming
+    path apart from the whole render's one program."""
+    from .models import graph as G
+    state, prog = G._stream_step(node, SR, block, None, device)
     out = []
-    for i in range(-(-total // block)):
-        vals, state = step(state, i * block)
+    for k in range(-(-total // block)):
+        vals, state = prog(state, i=(k * block,))
         out.append(vals)
     return torch.cat(out)
 
@@ -513,16 +530,19 @@ def section_sparse(run: Run):
 
 def section_configs(run: Run):
     """Configs 1, 4 (patch graphs) and 2 (a small bank)."""
-    from .models import graph as G
     for key, node, total, block in (
             ("config1_rtf", bench_song.config1_patch(), 2 * SR, 32768),
             ("config4_rtf", bench_song.config4_patch(), 1470 * 30, 1470)):
-        lowered = G.lower(node, SR, block, run.device)
-        tm = run.timed(key[:7], lambda: patch_render(lowered, total, block))
+        tm = run.timed(key[:7],
+                       lambda: patch_render(node, total, block, run.device))
         run.check(bool(torch.isfinite(tm.first).all())
                   and float(tm.first.abs().max()) > 0.1,
                   f"{key[:7]}: {tm.first.shape[0]} finite values")
         run.put(key, tm.wall_s, lambda w: (total / SR) / w)
+        steps = run.timed(f"{key[:7]} step by step", lambda: patch_steps(
+            node, total, block, run.device), want=tm.first)
+        run.put(f"{key[:7]}_step_rtf", steps.wall_s,
+                lambda w: (total / SR) / w)
     bank, vp, total = config2_bank(run.device)
     tm, _, _ = _bank_workload(run, "config2", bank, vp, total, [0])
     run.put("config2_rtf", tm.wall_s, lambda w: (total / SR) / w)
@@ -695,6 +715,10 @@ def finish(run: Run, card: str) -> dict:
     run.check(not k["tf32_capable_kernels"],
               f"no matrix or convolution kernel in {len(run.kernels)} "
               f"device kernels: {k['tf32_capable_kernels']}")
+    # the caching allocator's hold at the end, the programs' graph pools
+    # included (one pool a captured key)
+    k["cuda_memory_reserved_mib"] = (torch.cuda.memory_reserved() / 2 ** 20
+                                     if run.cuda else 0.0)
     k["spread"] = run.spread
     missing = [key for key in BENCH_PY_KEYS + EXTRA_KEYS if key not in k]
     run.check(not missing, f"every key present (missing: {missing})")

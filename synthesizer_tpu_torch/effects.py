@@ -22,9 +22,12 @@ Two paths share the formulas of :mod:`goldref.effects`:
   per-effect budgets (``ops.effects.BUDGETS``; the f32 scans regroup at
   chunk boundaries).
 
-The reference caches one compiled program per (chunk shape, effect
-configuration); here each ``process`` runs the ``ops.effects`` functions
-eagerly on tensors.  Every processor takes ``device=`` (the card unless the
+Each processor's ``process`` is ONE device program
+(``utils.program.Program``) per (effect configuration, chunk shape), as the
+reference caches one compiled program per (chunk shape, effect
+configuration): knob values are device scalars, so processors that differ
+only in their knobs share a program, and the carried state rides in one
+flat buffer.  Every processor takes ``device=`` (the card unless the
 caller passes ``device="cpu"``) and keeps its state there.  Automation
 curves that enter an effect elementwise are evaluated on the device with
 ``ops.wave.interp`` (``jnp.interp`` bit for bit); those inside a recurrence
@@ -38,12 +41,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .ops import coeffs as C
 from .ops import effects as dfx
 from .ops import pcm as dpcm
 from .ops.wave import div, interp, scalar
 from .utils.device import resolve
+from .utils.program import Flat, program
 
 __all__ = ["StreamingCompressor", "StreamingReverb", "StreamingChorus",
            "StreamingConvolver", "StreamingBiquad", "StreamingGate",
@@ -67,9 +72,16 @@ def _curve(points):
             np.asarray([v for _, v in points], np.float32))
 
 
-def _ticks(n0: int, n: int, tickf: float, device) -> torch.Tensor:
+def _curve_t(points, device):
+    """A breakpoint list as (ticks, values) f32 tensors on ``device``: a
+    program's inputs (programs are shared between processors)."""
+    return tuple(_grid(a, device) for a in _curve(points))
+
+
+def _ticks(n0, n: int, tickf, device) -> torch.Tensor:
     """f32(n0 + k) / f32(tickf) for k in [0, n): the curve time of each
-    frame, as the reference computes it."""
+    frame, as the reference computes it (``n0`` and ``tickf`` may be device
+    scalars)."""
     k = n0 + torch.arange(n, dtype=torch.int64, device=device)
     return div(k.to(torch.float32), tickf)
 
@@ -89,13 +101,85 @@ def _lfo_seek_carry(rate_curve, start_frame: int, tickf: float,
     return carry
 
 
+def _program(name: str, static: tuple, template, body, device):
+    """(Flat, Program) of a processor configuration, cached by (effect,
+    static configuration, the carried state's layout, device): processors
+    of one configuration share a program whatever their knob values, as
+    the reference's ``_fn_cache``.  ``body(x, state, *extra, f, i) -> (y,
+    new state)`` is built from ``static`` alone; the program carries the
+    state as ONE flat buffer (``utils.program.Flat``), so a chunk costs one
+    copy in and one copy out beside the replay."""
+    leaves, spec = pytree.tree_flatten(template)
+
+    def build():
+        flat = Flat(template, device)
+
+        def pbody(carry, x, *extra, f, i):
+            y, state = body(x, flat.unpack(carry), *extra, f=f, i=i)
+            return y, flat.pack(state)
+        return pbody, flat
+
+    prog = program(name, (static, spec, tuple((tuple(t.shape), t.dtype)
+                                              for t in leaves)),
+                   build, device)
+    return prog.aux, prog
+
+
+class _Processor:
+    """A streaming processor whose ``process`` is one device program: the
+    subclass builds ``self._flat``, ``self._prog`` and ``self._carry``
+    (its initial state) with :func:`_program`."""
+
+    def _run(self, x: torch.Tensor, *extra, f=(), i=()) -> torch.Tensor:
+        y, self._carry = self._prog(self._carry, x, *extra, f=f, i=i)
+        return y
+
+
 # ---------------------------------------------------------------------------
 # Streaming processors.  Each has .process(int_chunk [n, ch]) -> int tensor
 # (same shape, except the holdback limiter) and carries its state between
-# calls on its device; feeding zeros drains reverb/convolution tails.
+# calls on its device; feeding zeros drains reverb/convolution tails.  The
+# host part of a chunk (coefficient grids from curves, the LFO phase carry)
+# runs before its program; knobs, frame counters and tickf are the
+# program's device scalars.
 # ---------------------------------------------------------------------------
 
-class StreamingCompressor:
+def _compressor_body(which: tuple, has_grids: bool, has_key: bool,
+                     has_knee: bool):
+    def body(x, state, key_arr, grids, cvs, f, i):
+        env, zdev = state
+        dev = x.device
+        thr, slope, alpha, decay, makeup = (f[k] for k in range(5))
+        knee = f[5] if has_knee else None
+        if has_grids:
+            alpha, decay = grids
+        if which:
+            t = _ticks(i[0], int(x.shape[0]), f[6], dev)
+            vals = {k: interp(t, *c) for k, c in zip(which, cvs)}
+            if "makeup" in vals:
+                makeup = torch.exp2(div(vals["makeup"], 6.0206))
+            if "thr" in vals:
+                thr = vals["thr"]
+            if "ratio" in vals:
+                slope = 1.0 - scalar(1.0, dev) / torch.clamp_min(
+                    vals["ratio"], 1.0)
+            if "knee" in vals:
+                # strictly positive: the soft form divides by the width
+                knee = torch.clamp_min(vals["knee"], float(np.float32(1e-3)))
+        if has_key:
+            a = torch.amax(torch.abs(dfx._norm(key_arr)), dim=1)
+            gains, env, zdev = dfx.compressor_gains_from_level(
+                a, thr, slope, alpha, decay, e0=env, z0=zdev,
+                with_state=True, knee=knee)
+        else:
+            gains, env, zdev = dfx.compressor_gains_from_coeffs(
+                x, thr, slope, alpha, decay, e0=env, z0=zdev,
+                with_state=True, knee=knee)
+        return dpcm.gain_apply(x, (gains * makeup)[:, None]), (env, zdev)
+    return body
+
+
+class StreamingCompressor(_Processor):
     """Chunked twin of ``Sample.compress``: the decaying-max envelope and
     the attack smoother carry their last values across chunks (the same
     associative scans with a carried init).
@@ -132,14 +216,15 @@ class StreamingCompressor:
              float(np.exp2(np.float32(makeup_db) / np.float32(6.0206))),
              knee_db], np.float32)]
         self._sr = samplerate
-        self._env = scalar(0.0, self.device)     # e_{-1}
-        self._zdev = scalar(0.0, self.device)    # z_{-1} = 1 - y_{-1}
         self.tail_frames = 0
         _require_tickf(tickf, makeup_curve, threshold_curve, ratio_curve,
                        attack_curve, release_curve, knee_curve)
-        self._curves = {name: _curve(c) for name, c in (
+        curves = {name: c for name, c in (
             ("makeup", makeup_curve), ("thr", threshold_curve),
             ("ratio", ratio_curve), ("knee", knee_curve)) if c is not None}
+        self._which = tuple(sorted(curves))
+        self._cvs = tuple(_curve_t(curves[k], self.device)
+                          for k in self._which)
         #: host-evaluated coefficient-grid curves (attack/release seconds)
         self._grid_curves = {k: c for k, c in (("attack", attack_curve),
                                                ("release", release_curve))
@@ -150,6 +235,13 @@ class StreamingCompressor:
         self._key_n0 = int(start_frame)
         self._tickf = float(tickf)
         self._n0 = int(start_frame)
+        z = scalar(0.0, self.device)
+        flags = (self._which, bool(self._grid_curves), key_fn is not None,
+                 self._has_knee)
+        self._flat, self._prog = _program(
+            "compress", flags, (z, z), _compressor_body(*flags),
+            self.device)
+        self._carry = self._flat.pack((z, z))   # (e_{-1}, z_{-1} = 1 - y)
 
     def _coeff_grids(self, n: int):
         """Per-frame (alpha, decay) f32 grids for [n0, n0+n)."""
@@ -162,42 +254,19 @@ class StreamingCompressor:
         return C.compressor_coeff_grids(att, rel, self._sr)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
-        dev = self.device
         n = int(x.shape[0])
-        thr, slope, alpha, decay, makeup, knee = self._knobs
-        knee = knee if self._has_knee else None
+        grids = ()
         if self._grid_curves:
-            ag, dg = self._coeff_grids(n)
-            alpha, decay = _grid(ag, dev), _grid(dg, dev)
-        if self._curves:
-            t = _ticks(self._n0, n, self._tickf, dev)
-            vals = {k: interp(t, *c) for k, c in self._curves.items()}
-            if "makeup" in vals:
-                makeup = torch.exp2(div(vals["makeup"], 6.0206))
-            if "thr" in vals:
-                thr = vals["thr"]
-            if "ratio" in vals:
-                slope = 1.0 - scalar(1.0, dev) / torch.clamp_min(
-                    vals["ratio"], 1.0)
-            if "knee" in vals:
-                # strictly positive: the soft form divides by the width
-                knee = torch.clamp_min(vals["knee"], float(np.float32(1e-3)))
+            grids = tuple(_grid(g, self.device) for g in self._coeff_grids(n))
+        key = ()
         if self._key_fn is not None:
             key = self._key_fn(self._key_n0, n)
             self._key_n0 += n
-            a = torch.amax(torch.abs(dfx._norm(key)), dim=1)
-            gains, self._env, self._zdev = dfx.compressor_gains_from_level(
-                a, thr, slope, alpha, decay, e0=self._env, z0=self._zdev,
-                with_state=True, knee=knee)
-        else:
-            gains, self._env, self._zdev = dfx.compressor_gains_from_coeffs(
-                x, thr, slope, alpha, decay, e0=self._env, z0=self._zdev,
-                with_state=True, knee=knee)
-        if self._curves or self._grid_curves:
+        y = self._run(x, key, grids, self._cvs,
+                      f=self._knobs + [self._tickf], i=(self._n0,))
+        if self._which or self._grid_curves:
             self._n0 += n
-        g = gains * (makeup if isinstance(makeup, torch.Tensor)
-                     else scalar(makeup, dev))
-        return dpcm.gain_apply(x, g[:, None])
+        return y
 
 
 def _zero_state(nch: int, ff: bool, device):
@@ -217,9 +286,57 @@ def _biquad_chunk(x: torch.Tensor, state, ff: bool, coefs):
     return dfx.to_int_samples(y, width), state
 
 
-class StreamingBiquad:
+def _biquads_body(bands: tuple):
+    """Biquads in series, each with the int PCM round trip: a band is
+    (swept, ff); a swept band's coefficients are grid inputs, a static
+    band's f32 scalars (five, or five (hi, lo) pairs) in ``f``."""
+    def body(x, states, grids, f, i):
+        off, new = 0, []
+        for (swept, ff), st, g in zip(bands, states, grids):
+            if swept:
+                coefs = g
+            elif ff:
+                coefs = tuple((f[off + 2 * k], f[off + 2 * k + 1])
+                              for k in range(5))
+                off += 10
+            else:
+                coefs = tuple(f[off + k] for k in range(5))
+                off += 5
+            x, st = _biquad_chunk(x, st, ff, coefs)
+            new.append(st)
+        return x, tuple(new)
+    return body
+
+
+class _Biquads(_Processor):
+    """The biquad processors' shared ``process``: their bands (objects with
+    ``_ff``, ``_swept`` and ``_band_inputs(n) -> (grids, scalars)``) in
+    series as ONE program."""
+
+    def _init_bands(self, bands, nchannels: int, device) -> None:
+        self._bands = list(bands)
+        states = tuple(_zero_state(nchannels, b._ff, device) for b in bands)
+        flags = tuple((b._swept, b._ff) for b in bands)
+        self._flat, self._prog = _program("biquads", flags, states,
+                                          _biquads_body(flags), device)
+        self._carry = self._flat.pack(states)
+
+    def process(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._bands:
+            return x
+        grids, scalars = [], []
+        for b in self._bands:
+            g, s = b._band_inputs(int(x.shape[0]))
+            grids.append(g)
+            scalars.extend(s)
+        return self._run(x, tuple(grids), f=scalars)
+
+
+class StreamingBiquad(_Biquads):
     """Chunked twin of ``Sample.filter``: the (x1, x2, y1, y2) biquad state
     carries across chunks (``ops.effects.biquad_apply``)."""
+
+    _swept = False
 
     def __init__(self, samplerate: int, nchannels: int, kind: str,
                  cutoff: float, q: float = 0.7071, gain_db: float = 0.0,
@@ -233,84 +350,57 @@ class StreamingBiquad:
         # coefficients, so the streaming and offline paths agree
         self._ff = C.wants_ff_scan(knobs)
         if self._ff:
-            self._coefs = tuple(tuple(float(np.float32(v))
-                                      for v in C.ff_split(c)) for c in knobs)
+            self._coefs = [float(np.float32(v)) for c in knobs
+                           for v in C.ff_split(c)]
         else:
-            self._coefs = tuple(float(np.float32(c)) for c in knobs)
-        self._state = _zero_state(nchannels, self._ff, self.device)
+            self._coefs = [float(np.float32(c)) for c in knobs]
         self.tail_frames = 0
+        self._init_bands([self], nchannels, self.device)
 
-    def process(self, x: torch.Tensor) -> torch.Tensor:
-        y, self._state = _biquad_chunk(x, self._state, self._ff, self._coefs)
-        return y
-
-
-def swept_biquad_chunk(x: torch.Tensor, n0: int, kind: str, q: float,
-                       xs, vs, tickf: float, samplerate: int, state=None):
-    """Cutoff-automated biquad (the ``fx.filter.cutoff`` curve): per-frame
-    cutoff from the breakpoint curve (``interp`` over ticks, ends held,
-    clipped to [10, 0.49*sr] Hz), per-frame RBJ coefficients in f32 (the
-    graph engine's LFO-swept Biquad formulas), applied through the
-    companion scan with carried (x1, x2, y1, y2) state.  Stateless in the
-    absolute frame ``n0`` apart from the filter state.  Returns (y_int,
-    new_state).
-
-    The scan runs in f64 on the f32 coefficients and input, rounded back
-    to f32.  In f32, without the fused multiply-adds that XLA's 2x2
-    products get on the CPU, a sweep that ends at a low, resonant cutoff
-    (300 Hz, Q 2, over one second) drifted 10 LSB from the sequential f64
-    recurrence (the JAX package: 4), past the 8 LSB the reference allows
-    between streaming and offline; the f64 scan stays within 1 LSB."""
-    if kind not in ("lowpass", "highpass", "bandpass"):
-        raise ValueError("fx.filter.cutoff automation supports "
-                         "lowpass/highpass/bandpass only (shelving kinds "
-                         "have a gain coefficient the sweep does not "
-                         "carry)")
-    dev = x.device
-    width = dpcm.width_of(x)
-    s = dfx._norm(x)
-    t = _ticks(n0, int(x.shape[0]), tickf, dev)
-    fc = torch.clamp(interp(t, xs, vs), 10.0,
-                     float(np.float32(0.49 * samplerate)))
-    w0 = float(np.float32(2.0 * math.pi / samplerate)) * fc
-    alpha = torch.sin(w0) / (2.0 * scalar(q, dev))
-    cw = torch.cos(w0)
-    one = scalar(1.0, dev)
-    if kind == "lowpass":
-        b0 = (one - cw) * 0.5
-        b1 = one - cw
-        b2 = b0
-    elif kind == "highpass":
-        b0 = (one + cw) * 0.5
-        b1 = -(one + cw)
-        b2 = b0
-    else:                                    # bandpass
-        b0 = alpha
-        b1 = torch.zeros_like(alpha)
-        b2 = -alpha
-    a0r = one / (one + alpha)
-    coeffs = (b0 * a0r, b1 * a0r, b2 * a0r, (-2.0 * cw) * a0r,
-              (one - alpha) * a0r)
-    if state is None:
-        state = _zero_state(x.shape[1], False, dev)
-    y, state = dfx.biquad_apply(s, coeffs, state, torch.float64)
-    return dfx.to_int_samples(y, width), state
+    def _band_inputs(self, n: int):
+        return (), self._coefs
 
 
-def _grid_coefs(grids, ff: bool, device):
-    """Host coefficient grids as tensors: f32 grids, or (hi, lo) pairs of
-    f64 grids for the float-float scan."""
-    if ff:
-        return tuple(tuple(_grid(part, device) for part in C.ff_split(g))
-                     for g in grids)
-    return tuple(_grid(g, device) for g in grids)
+def _swept_biquad_body(kind: str, samplerate: int):
+    def body(x, state, xs, vs, f, i):
+        dev = x.device
+        width = dpcm.width_of(x)
+        s = dfx._norm(x)
+        t = _ticks(i[0], int(x.shape[0]), f[1], dev)
+        fc = torch.clamp(interp(t, xs, vs), 10.0,
+                         float(np.float32(0.49 * samplerate)))
+        w0 = float(np.float32(2.0 * math.pi / samplerate)) * fc
+        alpha = torch.sin(w0) / (2.0 * f[0])
+        cw = torch.cos(w0)
+        one = scalar(1.0, dev)
+        if kind == "lowpass":
+            b0 = (one - cw) * 0.5
+            b1 = one - cw
+            b2 = b0
+        elif kind == "highpass":
+            b0 = (one + cw) * 0.5
+            b1 = -(one + cw)
+            b2 = b0
+        else:                                    # bandpass
+            b0 = alpha
+            b1 = torch.zeros_like(alpha)
+            b2 = -alpha
+        a0r = one / (one + alpha)
+        coeffs = (b0 * a0r, b1 * a0r, b2 * a0r, (-2.0 * cw) * a0r,
+                  (one - alpha) * a0r)
+        y, state = dfx.biquad_apply(s, coeffs, state, torch.float64)
+        return dfx.to_int_samples(y, width), state
+    return body
 
 
-class SweptEQBand:
+class SweptEQBand(_Biquads):
     """One parametric-EQ band with a per-frame gain curve
     (``fx.eq.*_db`` automation): coefficient grids derived on the host in
     f64 at absolute frames (``ops.coeffs.eq_coeff_grids``), applied through
-    the companion scan with carried state.  Spec: goldref.effects.eq_swept."""
+    the companion scan with carried state.  Spec: goldref.effects.eq_swept.
+    A band of :class:`StreamingEQ`, or a processor of its own."""
+
+    _swept = True
 
     def __init__(self, samplerate: int, nchannels: int, kind: str,
                  freq: float, q: float, curve, tickf: float,
@@ -325,30 +415,28 @@ class SweptEQBand:
         self._ff = any(
             C.wants_ff_scan(C.eq_band_coeffs(kind, freq, g, q, samplerate))
             for _, g in curve)
-        self._state = _zero_state(nchannels, self._ff, self.device)
         self._n0 = int(start_frame)
         self.tail_frames = 0
+        self._init_bands([self], nchannels, self.device)
 
-    def process(self, x: torch.Tensor) -> torch.Tensor:
-        n = int(x.shape[0])
+    def _band_inputs(self, n: int):
         g = C.curve_grid(self.curve, self._n0, n, self.tickf)
         grids = C.eq_coeff_grids(self.kind, self.freq, g, self.q,
                                  self.samplerate,
                                  dtype=np.float64 if self._ff
                                  else np.float32)
-        y, self._state = _biquad_chunk(
-            x, self._state, self._ff, _grid_coefs(grids, self._ff,
-                                                  self.device))
         self._n0 += n
-        return y
+        return _grid_coefs(grids, self._ff, self.device), []
 
 
-class SweptGainKindBiquad:
+class SweptGainKindBiquad(_Biquads):
     """``fx.filter.cutoff`` automation for the gain kinds (lowshelf,
     highshelf, peaking): the per-frame corner-frequency grid derives the
     five RBJ coefficients on the host in f64
     (``ops.coeffs.eq_freqs_coeff_grids``), and badly conditioned corners
     run the float-float scan.  Spec: goldref.effects.filter_swept_freq."""
+
+    _swept = True
 
     def __init__(self, samplerate: int, nchannels: int, kind: str,
                  q: float, gain_db: float, curve, tickf: float,
@@ -365,32 +453,38 @@ class SweptGainKindBiquad:
                 kind, float(np.clip(f, 10.0, samplerate * 0.49)),
                 gain_db, q, samplerate))
             for _, f in curve)
-        self._state = _zero_state(nchannels, self._ff, self.device)
         self._n0 = int(start_frame)
         self.tail_frames = 0
+        self._init_bands([self], nchannels, self.device)
 
-    def process(self, x: torch.Tensor) -> torch.Tensor:
-        n = int(x.shape[0])
+    def _band_inputs(self, n: int):
         f = np.clip(C.curve_grid(self.curve, self._n0, n, self.tickf),
                     10.0, self.samplerate * 0.49)
         grids = C.eq_freqs_coeff_grids(self.kind, f, self.gain_db, self.q,
                                        self.samplerate,
                                        dtype=np.float64 if self._ff
                                        else np.float32)
-        y, self._state = _biquad_chunk(
-            x, self._state, self._ff, _grid_coefs(grids, self._ff,
-                                                  self.device))
         self._n0 += n
-        return y
+        return _grid_coefs(grids, self._ff, self.device), []
 
 
-class StreamingEQ:
+def _grid_coefs(grids, ff: bool, device):
+    """Host coefficient grids as tensors: f32 grids, or (hi, lo) pairs of
+    f64 grids for the float-float scan."""
+    if ff:
+        return tuple(tuple(_grid(part, device) for part in C.ff_split(g))
+                     for g in grids)
+    return tuple(_grid(g, device) for g in grids)
+
+
+class StreamingEQ(_Biquads):
     """Chunked twin of ``Sample.eq``: one carried biquad state per active
     band, bands in low/mid/high order with the int PCM round trip between
     them (``Sample.eq``'s semantics, so streaming == offline bit for bit
-    given the same chunk contents).  A band with a ``*_curve`` runs as a
-    :class:`SweptEQBand` (its static gain is ignored); without one, bands
-    of zero gain are skipped, as ``Sample.eq`` skips them."""
+    given the same chunk contents), all bands one program.  A band with a
+    ``*_curve`` runs as a :class:`SweptEQBand` (its static gain is
+    ignored); without one, bands of zero gain are skipped, as ``Sample.eq``
+    skips them."""
 
     def __init__(self, samplerate: int, nchannels: int,
                  low_db: float = 0.0, mid_db: float = 0.0,
@@ -399,61 +493,106 @@ class StreamingEQ:
                  high_freq: float = 8000.0,
                  low_curve=None, mid_curve=None, high_curve=None,
                  tickf: float = 0.0, start_frame: int = 0, device="cuda"):
-        self._procs = []
+        self.device = resolve(device)
+        bands = []
         for kind, f, g, q, curve in (
                 ("lowshelf", low_freq, low_db, 0.7071, low_curve),
                 ("peaking", mid_freq, mid_db, mid_q, mid_curve),
                 ("highshelf", high_freq, high_db, 0.7071, high_curve)):
             if curve is not None:
-                self._procs.append(SweptEQBand(samplerate, nchannels, kind,
-                                               f, q, curve, tickf,
-                                               start_frame, device=device))
+                bands.append(SweptEQBand(samplerate, nchannels, kind, f, q,
+                                         curve, tickf, start_frame,
+                                         device=device))
             elif g != 0.0:
-                self._procs.append(StreamingBiquad(samplerate, nchannels,
-                                                   kind, f, q, gain_db=g,
-                                                   device=device))
+                bands.append(StreamingBiquad(samplerate, nchannels, kind, f,
+                                             q, gain_db=g, device=device))
         self.tail_frames = 0
-
-    def process(self, x: torch.Tensor) -> torch.Tensor:
-        for p in self._procs:
-            x = p.process(x)
-        return x
+        self._init_bands(bands, nchannels, self.device)
 
 
-class SweptStreamingBiquad:
-    """Streaming twin of the cutoff-automation path: tracks the absolute
-    frame across chunks so that the curve stays aligned (a seek passes its
-    ``start_frame``; the filter state starts cold, like every seek with
-    fx)."""
+def swept_biquad_chunk(x: torch.Tensor, n0: int, kind: str, q: float,
+                       xs, vs, tickf: float, samplerate: int, state=None):
+    """Cutoff-automated biquad (the ``fx.filter.cutoff`` curve): per-frame
+    cutoff from the breakpoint curve (``interp`` over ticks, ends held,
+    clipped to [10, 0.49*sr] Hz), per-frame RBJ coefficients in f32 (the
+    graph engine's LFO-swept Biquad formulas), applied through the
+    companion scan with carried (x1, x2, y1, y2) state.  Stateless in the
+    absolute frame ``n0`` apart from the filter state.  Returns (y_int,
+    new_state): the body of :class:`SweptStreamingBiquad`'s program, run
+    eagerly.
+
+    The scan runs in f64 on the f32 coefficients and input, rounded back
+    to f32.  In f32, without the fused multiply-adds that XLA's 2x2
+    products get on the CPU, a sweep that ends at a low, resonant cutoff
+    (300 Hz, Q 2, over one second) drifted 10 LSB from the sequential f64
+    recurrence (the JAX package: 4), past the 8 LSB the reference allows
+    between streaming and offline; the f64 scan stays within 1 LSB."""
+    _check_sweep_kind(kind)
+    dev = x.device
+    if state is None:
+        state = _zero_state(x.shape[1], False, dev)
+    f = torch.from_numpy(np.asarray([q, tickf], np.float32)).to(dev)
+    i = torch.full((1,), int(n0), dtype=torch.int64, device=dev)
+    return _swept_biquad_body(kind, samplerate)(
+        x, state, *(a if isinstance(a, torch.Tensor) else _grid(a, dev)
+                    for a in (xs, vs)), f=f, i=i)
+
+
+def _check_sweep_kind(kind: str) -> None:
+    if kind not in ("lowpass", "highpass", "bandpass"):
+        raise ValueError("fx.filter.cutoff automation supports "
+                         "lowpass/highpass/bandpass only (shelving kinds "
+                         "have a gain coefficient the sweep does not "
+                         "carry)")
+
+
+class SweptStreamingBiquad(_Processor):
+    """Streaming twin of the cutoff-automation path
+    (:func:`swept_biquad_chunk` as one program a chunk): tracks the
+    absolute frame across chunks so that the curve stays aligned (a seek
+    passes its ``start_frame``; the filter state starts cold, like every
+    seek with fx)."""
 
     def __init__(self, samplerate: int, nchannels: int, kind: str,
                  q: float, curve, tickf: float, start_frame: int = 0,
                  device="cuda"):
         _require_tickf(tickf, curve)
-        if kind not in ("lowpass", "highpass", "bandpass"):
-            raise ValueError("fx.filter.cutoff automation supports "
-                             "lowpass/highpass/bandpass only (shelving "
-                             "kinds have a gain coefficient the sweep "
-                             "does not carry)")
+        _check_sweep_kind(kind)
         self.device = resolve(device)
         self.kind = kind
         self.q = float(q)
-        self.xs, self.vs = _curve(curve)
+        self._xs, self._vs = _curve_t(curve, self.device)
         self.tickf = float(tickf)
         self.samplerate = samplerate
-        self._state = _zero_state(nchannels, False, self.device)
         self._n0 = int(start_frame)
         self.tail_frames = 0
+        state = _zero_state(nchannels, False, self.device)
+        self._flat, self._prog = _program(
+            "swept_biquad", (kind, samplerate), state,
+            _swept_biquad_body(kind, samplerate), self.device)
+        self._carry = self._flat.pack(state)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
-        y, self._state = swept_biquad_chunk(
-            x, self._n0, self.kind, self.q, self.xs, self.vs, self.tickf,
-            self.samplerate, self._state)
+        y = self._run(x, self._xs, self._vs, f=(self.q, self.tickf),
+                      i=(self._n0,))
         self._n0 += int(x.shape[0])
         return y
 
 
-class StreamingGate:
+def _gate_body(has_curve: bool):
+    def body(x, state, cvs, f, i):
+        env, z = state
+        thr = f[0]
+        if has_curve:
+            thr = interp(_ticks(i[0], int(x.shape[0]), f[4], x.device),
+                         *cvs)
+        g, env, z = dfx.gate_gains_from_coeffs(
+            x, thr, f[1], f[2], f[3], e0=env, z0=z, with_state=True)
+        return dpcm.gain_apply(x, g[:, None]), (env, z)
+    return body
+
+
+class StreamingGate(_Processor):
     """Chunked twin of ``Sample.gate``: detector envelope and smoother
     carry across chunks (a stream starts closed).  ``threshold_curve``
     (fx.gate.threshold_db) enters the open/closed comparison per frame."""
@@ -467,32 +606,62 @@ class StreamingGate:
                                                  range_db)
         self._knobs = [float(v) for v in np.asarray(
             [threshold_db, floor_gain, alpha, decay], np.float32)]
-        self._env = scalar(0.0, self.device)
-        self._z = scalar(floor_gain, self.device)
         self.tail_frames = 0
         _require_tickf(tickf, threshold_curve)
-        self._curve = (_curve(threshold_curve) if threshold_curve is not None
-                       else None)
+        self._cvs = (_curve_t(threshold_curve, self.device)
+                     if threshold_curve is not None else ())
         self._tickf = float(tickf)
         self._n0 = int(start_frame)
+        state = (scalar(0.0, self.device), scalar(floor_gain, self.device))
+        has_curve = threshold_curve is not None
+        self._flat, self._prog = _program("gate", (has_curve,), state,
+                                          _gate_body(has_curve), self.device)
+        self._carry = self._flat.pack(state)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
-        thr, floor_gain, alpha, decay = self._knobs
-        if self._curve is not None:
-            thr = interp(_ticks(self._n0, int(x.shape[0]), self._tickf,
-                                self.device), *self._curve)
+        y = self._run(x, self._cvs, f=self._knobs + [self._tickf],
+                      i=(self._n0,))
+        if self._cvs:
             self._n0 += int(x.shape[0])
-        g, self._env, self._z = dfx.gate_gains_from_coeffs(
-            x, thr, floor_gain, alpha, decay, e0=self._env, z0=self._z,
-            with_state=True)
-        return dpcm.gain_apply(x, g[:, None])
+        return y
 
 
-class StreamingReverb:
+def _reverb_body(nets: tuple, nch: int, room: bool, swept: bool):
+    def body(x, states, fb_grid, cvs, f, i):
+        dev = x.device
+        n = int(x.shape[0])
+        width = dpcm.width_of(x)
+        feedback, damp, wet1, wet2, dry = (f[k] for k in range(5))
+        if room:
+            feedback = fb_grid
+        if swept:
+            t = _ticks(i[0], n, f[5], dev)
+            wet_n = interp(t, *cvs[0])
+            dry = interp(t, *cvs[1])
+            wet1 = wet_n * f[6]
+            wet2 = wet_n * f[7]
+        s = dfx._norm(x)
+        mono_in = torch.sum(s, dim=1) * float(np.float32(C.FIXED_GAIN))
+        states, revs = dfx.reverb_networks_apply(states, mono_in, nets,
+                                                 feedback, damp)
+        if nch == 1:
+            out = (dry * s[:, 0] + (wet1 + wet2) * revs[0])[:, None]
+        else:
+            out = torch.stack(
+                [dry * s[:, 0] + wet1 * revs[0] + wet2 * revs[1],
+                 dry * s[:, 1] + wet1 * revs[1] + wet2 * revs[0]], dim=1)
+        return dfx.to_int_samples(out, width), tuple(states)
+    return body
+
+
+class StreamingReverb(_Processor):
     """Chunked twin of ``Sample.reverb``: the comb/allpass ring buffers and
     write position carry across chunks (``ops.effects.
-    reverb_network_apply``).  ``tail_frames`` is how much silence to feed
-    after the programme to drain the decay tail.
+    reverb_networks_apply``, inlined into this processor's program; a
+    chunk of more than ``ops.effects.SLAB_STEPS`` comb blocks runs in
+    pieces of as many blocks).
+    ``tail_frames`` is how much silence to feed after the programme to
+    drain the decay tail.
 
     ``wet_curve``/``dry_curve`` (fx.reverb.wet/.dry) replace the static
     wet/dry with per-frame gains on the output stage; ``roomsize_curve``
@@ -512,61 +681,78 @@ class StreamingReverb:
         self._knobs = [float(v) for v in np.asarray(
             [feedback, damp, wet1, wet2, dry], np.float32)]
         self._sr = samplerate
-        self._nch = nchannels
-        self._nets = [C.reverb_delays(samplerate, ch)
-                      for ch in range(1 if nchannels == 1 else 2)]
-        self._state = tuple(dfx.reverb_zero_state(c, a, self.device)
-                            for c, a in self._nets)
+        nets = tuple((tuple(c), tuple(a)) for c, a in (
+            C.reverb_delays(samplerate, ch)
+            for ch in range(1 if nchannels == 1 else 2)))
+        state = tuple(dfx.reverb_zero_state(c, a, self.device)
+                      for c, a in nets)
         self.tail_frames = int(tail * samplerate)
         _require_tickf(tickf, wet_curve, dry_curve, roomsize_curve)
         self._room_curve = roomsize_curve
         self._swept = wet_curve is not None or dry_curve is not None
+        self._cvs = ()
         if self._swept:
             # a one-point curve interpolates to its constant, so the knob
             # that is not automated becomes [(0, value)]
-            self._wet = _curve(wet_curve if wet_curve is not None
-                               else [(0.0, wet)])
-            self._dry = _curve(dry_curve if dry_curve is not None
-                               else [(0.0, dry)])
+            self._cvs = (
+                _curve_t(wet_curve if wet_curve is not None
+                         else [(0.0, wet)], self.device),
+                _curve_t(dry_curve if dry_curve is not None
+                         else [(0.0, dry)], self.device))
             # wet splits into the Freeverb stereo pair by the width law
-            self._w1f = float(np.float32(width / 2.0 + 0.5))
-            self._w2f = float(np.float32((1.0 - width) / 2.0))
+            self._knobs += [0.0, float(np.float32(width / 2.0 + 0.5)),
+                            float(np.float32((1.0 - width) / 2.0))]
         self._tickf = float(tickf)
         self._n0 = int(start_frame)
+        # a chunk's comb loop unrolls into the program: a longer chunk (a
+        # whole song offline) runs in pieces of SLAB_STEPS comb blocks,
+        # whose blocks are the whole chunk's
+        self._piece = dfx.SLAB_STEPS * min(D for c, _ in nets for D in c)
+        flags = (nets, nchannels, roomsize_curve is not None, self._swept)
+        self._flat, self._prog = _program("reverb", flags, state,
+                                          _reverb_body(*flags), self.device)
+        self._carry = self._flat.pack(state)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
-        dev = self.device
         n = int(x.shape[0])
-        width = dpcm.width_of(x)
-        feedback, damp, wet1, wet2, dry = self._knobs
+        fb = ()
         if self._room_curve is not None:
-            feedback = _grid(C.reverb_feedback_grid(C.curve_grid(
-                self._room_curve, self._n0, n, self._tickf)), dev)
+            fb = _grid(C.reverb_feedback_grid(C.curve_grid(
+                self._room_curve, self._n0, n, self._tickf)), self.device)
+        f = list(self._knobs)
         if self._swept:
-            t = _ticks(self._n0, n, self._tickf, dev)
-            wet_n = interp(t, *self._wet)
-            dry = interp(t, *self._dry)
-            wet1 = wet_n * self._w1f
-            wet2 = wet_n * self._w2f
-        else:
-            dry, wet1, wet2 = (scalar(v, dev) for v in (dry, wet1, wet2))
+            f[5] = self._tickf
+        ys = []
+        for p0 in range(0, max(n, 1), self._piece):
+            ys.append(self._run(
+                x[p0:p0 + self._piece], fb[p0:p0 + self._piece]
+                if self._room_curve is not None else (), self._cvs, f=f,
+                i=(self._n0 + p0,)))
         if self._swept or self._room_curve is not None:
             self._n0 += n
+        return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+
+def _chorus_body(sr: int, rate: float, voices: int, has_P: bool,
+                 has_depth: bool, swept: bool):
+    def body(x, hist, P, depth_grid, cvs, f, i):
+        depth, delay, wet, dry = (f[k] for k in range(4))
+        if has_depth:
+            depth = depth_grid
+        if swept:
+            t = _ticks(i[1], int(x.shape[0]), f[4], x.device)
+            wet = interp(t, *cvs[0])
+            dry = interp(t, *cvs[1])
         s = dfx._norm(x)
-        mono_in = torch.sum(s, dim=1) * float(np.float32(C.FIXED_GAIN))
-        states, revs = dfx.reverb_networks_apply(self._state, mono_in,
-                                                 self._nets, feedback, damp)
-        self._state = tuple(states)
-        if self._nch == 1:
-            out = (dry * s[:, 0] + (wet1 + wet2) * revs[0])[:, None]
-        else:
-            out = torch.stack(
-                [dry * s[:, 0] + wet1 * revs[0] + wet2 * revs[1],
-                 dry * s[:, 1] + wet1 * revs[1] + wet2 * revs[0]], dim=1)
-        return dfx.to_int_samples(out, width)
+        out = dfx.chorus_core(s, i[0], hist, sr, rate, depth, delay, voices,
+                              wet, dry, P=P if has_P else None)
+        H = hist.shape[0]
+        return (dfx.to_int_samples(out, dpcm.width_of(x)),
+                torch.cat([hist, s])[-H:])
+    return body
 
 
-class StreamingChorus:
+class StreamingChorus(_Processor):
     """Chunked twin of ``Sample.chorus``: carries the input history the
     modulated delays read from and the frame count for the integer-DDS LFO
     phase.  The gathers are exact, so chunked output matches the
@@ -598,19 +784,21 @@ class StreamingChorus:
         max_depth = (max(v for _, v in depth_curve)
                      if depth_curve is not None else depth)
         hist = int(math.ceil((delay + max_depth) * samplerate)) + 2
-        self._hist = torch.zeros((hist, nchannels), dtype=torch.float32,
-                                 device=self.device)
+        hist0 = torch.zeros((hist, nchannels), dtype=torch.float32,
+                            device=self.device)
         #: frames processed: the static LFO's phase index (from 0, also
         #: after a seek, as in the reference)
         self._n0 = 0
         self._p_carry = 0
         self.tail_frames = 0
-        self._swept = wet_curve is not None or dry_curve is not None
-        if self._swept:
-            self._wet = _curve(wet_curve if wet_curve is not None
-                               else [(0.0, wet)])
-            self._dry = _curve(dry_curve if dry_curve is not None
-                               else [(0.0, dry)])
+        swept = wet_curve is not None or dry_curve is not None
+        self._cvs = ()
+        if swept:
+            self._cvs = (
+                _curve_t(wet_curve if wet_curve is not None
+                         else [(0.0, wet)], self.device),
+                _curve_t(dry_curve if dry_curve is not None
+                         else [(0.0, dry)], self.device))
         self._tickf = float(tickf)
         #: absolute frame of the curves (wet/dry on the device, rate and
         #: depth on the host)
@@ -618,13 +806,16 @@ class StreamingChorus:
         if rate_curve is not None and start_frame:
             self._p_carry = _lfo_seek_carry(rate_curve, start_frame, tickf,
                                             samplerate)
+        flags = (samplerate, self._rate, self._voices,
+                 rate_curve is not None, depth_curve is not None, swept)
+        self._flat, self._prog = _program("chorus", flags, hist0,
+                                          _chorus_body(*flags), self.device)
+        self._carry = self._flat.pack(hist0)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
         dev = self.device
         n = int(x.shape[0])
-        width = dpcm.width_of(x)
-        depth, delay, wet, dry = self._knobs
-        P = None
+        P = depth = ()
         if self._rate_curve is not None:
             inc = C.chorus_inc_grid(C.curve_grid(
                 self._rate_curve, self._curve_n0, n, self._tickf), self._sr)
@@ -633,21 +824,18 @@ class StreamingChorus:
         if self._depth_curve is not None:
             depth = _grid(C.curve_grid(self._depth_curve, self._curve_n0, n,
                                        self._tickf), dev)
-        if self._swept:
-            t = _ticks(self._curve_n0, n, self._tickf, dev)
-            wet = interp(t, *self._wet)
-            dry = interp(t, *self._dry)
+        y = self._run(x, P, depth, self._cvs, f=self._knobs + [self._tickf],
+                      i=(self._n0, self._curve_n0))
         self._curve_n0 += n
-        s = dfx._norm(x)
-        out = dfx.chorus_core(s, self._n0, self._hist, self._sr, self._rate,
-                              depth, delay, self._voices, wet, dry, P=P)
-        H = self._hist.shape[0]
-        self._hist = torch.cat([self._hist, s])[-H:]
         self._n0 += n
-        return dfx.to_int_samples(out, width)
+        return y
 
 
-class StreamingConvolver:
+def _convolver_body(x, tail, ir, f, i):
+    return dfx.convolve_chunk(x, ir, f[0], f[1], tail)
+
+
+class StreamingConvolver(_Processor):
     """Chunked twin of ``Sample.convolve``: FFT convolution per chunk with
     the (len(ir)-1)-frame overlap tail carried across chunks.  Feeding
     ``tail_frames`` of silence flushes the final tail."""
@@ -661,20 +849,33 @@ class StreamingConvolver:
         self._ir = torch.from_numpy(np.ascontiguousarray(ir)).to(self.device)
         self._wet, self._dry = (float(v) for v in np.asarray([wet, dry],
                                                               np.float32))
-        self._tail: Optional[torch.Tensor] = None   # [m-1, ch] pending output
+        self._carry = None          # the [m-1, ch] pending output, flat
         self.tail_frames = int(ir.shape[0]) - 1
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
-        m = int(self._ir.shape[0])
-        if self._tail is None:
-            self._tail = torch.zeros((max(m - 1, 0), x.shape[1]),
-                                     dtype=torch.float32, device=self.device)
-        y, self._tail = dfx.convolve_chunk(x, self._ir, self._wet, self._dry,
-                                           self._tail)
-        return y
+        if self._carry is None:
+            tail = torch.zeros((max(int(self._ir.shape[0]) - 1, 0),
+                                x.shape[1]), dtype=torch.float32,
+                               device=self.device)
+            self._flat, self._prog = _program("convolve", (), tail,
+                                              _convolver_body, self.device)
+            self._carry = self._flat.pack(tail)
+        return self._run(x, self._ir, f=(self._wet, self._dry))
 
 
-class StreamingFeedbackEcho:
+def _echo_body(D: int, swept: bool):
+    def body(x, hist, grids, f, i):
+        s = dfx._norm(x)
+        if swept:
+            fb, wet, dry = grids[0], grids[1][:, None], grids[2][:, None]
+        else:
+            fb, wet, dry = f[0], f[1], f[2]
+        e, hist = dfx.feedback_echo_core(s, D, fb, hist)
+        return dfx.to_int_samples(dry * s + wet * e, dpcm.width_of(x)), hist
+    return body
+
+
+class StreamingFeedbackEcho(_Processor):
     """Chunked twin of ``Sample.feedback_echo``: the delay line's history
     (the last D frames of the recurrence) carries across chunks, so
     streaming == offline bit for bit at any chunk size.  Curves
@@ -695,8 +896,8 @@ class StreamingFeedbackEcho:
         self._D = max(1, int(delay * samplerate))
         self.tail_frames = C.echo_tail_frames(samplerate, delay, feedback,
                                               wet, tail)
-        self._hist = torch.zeros((self._D, nchannels), dtype=torch.float32,
-                                 device=self.device)
+        hist = torch.zeros((self._D, nchannels), dtype=torch.float32,
+                           device=self.device)
         self._knobs = [float(v) for v in np.asarray([feedback, wet, dry],
                                                     np.float32)]
         _require_tickf(tickf, feedback_curve, wet_curve, dry_curve)
@@ -704,25 +905,30 @@ class StreamingFeedbackEcho:
         self._swept = any(c is not None for c in self._curves)
         self._tickf = float(tickf)
         self._n0 = int(start_frame)
+        self._flat, self._prog = _program(
+            "echo", (self._D, self._swept), hist,
+            _echo_body(self._D, self._swept), self.device)
+        self._carry = self._flat.pack(hist)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
-        dev = self.device
-        width = dpcm.width_of(x)
         n = int(x.shape[0])
-        s = dfx._norm(x)
+        grids = ()
         if self._swept:
-            grids = [_grid(C.curve_grid(c, self._n0, n, self._tickf)
-                           if c is not None else np.full(n, k, np.float64),
-                           dev) for c, k in zip(self._curves, self._knobs)]
-            fb, wet, dry = grids[0], grids[1][:, None], grids[2][:, None]
+            grids = tuple(
+                _grid(C.curve_grid(c, self._n0, n, self._tickf)
+                      if c is not None else np.full(n, k, np.float64),
+                      self.device) for c, k in zip(self._curves, self._knobs))
             self._n0 += n
-        else:
-            fb, wet, dry = (scalar(v, dev) for v in self._knobs)
-        e, self._hist = dfx.feedback_echo_core(s, self._D, fb, self._hist)
-        return dfx.to_int_samples(dry * s + wet * e, width)
+        return self._run(x, grids, f=self._knobs)
 
 
-class StreamingWidth:
+def _width_body(swept: bool):
+    def body(x, state, grid, f, i):
+        return dfx.stereo_width(x, grid if swept else f[0]), state
+    return body
+
+
+class StreamingWidth(_Processor):
     """Chunked twin of ``Sample.stereo_width``: stateless mid/side width;
     ``amount_curve`` (fx.width.amount) is a host grid at absolute
     frames."""
@@ -743,17 +949,42 @@ class StreamingWidth:
         self._tickf = float(tickf)
         self._n0 = int(start_frame)
         self.tail_frames = 0
+        swept = amount_curve is not None
+        self._flat, self._prog = _program("width", (swept,), (),
+                                          _width_body(swept), self.device)
+        self._carry = self._flat.pack(())
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
+        grid = ()
         if self._curve is not None:
             n = int(x.shape[0])
-            g = C.curve_grid(self._curve, self._n0, n, self._tickf)
+            grid = _grid(C.curve_grid(self._curve, self._n0, n, self._tickf),
+                         self.device)
             self._n0 += n
-            return dfx.stereo_width(x, _grid(g, self.device))
-        return dfx.stereo_width(x, scalar(self._amount, self.device))
+        return self._run(x, grid, f=(self._amount,))
 
 
-class StreamingLimiter:
+def _limiter_body(L: int, has_curve: bool, has_rel: bool):
+    def body(buf, state, ceil_db, c, decay, f, i):
+        r, gpad = state
+        emit = int(buf.shape[0]) - L
+        if not has_curve:
+            ceil_db = f[0]
+        if not has_rel:
+            decay = f[1]
+        a = torch.amax(torch.abs(dfx._norm(buf)), dim=1)
+        gs, r, gpad = dfx.limiter_gains_core(a, ceil_db, decay, L, r, gpad)
+        y = dpcm.gain_apply(buf[:emit], gs[:, None])
+        if has_curve:
+            y = torch.maximum(torch.minimum(y.to(torch.int64), c), -c) \
+                .to(buf.dtype)
+        else:
+            y = torch.maximum(torch.minimum(y, i[0]), -i[0]).to(buf.dtype)
+        return (y, buf[emit:]), (r, gpad)
+    return body
+
+
+class StreamingLimiter(_Processor):
     """Chunked twin of ``Sample.limit`` -- a holdback processor: it
     withholds the lookahead window (L frames) of input until the future it
     needs has arrived, so ``process`` may return fewer frames than it was
@@ -781,9 +1012,9 @@ class StreamingLimiter:
         self.tail_frames = 0
         self.flush_frames = self._L
         self._pend = None                       # [k <= L, ch] int
-        self._r = scalar(0.0, self.device)
-        self._gpad = torch.ones(self._L, dtype=torch.float32,
-                                device=self.device)
+        state = (scalar(0.0, self.device),
+                 torch.ones(self._L, dtype=torch.float32,
+                            device=self.device))
         _require_tickf(tickf, ceiling_curve, release_curve)
         self._curve = ceiling_curve
         #: fx.limiter.release: a per-frame decay grid at the emitted
@@ -791,6 +1022,11 @@ class StreamingLimiter:
         self._rel_curve = release_curve
         self._n0 = int(start_frame)
         self._tickf = float(tickf)
+        flags = (self._L, ceiling_curve is not None,
+                 release_curve is not None)
+        self._flat, self._prog = _program("limiter", flags, state,
+                                          _limiter_body(*flags), self.device)
+        self._carry = self._flat.pack(state)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
         dev = self.device
@@ -803,6 +1039,7 @@ class StreamingLimiter:
             return x[:0]
         emit = m - L
         width = dpcm.width_of(x)
+        ceil_db = c = decay = ()
         if self._curve is not None:
             g = C.curve_grid(self._curve, self._n0, m, self._tickf)
             ceil_db = _grid(g, dev)
@@ -810,30 +1047,31 @@ class StreamingLimiter:
                            * np.float32(1.0 / 6.0206)).astype(np.float64)
             c = torch.from_numpy(np.rint(cexp * dpcm.MAXVAL[width])
                                  .astype(np.int64)).to(dev)[:, None]
-        else:
-            ceil_db = scalar(self._ceil, dev)
-            c = C.limiter_ceiling(self._ceil, width)
         if self._rel_curve is not None:
             rg = C.curve_grid(self._rel_curve, self._n0, emit, self._tickf)
             decay = _grid(C.compressor_coeff_grids(np.zeros(emit), rg,
                                                    self._sr)[1], dev)
-        else:
-            decay = scalar(self._decay, dev)
-        a = torch.amax(torch.abs(dfx._norm(buf)), dim=1)
-        gs, self._r, self._gpad = dfx.limiter_gains_core(a, ceil_db, decay, L,
-                                                         self._r, self._gpad)
-        y = dpcm.gain_apply(buf[:emit], gs[:, None])
-        if isinstance(c, torch.Tensor):
-            y = torch.maximum(torch.minimum(y.to(torch.int64), c), -c) \
-                .to(buf.dtype)
-        else:
-            y = torch.clamp(y, -c, c)
-        self._pend = buf[emit:]
+        y, self._pend = self._run(
+            buf, ceil_db, c, decay, f=(self._ceil, self._decay),
+            i=(C.limiter_ceiling(self._ceil, width),))
         self._n0 += emit
         return y
 
 
-class StreamingPhaser:
+def _phaser_body(stages: int, ff: bool, swept: bool):
+    def body(x, states, coefs, wd, f, i):
+        if swept:
+            wet, dry = wd[0][:, None], wd[1][:, None]
+        else:
+            wet, dry = f[0], f[1]
+        s = dfx._norm(x)
+        y, states = dfx.phaser_apply(s, coefs, states, ff)
+        return dfx.to_int_samples(dry * s + wet * y, dpcm.width_of(x)), \
+            states
+    return body
+
+
+class StreamingPhaser(_Processor):
     """Chunked twin of ``Sample.phaser``: per-stage biquad states carry
     across chunks; the coefficient grids come from the same host
     absolute-frame derivation (``ops.coeffs.phaser_coeff_grids``), so the
@@ -860,8 +1098,8 @@ class StreamingPhaser:
         self._params = (float(rate), float(depth), float(min_freq),
                         float(max_freq), float(q))
         self._ff = C.phaser_wants_ff(min_freq)
-        self._states = tuple(_zero_state(nchannels, self._ff, self.device)
-                             for _ in range(int(stages)))
+        states = tuple(_zero_state(nchannels, self._ff, self.device)
+                       for _ in range(int(stages)))
         self._wet, self._dry = float(wet), float(dry)
         _require_tickf(tickf, wet_curve, dry_curve, rate_curve,
                        depth_curve)
@@ -876,11 +1114,14 @@ class StreamingPhaser:
             self._p_carry = _lfo_seek_carry(rate_curve, start_frame, tickf,
                                             samplerate)
         self.tail_frames = 0
+        flags = (int(stages), self._ff, self._swept)
+        self._flat, self._prog = _program("phaser", flags, states,
+                                          _phaser_body(*flags), self.device)
+        self._carry = self._flat.pack(states)
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
         dev = self.device
         ff = self._ff
-        width = dpcm.width_of(x)
         n = int(x.shape[0])
         rate, depth, fmin, fmax, q = self._params
         gd = np.float64 if ff else np.float32
@@ -901,22 +1142,24 @@ class StreamingPhaser:
             grids = C.phaser_coeff_grids(self._n0, n, self._sr, rate, depth,
                                          fmin, fmax, q, dtype=gd)
         coefs = _grid_coefs(grids, ff, dev)
+        wd = ()
         if self._swept:
             wc, dc = self._curves
-            wet = _grid(C.curve_grid(wc, self._n0, n, self._tickf)
-                        if wc is not None else np.full(n, self._wet), dev)
-            dry = _grid(C.curve_grid(dc, self._n0, n, self._tickf)
-                        if dc is not None else np.full(n, self._dry), dev)
-            wet, dry = wet[:, None], dry[:, None]
-        else:
-            wet, dry = scalar(self._wet, dev), scalar(self._dry, dev)
-        s = dfx._norm(x)
-        y, self._states = dfx.phaser_apply(s, coefs, self._states, ff)
+            wd = (_grid(C.curve_grid(wc, self._n0, n, self._tickf)
+                        if wc is not None else np.full(n, self._wet), dev),
+                  _grid(C.curve_grid(dc, self._n0, n, self._tickf)
+                        if dc is not None else np.full(n, self._dry), dev))
         self._n0 += n
-        return dfx.to_int_samples(dry * s + wet * y, width)
+        return self._run(x, coefs, wd, f=(self._wet, self._dry))
 
 
-class _StreamingLFOGain:
+def _lfo_gain_body(apply):
+    def body(x, state, grid, f, i):
+        return apply(x, grid), state
+    return body
+
+
+class _StreamingLFOGain(_Processor):
     """Shared chunked twin of the host-grid LFO gain effects (tremolo,
     autopan): the grid derives at absolute frames (static rate: stateless,
     seek-exact) or from a host-kept cumulative u32 phase (rate automation:
@@ -951,6 +1194,10 @@ class _StreamingLFOGain:
         if rate_curve is not None and start_frame:
             self._p_carry = _lfo_seek_carry(rate_curve, start_frame, tickf,
                                             samplerate)
+        self._flat, self._prog = _program(
+            type(self).__name__, (), (), _lfo_gain_body(self._apply),
+            self.device)
+        self._carry = self._flat.pack(())
 
     def process(self, x: torch.Tensor) -> torch.Tensor:
         n = int(x.shape[0])
@@ -966,7 +1213,7 @@ class _StreamingLFOGain:
                  if self._depth_curve is not None else self._depth)
         grid = _grid(self._grid(P, depth), self.device)
         self._n0 += n
-        return self._apply(x, grid)
+        return self._run(x, grid)
 
 
 class StreamingTremolo(_StreamingLFOGain):

@@ -6,9 +6,14 @@ Turns a ``models.spec`` patch tree into a step function
     step(state, n0) -> (f32 values[blocksize], new_state)
 
 which renders one fixed-size block of samples at absolute offset ``n0`` (a
-Python int) as eager PyTorch on the patch's device.  Whole renders call the
-step block after block in a Python loop (the JAX package scans over the
-blocks inside one compiled program); streams call it as blocks are pulled.
+0-dim int64 tensor on the patch's device) in PyTorch.  Whole renders run
+the step block after block inside one device program
+(``utils.program.Program``) of up to ``RENDER_BLOCKS`` blocks, replayed
+for a longer render (the JAX package scans over the blocks inside one
+program compiled for each length, its ``_render_cache``; a CUDA graph
+unrolls its loop, so the port bounds it); streams call a per-block
+program (``_stream_step``, keyed like its ``_stream_step_cache``) as
+blocks are pulled, with the int quantisation inside it.
 Results are block-size invariant by construction: phase accumulators and
 FM integrals are integer (wrapping u32, held as masked int64: see
 ``ops.wave``), delay/echo tails are carried exactly, envelopes/LFOs are
@@ -35,14 +40,17 @@ from . import spec as S
 from ..ops import wave as W
 from ..ops.effects import companion_scan, to_int_samples
 from ..ops.trig import sin_turns
+from torch.utils import _pytree as pytree
+
 from ..utils.device import resolve as _device
 from ..utils.device import to_host
+from ..utils.program import program
 
 _TWO_PI = float(np.float32(2.0 * math.pi))
 _U32 = W.U32
 
 State = Any
-StepFn = Callable[[State, int], Tuple[torch.Tensor, State]]
+StepFn = Callable[[State, torch.Tensor], Tuple[torch.Tensor, State]]
 
 
 def poly_blep(t: torch.Tensor, dt: float) -> torch.Tensor:
@@ -180,12 +188,27 @@ def _wave_values(node: S.Osc, p: torch.Tensor, sr: int, n_abs: torch.Tensor,
 class HostBuf:
     """State of a HostSource node: the per-block staging buffer that the
     stream loop refills from the host pull before every step (one host
-    -> device copy per block).  Plain Python state: the stream loop reaches
-    every buffer of a patch through the list ``lower`` fills."""
+    -> device copy per block, outside the step's program).  A pytree node
+    whose one leaf is the buffer, so the step's program takes it as an
+    input."""
 
     def __init__(self, slot: int, data: torch.Tensor):
         self.slot = slot
         self.data = data
+
+
+pytree.register_pytree_node(
+    HostBuf, lambda b: ([b.data], b.slot),
+    lambda leaves, slot: HostBuf(slot, leaves[0]))
+
+
+def _refill(state, data: dict):
+    """``state`` with each HostBuf's buffer replaced by ``data[slot]``."""
+    if isinstance(state, HostBuf):
+        return HostBuf(state.slot, data[state.slot])
+    if isinstance(state, tuple):
+        return tuple(_refill(s, data) for s in state)
+    return state
 
 
 #: HostSource key -> pull FACTORY (zero-arg callable returning a fresh
@@ -483,25 +506,36 @@ def envelope_gains_device(n: torch.Tensor, samplerate: int,
 # Whole-patch rendering
 # ---------------------------------------------------------------------------
 
-def patch_values(node: S.Node, nsamples: int, samplerate: int,
-                 blocksize: int = 8192, device="cuda") -> torch.Tensor:
-    """Patch render: samples [0, nsamples) -> f32[nsamples] on ``device``,
-    block after block (one set of launches per block)."""
+def check_inline(node: S.Node) -> None:
+    """Refuse a patch that cannot render in one program: a host source
+    feeds it block by block."""
     if S.has_host_source(node):
         raise ValueError(
             "host-source patches cannot render in one pass (the host "
             "feeds them block by block) — render via render_patch / "
             "block_stream, which run the per-block hybrid loop")
+
+
+def patch_values(node: S.Node, nsamples: int, samplerate: int,
+                 blocksize: int = 8192, device="cuda") -> torch.Tensor:
+    """Patch render: samples [0, nsamples) -> f32[nsamples] on ``device``:
+    one device program over up to ``RENDER_BLOCKS`` blocks, cached by
+    (patch structure, samplerate, blocksize, blocks), replayed for each
+    further ``RENDER_BLOCKS`` blocks, and one of the blocks left."""
+    check_inline(node)
     dev = _device(device)
-    nblocks = -(-nsamples // blocksize)
-    if nblocks <= 0:
+    if nsamples <= 0:
         return torch.zeros((0,), dtype=torch.float32, device=dev)
-    state, step = lower(node, samplerate, blocksize, dev)
-    out = []
-    for i in range(nblocks):
-        v, state = step(state, i * blocksize)
-        out.append(v)
-    return torch.cat(out)[:nsamples]
+    nblocks = -(-int(nsamples) // int(blocksize))
+    state, out = None, []
+    for k in range(0, nblocks, RENDER_BLOCKS):
+        init, prog = _stream_step(node, int(samplerate), int(blocksize),
+                                  None, dev,
+                                  blocks=min(RENDER_BLOCKS, nblocks - k))
+        vals, state = prog(init if state is None else state,
+                           i=(k * blocksize,))
+        out.append(vals)
+    return (out[0] if len(out) == 1 else torch.cat(out))[:nsamples]
 
 
 def render_patch(node: S.Node, nsamples: int, samplerate: int,
@@ -530,25 +564,64 @@ def render_patch(node: S.Node, nsamples: int, samplerate: int,
     return vals
 
 
+#: the most blocks one render program steps: a longer render replays it
+#: (and one program of the remaining blocks)
+RENDER_BLOCKS = 32
+
+
+def _stream_step(node: S.Node, samplerate: int, blocksize: int,
+                 samplewidth: Optional[int], dev, host_bufs=None,
+                 blocks: int = 1):
+    """(initial state, program) of ``blocks`` blocks: ``program(state,
+    i=(n0,)) -> (values [blocks * blocksize], new state)``, the int
+    quantisation inside when ``samplewidth`` is given.  Cached by (node,
+    samplerate, blocksize, samplewidth or None, blocks, device), as the
+    JAX package's ``_stream_step_cache``: replaying a sound reuses the
+    program.  ``host_bufs`` collects the initial state's HostBufs."""
+    def build():
+        bufs: list = []
+        init, step = lower(node, samplerate, blocksize, dev, bufs)
+
+        def body(state, f, i):
+            out = []
+            for k in range(blocks):
+                vals, state = step(state, i[0] + k * blocksize if k
+                                   else i[0])
+                out.append(vals)
+            vals = out[0] if blocks == 1 else torch.cat(out)
+            if samplewidth is not None:
+                vals = to_int_device(vals, samplewidth)
+            return vals, state
+        return body, (init, bufs)
+
+    prog = program("stream_step", (node, samplerate, blocksize, samplewidth,
+                                   blocks), build, dev)
+    init, bufs = prog.aux
+    if host_bufs is not None:
+        host_bufs.extend(bufs)
+    return init, prog
+
+
 def _device_blocks(node: S.Node, samplerate: int, blocksize: int,
                    samplewidth: Optional[int], dev) -> Iterator[torch.Tensor]:
     """Endless blocks of a patch without host sources, as tensors on the
-    device (quantized when ``samplewidth`` is given)."""
-    state, step = lower(node, samplerate, blocksize, dev)
+    device (quantized when ``samplewidth`` is given): one program a
+    block."""
+    state, prog = _stream_step(node, samplerate, blocksize, samplewidth, dev)
     n0 = 0
     while True:
-        vals, state = step(state, n0)
+        vals, state = prog(state, i=(n0,))
         n0 += blocksize
-        yield vals if samplewidth is None else to_int_device(vals,
-                                                             samplewidth)
+        yield vals
 
 
 def _host_blocks(node: S.Node, samplerate: int, blocksize: int,
                  samplewidth: Optional[int], dev) -> Iterator[torch.Tensor]:
     """Blocks of a host-source patch as tensors on the device.  Before
-    every step each HostBuf is refilled from its pull.  The stream ends
-    with its source: a ``None`` (or empty) pull stops before the block, a
-    short pull emits one zero-padded block and stops."""
+    every step each HostBuf is refilled from its pull (outside the step's
+    program).  The stream ends with its source: a ``None`` (or empty) pull
+    stops before the block, a short pull emits one zero-padded block and
+    stops."""
     canon, keys = S.canonical_host_patch(node)
     pulls = {}
     for slot, key in enumerate(keys):
@@ -559,10 +632,12 @@ def _host_blocks(node: S.Node, samplerate: int, blocksize: int,
                 "garbage-collected while its patch was still in use?)")
         pulls[slot] = factory()
     bufs: list = []
-    state, step = lower(canon, samplerate, blocksize, dev, bufs)
+    state, prog = _stream_step(canon, samplerate, blocksize, samplewidth, dev,
+                               bufs)
     n0 = 0
     while True:
         stop_after = False           # a source returned a short final block
+        data = {}
         for buf in bufs:
             blk = pulls[buf.slot](n0, blocksize)
             if blk is None:
@@ -573,11 +648,10 @@ def _host_blocks(node: S.Node, samplerate: int, blocksize: int,
             if len(blk) < blocksize:
                 stop_after = True
                 blk = np.pad(blk, (0, blocksize - len(blk)))
-            buf.data = torch.from_numpy(
+            data[buf.slot] = torch.from_numpy(
                 np.ascontiguousarray(blk[:blocksize])).to(dev)
-        vals, state = step(state, n0)
-        yield vals if samplewidth is None else to_int_device(vals,
-                                                             samplewidth)
+        vals, state = prog(_refill(state, data), i=(n0,))
+        yield vals
         n0 += blocksize
         if stop_after:
             return

@@ -16,8 +16,14 @@ differs:
   two-sum and two-product; each step here is its own eager op, which no
   compiler contracts or reassociates.
 * **Sequential scans** (the reverb's comb stage, the feedback echo) are
-  Python loops over the same blocks as the reference's ``lax.scan``: one
-  set of launches a block.
+  Python loops over the same blocks as the reference's ``lax.scan``.  The
+  reverb's run as device programs (``utils.program.Program``): the
+  whole-signal networks of up to ``WHOLE_STEPS`` comb steps as one program
+  keyed by (total frames, networks), a longer signal's comb stage as
+  replays of one program of ``SLAB_STEPS`` steps, the streamed networks
+  as one program a (networks, chunk shape), with feedback and damping as
+  device scalars, as the reference passes them as tracers, and the write
+  position carried as a device counter.
 * **Order.**  Nothing adds floats with atomics: the granulator and the
   stretch's overlap-add add non-overlapping groups in a fixed order, so a
   result on the card is the same from run to run.
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from . import pcm as dpcm
+from ..utils.program import constant, program
 from .trig import sin_turns
 from .wave import div, scalar
 
@@ -79,7 +86,7 @@ def _f32(v, device) -> torch.Tensor:
         return v.to(device=device, dtype=torch.float32)
     if np.ndim(v) == 0:
         return scalar(v, device)
-    return torch.from_numpy(np.asarray(v, np.float32)).to(device)
+    return constant(np.asarray(v, np.float32), device)
 
 
 def to_int_samples(values: torch.Tensor, width: int) -> torch.Tensor:
@@ -523,19 +530,28 @@ def compressor_gains_from_coeffs(frames: torch.Tensor, threshold_db, slope,
 
 #: Whole-signal lag-aligned comb packing cap: beyond this many bytes of
 #: packed [M, L, Dmax] input+output the offline path runs the blocked
-#: network (``reverb_network_apply``) instead.
+#: network (``reverb_networks_apply``) in chunks instead.
 COMB_PACK_BYTES_CAP = 1_500_000_000
+#: the most comb steps (blocks of the shortest comb delay) that a
+#: whole-signal reverb unrolls into one program: a device program unrolls
+#: its loop, so a longer signal's comb stage replays a program of
+#: ``SLAB_STEPS`` steps instead
+WHOLE_STEPS = 1024
+#: the comb steps of one such replay; past the packing cap the blocked
+#: network runs in chunks of as many blocks
+SLAB_STEPS = 256
 
 
 def reverb_zero_state(combs: Tuple[int, ...], aps: Tuple[int, ...],
                       device):
     """Fresh (comb ring buffers, damping states, allpass ring buffers,
     write position) carry for one channel's network, on ``device`` (no
-    default: a carry never lands on the CPU unasked)."""
+    default: a carry never lands on the CPU unasked).  The write position
+    is a 0-dim int64 tensor, so that a program carries it."""
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
                                    device=device)
     return (z(len(combs), max(combs)), z(len(combs)), z(len(aps), max(aps)),
-            0)
+            torch.zeros((), dtype=torch.int64, device=device))
 
 
 def _comb_step(comb_buf, fstores, offs, xblk, fbv, ds, d2, scan, nets: int):
@@ -591,17 +607,35 @@ def reverb_networks_apply(states, mono_in: torch.Tensor, nets, feedback,
     lanes of their delays (``_allpass_chunk``): the allpasses take the
     combs' output and feed nothing back.  ``feedback`` may be a per-frame
     [n] grid.  The f32 roundings depend on the chunking (the scans group
-    by block), within the reverb's budget."""
+    by block), within the reverb's budget.  One device program a
+    (networks, chunk shape): feedback and damping are device scalars (or
+    the grid an input), the write position a device counter."""
     dev = mono_in.device
     n = int(mono_in.shape[0])
     if n == 0:
         return states, [torch.zeros(0, dtype=torch.float32, device=dev)
                         for _ in nets]
-    n0 = states[0][3]
-    combs = [D for cs, _ in nets for D in cs]
+    nets = tuple((tuple(cs), tuple(aps)) for cs, aps in nets)
     per = len(nets[0][0])
     if any(len(cs) != per for cs, _ in nets):
         raise ValueError("the networks need the same number of combs")
+    grid = isinstance(feedback, torch.Tensor) and feedback.ndim == 1
+    prog = program("reverb_networks", (nets, grid), lambda: (
+        lambda states, x, fbg, f, i: _networks_body(
+            states, x, nets, fbg if grid else f[0], f[1])), dev)
+    new_states, outs = prog(list(states), mono_in,
+                            feedback if grid else (),
+                            f=(0.0 if grid else feedback, damp))
+    return [tuple(st) for st in new_states], outs
+
+
+def _networks_body(states, mono_in, nets, feedback, damp):
+    """The body of :func:`reverb_networks_apply`'s program."""
+    dev = mono_in.device
+    n = int(mono_in.shape[0])
+    n0 = states[0][3]
+    combs = [D for cs, _ in nets for D in cs]
+    per = len(nets[0][0])
     width = max(st[0].shape[1] for st in states)
     comb_buf = torch.cat([torch.nn.functional.pad(st[0], (0, width - st[0]
                                                           .shape[1]))
@@ -611,7 +645,7 @@ def reverb_networks_apply(states, mono_in: torch.Tensor, nets, feedback,
     fb = _f32(feedback, dev)
     d1 = _f32(damp, dev)
     d2 = 1.0 - d1
-    ds = torch.tensor(combs, dtype=torch.int64, device=dev)
+    ds = constant(np.asarray(combs, np.int64), dev)
     frames = torch.arange(block, dtype=torch.int64, device=dev)
     scans = {}                  # the damping scan's coefficients, per length
     outs = []
@@ -648,49 +682,96 @@ def reverb_network_apply(state, mono_in: torch.Tensor, combs, aps, feedback,
     return states[0], outs[0]
 
 
-def _comb_stage_whole(mono_in: torch.Tensor, comb_sets, fb, d1, d2):
-    """Whole-signal parallel comb banks with no gather and no scatter: each
-    comb's row is its OWN delay D, so the lag-D ring read is the previous
-    row of that lane.  Every lane (the 8 combs of every channel network)
-    pads its [ceil(n/D), D] view of the input to [M, Dmax] with
-    identity-affine columns, and one loop of M = ceil(n/Dmin) steps serves
-    all lanes with one in-row affine scan a step (``affine_scan_fixed``:
-    the damping coefficients are the same in every step).  Returns
-    [n, networks]."""
+def _comb_rows(mono_in: torch.Tensor, all_ds, rows: int) -> torch.Tensor:
+    """The comb stage's input [rows, lanes, Dmax]: lane D's row m < rows
+    holds the frames [mD, mD + D) (zeros past the signal and past D)."""
     dev = mono_in.device
-    total = int(mono_in.shape[0])
-    all_ds = tuple(D for cs in comb_sets for D in cs)
-    dmax = max(all_ds)
-    M = -(-total // min(all_ds))
-    xl = torch.zeros((M, len(all_ds), dmax), dtype=torch.float32, device=dev)
+    xl = torch.zeros((rows, len(all_ds), max(all_ds)), dtype=torch.float32,
+                     device=dev)
     for lane, D in enumerate(all_ds):
-        mk = -(-total // D)
-        rows = torch.cat([mono_in, torch.zeros(mk * D - total,
-                                               dtype=torch.float32,
-                                               device=dev)]).reshape(mk, D)
-        xl[:mk, lane, :D] = rows
-    mask = (torch.arange(dmax, device=dev)[None, :]
-            < torch.tensor(all_ds, device=dev)[:, None])       # [L, Dmax]
+        mk = min(-(-int(mono_in.shape[0]) // D), rows)
+        x = mono_in[:mk * D]
+        xl[:mk, lane, :D] = torch.cat([
+            x, torch.zeros(mk * D - x.shape[0], dtype=torch.float32,
+                           device=dev)]).reshape(mk, D)
+    return xl
+
+
+def _comb_loop(xl: torch.Tensor, brow, fstores, all_ds, fb, d1, d2):
+    """The comb stage's steps over the rows of ``xl`` from the ring row
+    ``brow`` [lanes, Dmax] and the damping states ``fstores`` [lanes]:
+    one in-row affine scan a step (``affine_scan_fixed``: the damping
+    coefficients are the same in every step).  Returns (ys [rows, lanes,
+    Dmax], each step's ring row before it; brow; fstores)."""
+    dev = xl.device
+    mask = (torch.arange(xl.shape[2], device=dev)[None, :]
+            < constant(np.asarray(all_ds, np.int64), dev)[:, None])
     scan = affine_scan_fixed(torch.where(mask, d1, scalar(1.0, dev)), axis=1)
     zero = scalar(0.0, dev)
-    brow = torch.zeros((len(all_ds), dmax), dtype=torch.float32, device=dev)
-    fstores = torch.zeros(len(all_ds), dtype=torch.float32, device=dev)
     ys = []
-    for m in range(M):
+    for m in range(xl.shape[0]):
         ys.append(brow)
         fs = scan(torch.where(mask, d2 * brow, zero), fstores[:, None])
         brow = xl[m] + fs * fb
         fstores = fs[:, -1]
-    ys = torch.stack(ys)                                      # [M, L, Dmax]
+    return torch.stack(ys), brow, fstores
+
+
+def _comb_sums(ys: torch.Tensor, comb_sets, total: int) -> torch.Tensor:
+    """Each network's combs summed in comb order -> [total, networks]."""
     outs, lane = [], 0
     for cs in comb_sets:
-        acc = torch.zeros(total, dtype=torch.float32, device=dev)
+        acc = torch.zeros(total, dtype=torch.float32, device=ys.device)
         for D in cs:
             mk = -(-total // D)
             acc = acc + ys[:mk, lane, :D].reshape(-1)[:total]
             lane += 1
         outs.append(acc)
     return torch.stack(outs, dim=1)
+
+
+def _comb_stage_whole(mono_in: torch.Tensor, comb_sets, fb, d1, d2):
+    """Whole-signal parallel comb banks with no gather and no scatter: each
+    comb's row is its OWN delay D, so the lag-D ring read is the previous
+    row of that lane.  Every lane (the 8 combs of every channel network)
+    pads its [ceil(n/D), D] view of the input to [M, Dmax] with
+    identity-affine columns, and one loop of M = ceil(n/Dmin) steps serves
+    all lanes (``_comb_loop``).  Returns [n, networks]."""
+    dev = mono_in.device
+    total = int(mono_in.shape[0])
+    all_ds = tuple(D for cs in comb_sets for D in cs)
+    M = -(-total // min(all_ds))
+    ys, _, _ = _comb_loop(
+        _comb_rows(mono_in, all_ds, M),
+        torch.zeros((len(all_ds), max(all_ds)), dtype=torch.float32,
+                    device=dev),
+        torch.zeros(len(all_ds), dtype=torch.float32, device=dev),
+        all_ds, fb, d1, d2)
+    return _comb_sums(ys, comb_sets, total)
+
+
+def _comb_stage_slabs(mono_in: torch.Tensor, comb_sets, fb, d1):
+    """:func:`_comb_stage_whole` for a signal of more than ``WHOLE_STEPS``
+    steps: the same steps, ``SLAB_STEPS`` at a time, each slab one replay
+    of one program (the ring row and the damping states carried; the
+    last slab's rows past the signal are zeros whose steps are dropped),
+    so the result is the same bit for bit."""
+    dev = mono_in.device
+    total = int(mono_in.shape[0])
+    all_ds = tuple(D for cs in comb_sets for D in cs)
+    M = -(-total // min(all_ds))
+    xl = _comb_rows(mono_in, all_ds, -(-M // SLAB_STEPS) * SLAB_STEPS)
+    prog = program("reverb_combs", all_ds, lambda: (
+        lambda brow, fs, x, f, i: _comb_loop(x, brow, fs, all_ds, f[0], f[1],
+                                             1.0 - f[1])), dev)
+    brow = torch.zeros((len(all_ds), max(all_ds)), dtype=torch.float32,
+                       device=dev)
+    fs = torch.zeros(len(all_ds), dtype=torch.float32, device=dev)
+    ys = []
+    for m0 in range(0, xl.shape[0], SLAB_STEPS):
+        y, brow, fs = prog(brow, fs, xl[m0:m0 + SLAB_STEPS], f=(fb, d1))
+        ys.append(y)
+    return _comb_sums(torch.cat(ys), comb_sets, total)
 
 
 def _allpass_whole(x: torch.Tensor, D: int) -> torch.Tensor:
@@ -707,22 +788,53 @@ def _allpass_whole(x: torch.Tensor, D: int) -> torch.Tensor:
     return b.reshape(-1)[:n] - x
 
 
+def whole_reverb_route(total: int, nets) -> str:
+    """How :func:`_reverb_networks_whole` runs ``total`` frames through
+    ``nets``: ``"one"`` program (at most ``WHOLE_STEPS`` comb steps),
+    ``"slabs"`` (replays of ``SLAB_STEPS`` steps) or ``"blocked"`` (past
+    the packing cap: the blocked network in chunks)."""
+    all_ds = tuple(D for combs, _ in nets for D in combs)
+    M = -(-total // min(all_ds))
+    if 2 * M * len(all_ds) * max(all_ds) * 4 > COMB_PACK_BYTES_CAP:
+        return "blocked"
+    return "one" if M <= WHOLE_STEPS else "slabs"
+
+
 def _reverb_networks_whole(mono_in: torch.Tensor, nets, feedback,
                            damp) -> list:
     """Whole-signal networks from zero state (the offline Sample op): the
-    comb stage batched over every channel's lanes, then the allpasses."""
+    comb stage batched over every channel's lanes, then the allpasses.
+    Up to ``WHOLE_STEPS`` comb steps it is ONE device program a (total
+    frames, networks): feedback and damping are device scalars, so knob
+    changes reuse it.  A longer signal replays the comb stage's slab
+    program and runs the allpasses after it; past the packing cap the
+    blocked network runs in chunks of ``SLAB_STEPS`` blocks (the JAX
+    package's chunked streaming twin)."""
     dev = mono_in.device
-    fb = _f32(feedback, dev)
-    d1 = _f32(damp, dev)
-    d2 = 1.0 - d1
     total = int(mono_in.shape[0])
-    all_ds = tuple(D for combs, _ in nets for D in combs)
-    packed = 2 * (-(-total // min(all_ds))) * len(all_ds) * max(all_ds) * 4
-    if packed > COMB_PACK_BYTES_CAP:
-        return reverb_networks_apply(
-            [reverb_zero_state(combs, aps, dev) for combs, aps in nets],
-            mono_in, nets, fb, d1)[1]
-    comb_sums = _comb_stage_whole(mono_in, [c for c, _ in nets], fb, d1, d2)
+    nets = tuple((tuple(cs), tuple(aps)) for cs, aps in nets)
+    route = whole_reverb_route(total, nets)
+    if route == "one":
+        return program("reverb_whole", nets, lambda: (
+            lambda x, f, i: _whole_body(x, nets, f[0], f[1])), dev)(
+                mono_in, f=(feedback, damp))
+    if route == "slabs":
+        return _allpasses(_comb_stage_slabs(mono_in, [c for c, _ in nets],
+                                            feedback, damp), nets)
+    C = SLAB_STEPS * min(D for cs, _ in nets for D in cs)
+    n = -(-total // C) * C
+    x = torch.cat([mono_in, torch.zeros(n - total, dtype=torch.float32,
+                                        device=dev)])
+    states = [reverb_zero_state(combs, aps, dev) for combs, aps in nets]
+    outs = []
+    for c0 in range(0, n, C):
+        states, ys = reverb_networks_apply(states, x[c0:c0 + C], nets,
+                                           feedback, damp)
+        outs.append(ys)
+    return [torch.cat(o)[:total] for o in zip(*outs)]
+
+
+def _allpasses(comb_sums: torch.Tensor, nets) -> list:
     outs = []
     for i, (_, aps) in enumerate(nets):
         out = comb_sums[:, i]
@@ -730,6 +842,12 @@ def _reverb_networks_whole(mono_in: torch.Tensor, nets, feedback,
             out = _allpass_whole(out, D)
         outs.append(out)
     return outs
+
+
+def _whole_body(mono_in, nets, fb, d1) -> list:
+    """The body of :func:`_reverb_networks_whole`'s one program."""
+    return _allpasses(_comb_stage_whole(mono_in, [c for c, _ in nets], fb,
+                                        d1, 1.0 - d1), nets)
 
 
 def reverb(frames: torch.Tensor, samplerate: int, roomsize: float,
@@ -794,7 +912,7 @@ def _chorus_lfo_delay(n0: int, n: int, samplerate: int, rate: float, depth,
         p = (p0 + P) & 0xFFFFFFFF
     else:
         inc = int(round(float(rate) / samplerate * 4294967296.0)) & 0xFFFFFFFF
-        idx = int(n0) + torch.arange(n, dtype=torch.int64, device=device)
+        idx = n0 + torch.arange(n, dtype=torch.int64, device=device)
         p = (p0 + idx * inc) & 0xFFFFFFFF
     p = torch.where(p >= (1 << 31), p - (1 << 32), p)
     x = p.to(torch.float32) * float(2.0 ** -32)
@@ -940,9 +1058,9 @@ def overlap_add(segs: torch.Tensor, starts: np.ndarray,
     for g in _groups(np.asarray(starts, np.int64), length):
         rows = (starts[g][:, None] + np.arange(length)[None, :]).reshape(-1)
         keep = rows < out_len
-        sel = torch.from_numpy(np.nonzero(keep)[0]).to(dev)
-        idx = torch.from_numpy(rows[keep]).to(dev)
-        vals = segs[torch.from_numpy(g).to(dev)].reshape(
+        sel = constant(np.nonzero(keep)[0], dev)
+        idx = constant(rows[keep], dev)
+        vals = segs[constant(g, dev)].reshape(
             (-1,) + tuple(segs.shape[2:]))
         out[idx] = out[idx] + vals[sel]
     return out
@@ -972,22 +1090,21 @@ def stretch(frames: torch.Tensor, factor: float, frame: int = 2048,
                    torch.zeros((n_pad - n, nch), dtype=torch.float32,
                                device=dev)])
     win_np = np.hanning(frame + 1)[:frame]
-    win = torch.from_numpy(win_np.astype(np.float32)).to(dev)
+    win = constant(win_np.astype(np.float32), dev)
     K = frame // 2 + 1
     omega = (2.0 * np.pi / frame) * np.arange(K)
     hops = np.diff(starts_np).astype(np.float64)
-    om_hops = torch.from_numpy(
-        (omega[None, :] * hops[:, None]).astype(np.float32)).to(dev)
-    hop_scale = torch.from_numpy((hop / hops).astype(np.float32)).to(dev)
+    om_hops = constant((omega[None, :] * hops[:, None]).astype(np.float32),
+                       dev)
+    hop_scale = constant((hop / hops).astype(np.float32), dev)
     two_pi = scalar(2.0 * np.pi, dev)
     out_len = (T - 1) * hop + frame
     wsum = np.zeros(out_len, np.float64)
     for j in range(T):
         wsum[j * hop:j * hop + frame] += win_np ** 2
-    inv_wsum = torch.from_numpy(
-        (1.0 / np.maximum(wsum, 1e-8)).astype(np.float32)).to(dev)
-    gidx = torch.from_numpy(starts_np[:, None]
-                            + np.arange(frame)[None, :]).to(dev)
+    inv_wsum = constant((1.0 / np.maximum(wsum, 1e-8)).astype(np.float32),
+                        dev)
+    gidx = constant(starts_np[:, None] + np.arange(frame)[None, :], dev)
     syn_starts = np.arange(T, dtype=np.int64) * hop
     cols = []
     for c in range(nch):
@@ -1034,9 +1151,9 @@ def granulate(frames: torch.Tensor, samplerate: int, duration: float,
     s = torch.cat([_norm(frames),
                    torch.zeros((max(n, L) - n, nch), dtype=torch.float32,
                                device=dev)])
-    win = torch.from_numpy(np.hanning(L + 1)[:L].astype(np.float32)).to(dev) \
+    win = constant(np.hanning(L + 1)[:L].astype(np.float32), dev) \
         * _f32(amplitude, dev)
-    gi = torch.from_numpy(in_pos[:, None] + np.arange(L)[None, :]).to(dev)
+    gi = constant(in_pos[:, None] + np.arange(L)[None, :], dev)
     grains = s[gi] * win[None, :, None]                       # [G, L, ch]
     return to_int_samples(overlap_add(grains, out_pos, out_len), width)
 

@@ -24,6 +24,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.program import constant
+
 TWO_NEG32 = float(np.float32(2.0 ** -32))
 U32 = 0xFFFFFFFF
 
@@ -36,7 +38,10 @@ def scalar(value, device) -> torch.Tensor:
 
 
 def div(x: torch.Tensor, c) -> torch.Tensor:
-    """x / f32(c), correctly rounded on every device."""
+    """x / f32(c), correctly rounded on every device; ``c`` may also be an
+    f32 tensor on ``x``'s device (a program's device scalar)."""
+    if isinstance(c, torch.Tensor):
+        return x / c
     return x / scalar(c, x.device)
 
 
@@ -72,10 +77,12 @@ def interp(x: torch.Tensor, xp, fp) -> torch.Tensor:
     dx) * df`` with XLA's contraction of the last multiply and add into one
     fused multiply-add (``fma_f32``), ``fp[i-1]`` where the interval is
     narrower than the guard, and the end values held outside ``[xp[0],
-    xp[-1]]``.  ``xp`` and ``fp`` are 1-D host breakpoints (lists or
-    arrays), ``x`` an f32 tensor."""
-    xp = torch.from_numpy(np.asarray(xp, np.float32)).to(x.device)
-    fp = torch.from_numpy(np.asarray(fp, np.float32)).to(x.device)
+    xp[-1]]``.  ``xp`` and ``fp`` are 1-D breakpoints (host lists or
+    arrays, or f32 tensors on ``x``'s device), ``x`` an f32 tensor."""
+    if not isinstance(xp, torch.Tensor):
+        xp = constant(np.asarray(xp, np.float32), x.device)
+    if not isinstance(fp, torch.Tensor):
+        fp = constant(np.asarray(fp, np.float32), x.device)
     if xp.ndim != 1 or xp.shape != fp.shape or xp.shape[0] == 0:
         raise ValueError("xp and fp must be one-dimensional arrays of equal "
                          "size")

@@ -6,27 +6,40 @@ chainable ops run on an int tensor [nframes, nchannels] held in device
 memory.  The numeric contract for every op is defined by
 ``goldref.sample.Sample``.
 
-**Eager ops.**  The JAX package stages each op into a small IR and compiles
-a whole chain into one program; in PyTorch an op computes its result at
-once and rebinds the buffer, and ``from_patch`` renders at construction.
-There is no IR.
+**Lazy op capture.**  The original chainable API mutates eagerly; here
+each op *stages* a node of a tiny IR instead, and the whole pending chain
+runs as ONE device program when the data is actually needed
+(``get_frame_array`` / ``write_wav`` / ``torch_frames`` / mixing into
+another sample without fusing / ...).  Users keep the chainable API, the
+device sees a single program per chain shape (a ``utils.program.Program``:
+captured once as a CUDA graph, cached by structure), and a chain costs one
+dispatch instead of one per op.  Knob values travel as device scalars, so a
+chain that differs only in its knobs reuses its program.  Even
+data-dependent scaling (``amplify_max``, ``make_16bit``) stages, because
+the peak factor is computed in the program.  A mixed-in, modulating,
+key or impulse-response sample with a pending chain fuses in as a
+sub-program.  A reverb whose comb stage outgrows one program
+(``ops.effects.WHOLE_STEPS`` steps, about 26 s at 44.1 kHz) does not
+stage: it runs after the staged chain, replaying programs of its own.  On
+the CPU the chain runs eagerly when it materialises.
 
-**Tensors are mutable, so no op writes in place.**  Every op builds a new
-tensor and rebinds ``self``'s buffer to it; ``copy`` shares the buffer, and
-slices may be views of it.  What another ``Sample`` holds is therefore
-never changed by an op on this one.  A tensor handed to ``from_torch`` is
-wrapped without a copy: the caller must not write into it afterwards.
+Shape/format metadata is tracked eagerly through staged ops, so
+``nframes``/``duration``/format queries never force materialization.
+Each staged op's executor (``_x_<op>``) holds the op's PyTorch body; ops
+that the JAX package does not stage (the loudness meters, the writers)
+run eagerly on the materialised buffer.
+
+**Tensors are mutable, so no op writes in place.**  Every program builds
+new tensors and the sample rebinds its buffer to the result; ``copy``
+shares the buffer and the pending chain.  What another ``Sample`` holds is
+therefore never changed by an op on this one.  A tensor handed to
+``from_torch`` is wrapped without a copy: the caller must not write into
+it afterwards.
 
 **The host copy.**  ``get_frame_array`` is where a result crosses to the
 host.  On a CUDA sample it copies into pinned host memory
 (``utils.device.to_host``) and caches the read-only view until the buffer
 is rebound; on a CPU sample it is a view of the tensor.
-
-**Effects and resampling.**  The effects rack (``ops/effects.py``), the
-loudness meters (``ops/loudness.py``) and both resamplers
-(``ops/resample.py``) run on the sample's device.  A key, impulse-response
-or modulator ``Sample`` is used as it stands: there is no sub-program to
-fuse.
 
 **File output.**  WAV goes through ``utils.wavio``, FLAC through the
 port's own encoder (``utils.flac``), MP3, Ogg Vorbis, Opus and AAC through
@@ -38,7 +51,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Iterator, Optional
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,11 +66,23 @@ from .ops import wave as W
 from .utils import wavio
 from .utils.device import resolve as _device
 from .utils.device import to_host
+from .utils.program import Program, program
 
 _DTYPES = dpcm.DTYPES
 _NPDT = {1: np.int8, 2: np.int16, 4: np.int32}
 MAXVAL = dpcm.MAXVAL
 MINVAL = dpcm.MINVAL
+
+#: auto-materialize when a chain grows beyond this many staged ops
+_MAX_PENDING = 160
+
+
+class _Op(NamedTuple):
+    name: str
+    static: Tuple       # hashable static params
+    ndyn: int           # f32 scalars consumed from the dyn vector
+    nleaf: int          # leaf tensors consumed
+
 
 def _pan_gains(amt: torch.Tensor) -> torch.Tensor:
     """Per-frame pan amounts [n] -> per-channel gains [n, 2]."""
@@ -66,11 +91,393 @@ def _pan_gains(amt: torch.Tensor) -> torch.Tensor:
     return torch.stack([la, ra], dim=-1)
 
 
+def _fit(g: torch.Tensor, n: int, fill: float) -> torch.Tensor:
+    """``g`` [m] cut or continued with ``fill`` to [n]."""
+    if g.shape[0] < n:
+        g = torch.cat([g, torch.full((n - g.shape[0],), fill,
+                                     dtype=torch.float32, device=g.device)])
+    return g[:n]
+
+
+# ---------------------------------------------------------------------------
+# Staged-op executors.  Each runs inside the chain's program:
+#   exec(x, static, dyn: list of 0-dim f32 tensors, leaves: list) -> x
+# ---------------------------------------------------------------------------
+
+def _x_amplify(x, st, dyn, leaves):
+    return dpcm.mul_floor(x, dyn[0])
+
+
+def _x_amplify_max(x, st, dyn, leaves):
+    pk = dpcm.peak(x)
+    full = W.scalar(MAXVAL[dpcm.width_of(x)], x.device)
+    factor = torch.where(pk == 0, torch.ones_like(full),
+                         full / pk.to(torch.float32))
+    return dpcm.mul_floor(x, factor)
+
+
+def _x_bias(x, st, dyn, leaves):
+    return dpcm.bias_wrap(x, st[0])
+
+
+def _x_slice(x, st, dyn, leaves):
+    a, b = st
+    return x[a:b]
+
+
+def _x_cut(x, st, dyn, leaves):
+    a, b = st
+    return torch.cat([x[:a], x[b:]], dim=0)
+
+
+def _silence(x, n: int) -> torch.Tensor:
+    return torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
+
+
+def _x_pad(x, st, dyn, leaves):
+    n, at_start = st
+    z = _silence(x, n)
+    return torch.cat([z, x] if at_start else [x, z], dim=0)
+
+
+def _x_join(x, st, dyn, leaves):
+    other = _run_ops(leaves[0], st[0], dyn, leaves[1:])
+    return torch.cat([x, other], dim=0)
+
+
+def _x_reverse(x, st, dyn, leaves):
+    return torch.flip(x, [0])
+
+
+def _ramp(x, n: int) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.float32, device=x.device)
+
+
+def _x_fadein(x, st, dyn, leaves):
+    (n,) = st
+    start = dyn[0]
+    g = start + (1.0 - start) * W.div(_ramp(x, n), n)
+    head = dpcm.gain_apply(x[:n], g[:, None])
+    return torch.cat([head, x[n:]], dim=0)
+
+
+def _x_fadeout(x, st, dyn, leaves):
+    (n, total) = st
+    target = dyn[0]
+    g = target + (1.0 - target) * W.div(
+        float(np.float32(n) - np.float32(1.0)) - _ramp(x, n), n)
+    tail = dpcm.gain_apply(x[total - n:], g[:, None])
+    return torch.cat([x[:total - n], tail], dim=0)
+
+
+def _x_envelope(x, st, dyn, leaves):
+    """ADSR gain curve over the whole buffer (goldref.sample.adsr_gains)."""
+    (n, samplerate) = st
+    a = torch.clamp_min(dyn[0], 0.0)
+    d = torch.clamp_min(dyn[1], 0.0)
+    sl = dyn[2]
+    r = torch.clamp_min(dyn[3], 0.0)
+    t = W.div(_ramp(x, n), samplerate)
+    dur = float(np.float32(n / samplerate))
+    eps = W.scalar(1e-30, x.device)
+    g = torch.ones_like(t)
+    g = torch.where(a > 0, torch.minimum(g, t / torch.maximum(a, eps)), g)
+    ad = a + d
+    in_decay = (t >= a) & (t < ad)
+    g = torch.where(in_decay,
+                    1.0 + ((sl - 1.0) * (t - a)) / torch.maximum(d, eps), g)
+    g = torch.where(t >= ad, sl, g)
+    rel_gain = (g * (dur - t)) / torch.maximum(r, eps)
+    g = torch.where((r > 0) & (t >= dur - r), rel_gain, g)
+    return dpcm.gain_apply(x, torch.clamp_min(g, 0.0)[:, None])
+
+
+def _x_modulate(x, st, dyn, leaves):
+    return dpcm.gain_apply(x, leaves[0][:, None])
+
+
+def _x_modulate_sample(x, st, dyn, leaves):
+    maxval, sub_ops = st
+    mod = _run_ops(leaves[0], sub_ops, dyn, leaves[1:])
+    g = _fit(W.div(mod[:, 0].to(torch.float32), maxval), x.shape[0], 1.0)
+    return dpcm.gain_apply(x, g[:, None])
+
+
+def _x_mix_at(x, st, dyn, leaves):
+    start, m, out_len, sub_ops = st
+    other = _run_ops(leaves[0], sub_ops, dyn, leaves[1:])[:m]
+    if out_len > x.shape[0]:
+        x = torch.cat([x, _silence(x, out_len - x.shape[0])], dim=0)
+    mixed = dpcm.sat_add(x[start:start + m], other)
+    return torch.cat([x[:start], mixed, x[start + m:]], dim=0)
+
+
+def _x_echo(x, st, dyn, leaves):
+    total, offsets = st                 # offsets: exact per-echo start frames
+    decay = dyn[0]
+    orig = x
+    cur = x.shape[0]
+    if total > cur:
+        x = torch.cat([x, _silence(x, total - cur)], dim=0)
+    else:
+        x = x[:total]
+    gain = W.scalar(1.0, x.device)
+    for dk in offsets:
+        gain = gain * decay
+        if dk >= total:
+            continue
+        m = min(orig.shape[0], total - dk)
+        copy_k = dpcm.mul_floor(orig[:m], gain)
+        mixed = dpcm.sat_add(x[dk:dk + m], copy_k)
+        x = torch.cat([x[:dk], mixed, x[dk + m:]], dim=0)
+    return x
+
+
+def _x_lin2lin(x, st, dyn, leaves):
+    return dpcm.lin2lin(x, st[0])
+
+
+def _x_astype_i32(x, st, dyn, leaves):
+    return x.to(torch.int32)
+
+
+def _x_tomono(x, st, dyn, leaves):
+    return dpcm.to_mono(x, dyn[0], dyn[1])
+
+
+def _x_tostereo(x, st, dyn, leaves):
+    return dpcm.to_stereo(x, dyn[0], dyn[1])
+
+
+def _x_stereo_mix(x, st, dyn, leaves):
+    ch, m, sub_ops = st
+    other = _run_ops(leaves[0], sub_ops, dyn[1:], leaves[1:])
+    scaled = dpcm.mul_floor(other[:m, 0], dyn[0])
+    mixed = dpcm.sat_add(x[:m, ch], scaled)
+    # the write goes into a fresh tensor that nobody else holds
+    y = x.clone()
+    y[:m, ch] = mixed
+    return y
+
+
+def _x_pan_const(x, st, dyn, leaves):
+    return dpcm.gain_apply(x, _pan_gains(dyn[0])[None, :])
+
+
+def _x_pan_lfo(x, st, dyn, leaves):
+    return dpcm.gain_apply(x, _pan_gains(leaves[0]))
+
+
+def _x_gen_patch(x, st, dyn, leaves):
+    """A Sample's data from an oscillator patch, rendered in the program:
+    the patch's block loop and the int quantization fuse into whatever
+    program consumes the sample, so a mixdown of synthesized tracks is ONE
+    device program."""
+    node, n, sr, width, blocksize = st
+    from .models import graph as G
+    vals = G.patch_values(node, n, sr, blocksize, x.device)
+    return G.to_int_device(vals, width)[:, None]
+
+
+def _x_modulate_patch(x, st, dyn, leaves):
+    node, n, sr = st
+    from .models import graph as G
+    return dpcm.gain_apply(x, G.patch_values(node, n, sr,
+                                             device=x.device)[:, None])
+
+
+def _x_pan_patch(x, st, dyn, leaves):
+    node, n, sr = st
+    from .models import graph as G
+    return dpcm.gain_apply(x, _pan_gains(G.patch_values(node, n, sr,
+                                                        device=x.device)))
+
+
+def _x_pan_sample(x, st, dyn, leaves):
+    maxval, n, sub_ops = st
+    mod = _run_ops(leaves[0], sub_ops, dyn, leaves[1:])
+    amt = _fit(W.div(mod[:, 0].to(torch.float32), maxval), n, 1.0)
+    return dpcm.gain_apply(x, _pan_gains(amt))
+
+
+def _x_tremolo(x, st, dyn, leaves):
+    return dfx.tremolo(x, leaves[0])
+
+
+def _x_autopan(x, st, dyn, leaves):
+    return dfx.autopan(x, leaves[0])
+
+
+def _x_compress(x, st, dyn, leaves):
+    # st = (has_knee,): a static flag, so the hard-knee program's
+    # arithmetic is untouched when knee_db == 0 (the knee value itself
+    # stays dyn: tweaking a nonzero knee reuses the program)
+    knee = dyn[5] if st[0] else None
+    g = dfx.compressor_gains_from_coeffs(x, dyn[0], dyn[1], dyn[2], dyn[3],
+                                         knee=knee)
+    return dpcm.gain_apply(x, (g * dyn[4])[:, None])
+
+
+def _x_compress_sc(x, st, dyn, leaves):
+    """Sidechain compression: the detector listens to the fused key
+    sub-program; the gain applies to x (goldref.effects.sidechain_level)."""
+    key_maxval, sub_ops, has_knee = st
+    nk = 6 if has_knee else 5
+    key = _run_ops(leaves[0], sub_ops, dyn[nk:], leaves[1:])
+    a = torch.amax(torch.abs(W.div(key.to(torch.float32), key_maxval)),
+                   dim=1)
+    a = _fit(a, x.shape[0], 0.0)
+    g = dfx.compressor_gains_from_level(a, dyn[0], dyn[1], dyn[2], dyn[3],
+                                        knee=dyn[5] if has_knee else None)
+    return dpcm.gain_apply(x, (g * dyn[4])[:, None])
+
+
+def _x_reverb(x, st, dyn, leaves):
+    samplerate, tail_frames = st
+    return dfx.reverb_from_params(x, samplerate, dyn[0], dyn[1], dyn[2],
+                                  dyn[3], dyn[4], tail_frames)
+
+
+def _x_chorus(x, st, dyn, leaves):
+    samplerate, rate, depth, delay, voices = st
+    return dfx.chorus(x, samplerate, rate, depth, delay, voices, dyn[0],
+                      dyn[1])
+
+
+def _x_biquad(x, st, dyn, leaves):
+    w = dpcm.width_of(x)
+    y, _ = dfx.biquad_apply(W.div(x.to(torch.float32), MAXVAL[w]),
+                            tuple(dyn[:5]))
+    return dfx.to_int_samples(y, w)
+
+
+def _x_biquad_ff(x, st, dyn, leaves):
+    # badly conditioned coefficients (ops.coeffs.wants_ff_scan): the
+    # float-float scan with (hi, lo) coefficient pairs in the dyn vector
+    w = dpcm.width_of(x)
+    pairs = tuple((dyn[2 * i], dyn[2 * i + 1]) for i in range(5))
+    y, _ = dfx.biquad_apply_ff(W.div(x.to(torch.float32), MAXVAL[w]), pairs)
+    return dfx.to_int_samples(y, w)
+
+
+def _x_gate(x, st, dyn, leaves):
+    g = dfx.gate_gains_from_coeffs(x, dyn[0], dyn[1], dyn[2], dyn[3],
+                                   e0=0.0, z0=dyn[1])
+    return dpcm.gain_apply(x, g[:, None])
+
+
+def _x_convolve(x, st, dyn, leaves):
+    ir_maxval, sub_ops = st
+    ir_int = _run_ops(leaves[0], sub_ops, dyn[2:], leaves[1:])
+    ir_norm = W.div(ir_int.to(torch.float32), ir_maxval)
+    return dfx.convolve(x, ir_norm, dyn[0], dyn[1])
+
+
+def _x_granulate(x, st, dyn, leaves):
+    samplerate, duration, grain, density, jitter, seed = st
+    return dfx.granulate(x, samplerate, duration, grain, density, jitter,
+                         dyn[0], seed)
+
+
+def _x_stretch(x, st, dyn, leaves):
+    factor, frame, hop = st
+    return dfx.stretch(x, factor, frame, hop)
+
+
+def _x_fb_echo(x, st, dyn, leaves):
+    D, tail_frames = st
+    return dfx.feedback_echo(x, D, dyn[0], dyn[1], dyn[2], tail_frames)
+
+
+def _x_width(x, st, dyn, leaves):
+    return dfx.stereo_width(x, dyn[0])
+
+
+def _x_limit(x, st, dyn, leaves):
+    samplerate, L, cint = st
+    return dfx.limiter(x, dyn[0], dyn[1], L, cint)
+
+
+def _x_phaser(x, st, dyn, leaves):
+    stages, ff = st
+    w = dpcm.width_of(x)
+    z = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    if ff:
+        grids = tuple((leaves[2 * i], leaves[2 * i + 1]) for i in range(5))
+        states = tuple((z,) * 6 for _ in range(stages))
+    else:
+        grids = tuple(leaves)
+        states = tuple((z,) * 4 for _ in range(stages))
+    s = W.div(x.to(torch.float32), MAXVAL[w])
+    y, _ = dfx.phaser_apply(s, grids, states, ff)
+    return dfx.to_int_samples(dyn[1] * s + dyn[0] * y, w)
+
+
+def _x_ratecv(x, st, dyn, leaves):
+    inr, outr = st
+    return dresample.resample_tensor(x, inr, outr)
+
+
+def _x_hq_resample(x, st, dyn, leaves):
+    L, M, nout = st
+    return dresample.hq_resample(x, L, M, nout)
+
+
+_EXEC = {
+    "amplify": _x_amplify, "amplify_max": _x_amplify_max, "bias": _x_bias,
+    "slice": _x_slice, "cut": _x_cut, "pad": _x_pad, "join": _x_join,
+    "reverse": _x_reverse, "fadein": _x_fadein, "fadeout": _x_fadeout,
+    "envelope": _x_envelope, "modulate": _x_modulate,
+    "modulate_sample": _x_modulate_sample, "mix_at": _x_mix_at,
+    "echo": _x_echo, "lin2lin": _x_lin2lin, "astype_i32": _x_astype_i32,
+    "tomono": _x_tomono, "tostereo": _x_tostereo, "stereo_mix": _x_stereo_mix,
+    "pan_const": _x_pan_const, "pan_lfo": _x_pan_lfo, "ratecv": _x_ratecv,
+    "hq_resample": _x_hq_resample,
+    "gen_patch": _x_gen_patch, "modulate_patch": _x_modulate_patch,
+    "pan_patch": _x_pan_patch, "pan_sample": _x_pan_sample,
+    "compress": _x_compress, "reverb": _x_reverb, "chorus": _x_chorus,
+    "convolve": _x_convolve, "stretch": _x_stretch,
+    "biquad": _x_biquad, "biquad_ff": _x_biquad_ff,
+    "gate": _x_gate, "compress_sc": _x_compress_sc,
+    "granulate": _x_granulate,
+    "fb_echo": _x_fb_echo, "width": _x_width, "limit": _x_limit,
+    "phaser": _x_phaser, "tremolo": _x_tremolo, "autopan": _x_autopan,
+}
+
+def _run_ops(x, ops: Tuple[_Op, ...], dyn, leaves):
+    """Execute a (sub-)program inside the chain's program.
+
+    ``dyn``/``leaves`` are flat sequences consumed in op order —
+    sub-programs (a mixed-in sample's own staged chain) nest recursively
+    via an op's trailing dyn/leaf slices.
+    """
+    di = li = 0
+    for op in ops:
+        d = [dyn[di + j] for j in range(op.ndyn)]
+        lv = [leaves[li + j] for j in range(op.nleaf)]
+        x = _EXEC[op.name](x, op.static, d, lv)
+        di += op.ndyn
+        li += op.nleaf
+    return x
+
+
+def _compile_program(ops: Tuple[_Op, ...], device) -> Program:
+    """The chain's program, cached by its ops and device, with one key a
+    shape of the base and the leaves: the JAX package's
+    ``_program_cache``."""
+    def build():
+        def run(base, leaves, f, i):
+            return _run_ops(base, ops, f, leaves)
+        return run
+    return program("sample_chain", ops, build, device)
+
+
 class Sample:
-    """A device-resident PCM sample with chainable DSP ops.
+    """A device-resident PCM sample with chainable, lazily fused DSP ops.
 
     API-compatible with the original ``Sample``: ops mutate in place (they
-    rebind this sample's buffer) and return ``self`` for chaining.  The
+    stage onto this sample's chain) and return ``self`` for chaining; the
+    chain runs as one device program on demand (module docstring).  The
     constructors put the frames on the card unless the caller passes
     ``device="cpu"``; a sample made from another sample or from a tensor
     stays on that tensor's device.
@@ -79,22 +486,53 @@ class Sample:
     def __init__(self, wave_file=None, name: str = "", device="cuda"):
         dev = _device(device)
         self.name = name
+        self._ops: List[_Op] = []
+        self._dyn: List[float] = []
+        self._leaves: List[torch.Tensor] = []
         self._host_cache: Optional[np.ndarray] = None
         self._host_base: Optional[torch.Tensor] = None
         if wave_file is not None:
             frames, rate, width, nch = wavio.read_wav(wave_file)
-            self._frames = torch.from_numpy(
+            self._base = torch.from_numpy(
                 np.require(frames, requirements=("C", "W"))).to(dev)
             self._samplerate = rate
             self._samplewidth = width
             if isinstance(wave_file, str) and not name:
                 self.name = wave_file
         else:
-            self._frames = torch.zeros(
+            self._base = torch.zeros(
                 (0, params.norm_nchannels),
                 dtype=_DTYPES[params.norm_samplewidth], device=dev)
             self._samplerate = params.norm_samplerate
             self._samplewidth = params.norm_samplewidth
+        self._nframes, self._nchannels = (int(v) for v in self._base.shape)
+
+    # -- staging machinery -----------------------------------------------------
+
+    def _stage(self, name: str, static: Tuple = (), dyn: Tuple = (),
+               leaves: Tuple = ()) -> None:
+        self._ops.append(_Op(name, static, len(dyn), len(leaves)))
+        self._dyn.extend(float(d) for d in dyn)
+        dev = self._base.device
+        self._leaves.extend(t.to(dev) for t in leaves)
+        if len(self._ops) > _MAX_PENDING:
+            self._materialize()
+
+    def _materialize(self) -> torch.Tensor:
+        if self._ops:
+            prog = _compile_program(tuple(self._ops), self._base.device)
+            self._base = prog(self._base, tuple(self._leaves), f=self._dyn)
+            self._ops, self._dyn, self._leaves = [], [], []
+        return self._base
+
+    def _as_subprogram(self):
+        """(sub_ops, dyn, leaves) for fusing this sample into another's
+        program without materializing it (very long chains materialize
+        first to bound program sizes)."""
+        if len(self._ops) > 48:
+            self._materialize()
+        return (tuple(self._ops), tuple(self._dyn),
+                (self._base, *self._leaves))
 
     # -- constructors ------------------------------------------------------------
 
@@ -109,9 +547,11 @@ class Sample:
                 f"got {tuple(data.shape)} {data.dtype}")
         s = cls.__new__(cls)
         s.name = name
+        s._ops, s._dyn, s._leaves = [], [], []
         s._host_cache = s._host_base = None
-        s._frames = data
+        s._base = data
         s._samplerate, s._samplewidth = int(samplerate), int(samplewidth)
+        s._nframes, s._nchannels = (int(v) for v in data.shape)
         return s
 
     @classmethod
@@ -139,31 +579,46 @@ class Sample:
     def from_patch(cls, node, nframes: int, samplerate: int,
                    samplewidth: int, name: str = "",
                    blocksize: int = 8192, device="cuda") -> "Sample":
-        """A mono Sample rendered from an oscillator patch, at once: the
-        patch runs block after block on ``device`` and is quantized
-        there."""
+        """A mono Sample whose data is a *staged* oscillator-patch render:
+        nothing runs at construction; the patch's block loop is an IR node
+        like any other op, so downstream chains (and cross-sample mixes)
+        fuse the synthesis itself into one device program."""
         from .models import graph as G
-        vals = G.patch_values(node, int(nframes), int(samplerate),
-                              int(blocksize), device)
-        return cls.from_torch(G.to_int_device(vals, int(samplewidth))[:, None],
-                              samplerate, samplewidth, name)
+        G.check_inline(node)
+        data = torch.zeros((0, 1), dtype=_DTYPES[int(samplewidth)],
+                           device=_device(device))
+        s = cls.from_torch(data, samplerate, samplewidth, name)
+        s._stage("gen_patch", static=(node, int(nframes), int(samplerate),
+                                      int(samplewidth), int(blocksize)))
+        s._nframes = int(nframes)
+        return s
 
     def _replace_frames(self, data: torch.Tensor) -> "Sample":
-        """Swap in new frames of the same format, in place."""
+        """Swap in new frames of the same format, in place (the eager
+        fx-automation path computes outside the chain: any staged ops are
+        materialized first by the caller)."""
         if data.ndim != 2 or data.dtype != _DTYPES[self._samplewidth]:
             raise ValueError("replacement frames must be [n, ch] of the "
                              "sample's own dtype")
-        self._frames = data
+        if self._ops:
+            raise ValueError("materialize the staged ops before replacing "
+                             "the frames")
+        self._base = data
+        self._nframes, self._nchannels = (int(v) for v in data.shape)
         return self
 
     def copy(self) -> "Sample":
-        # shares the buffer: no op ever writes into it (module docstring)
-        return Sample.from_torch(self._frames, self._samplerate,
-                                 self._samplewidth, self.name)
+        # shares the buffer and the pending chain: no op writes into either
+        s = Sample.from_torch(self._base, self._samplerate,
+                              self._samplewidth, self.name)
+        s._ops, s._dyn, s._leaves = (list(self._ops), list(self._dyn),
+                                     list(self._leaves))
+        s._nframes, s._nchannels = self._nframes, self._nchannels
+        return s
 
     dup = copy
 
-    # -- introspection -----------------------------------------------------------
+    # -- introspection (never materializes) ---------------------------------------
 
     @property
     def samplerate(self) -> int:
@@ -182,15 +637,15 @@ class Sample:
 
     @property
     def nchannels(self) -> int:
-        return int(self._frames.shape[1])
+        return self._nchannels
 
     @property
     def nframes(self) -> int:
-        return int(self._frames.shape[0])
+        return self._nframes
 
     @property
     def duration(self) -> float:
-        return self.nframes / self._samplerate
+        return self._nframes / self._samplerate
 
     @property
     def maxvalue(self) -> int:
@@ -198,30 +653,30 @@ class Sample:
 
     @property
     def device(self) -> torch.device:
-        return self._frames.device
+        return self._base.device
 
     @property
     def torch_frames(self) -> torch.Tensor:
-        """The [nframes, nchannels] int tensor on the sample's device.  Do
-        not write into it."""
-        return self._frames
+        """The [nframes, nchannels] int tensor on the sample's device
+        (materializes).  Do not write into it."""
+        return self._materialize()
 
     def __len__(self) -> int:
-        return self.nframes
+        return self._nframes
 
     def __repr__(self) -> str:
         return (f"<Sample '{self.name}' {self.duration:.3f}s "
                 f"{self._samplerate}Hz {8 * self._samplewidth}bit "
-                f"{self.nchannels}ch>")
+                f"{self._nchannels}ch>")
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, Sample):
             return NotImplemented
-        return (self._samplerate, self._samplewidth, self.nchannels) == \
-               (other._samplerate, other._samplewidth, other.nchannels) and \
-               self.nframes == other.nframes and \
-               bool(torch.equal(self._frames,
-                                other._frames.to(self._frames.device)))
+        return (self._samplerate, self._samplewidth, self._nchannels) == \
+               (other._samplerate, other._samplewidth, other._nchannels) and \
+               self._nframes == other._nframes and \
+               bool(torch.equal(self._materialize(),
+                                other._materialize().to(self.device)))
 
     def view_frame_data(self) -> bytes:
         """Raw interleaved little-endian frame bytes (device -> host copy)."""
@@ -229,7 +684,8 @@ class Sample:
 
     def get_frame_array(self, out: Optional[torch.Tensor] = None
                         ) -> np.ndarray:
-        """Frames as a read-only host numpy array [nframes, nchannels].
+        """Frames as a read-only host numpy array [nframes, nchannels]
+        (materializes).
 
         On a CUDA sample the frames are copied into a pinned host buffer
         that this sample owns (``copy_(non_blocking=True)``, then the
@@ -240,7 +696,7 @@ class Sample:
         to reuse one buffer; the view of a caller's buffer is not cached.
         On a CPU sample the array is a view of the tensor.  Copy before
         writing."""
-        base = self._frames
+        base = self._materialize()
         if out is None and self._host_cache is not None \
                 and self._host_base is base:
             return self._host_cache
@@ -253,15 +709,11 @@ class Sample:
     def _n(self, seconds: float) -> int:
         return int(seconds * self._samplerate)
 
-    def _set(self, frames: torch.Tensor) -> "Sample":
-        self._frames = frames
-        return self
-
     # -- file output --------------------------------------------------------------
 
     def write_wav(self, file) -> "Sample":
         wavio.write_wav(file, self.get_frame_array(), self._samplerate,
-                        self._samplewidth, self.nchannels)
+                        self._samplewidth, self._nchannels)
         return self
 
     def write_flac(self, file) -> "Sample":
@@ -269,7 +721,7 @@ class Sample:
         fixed predictors and native Rice coding; decode is bit-identical)."""
         from .utils.flac import write_flac
         write_flac(file, self.get_frame_array(), self._samplerate,
-                   self._samplewidth, self.nchannels)
+                   self._samplewidth, self._nchannels)
         return self
 
     def _frames_16bit(self) -> np.ndarray:
@@ -286,7 +738,7 @@ class Sample:
         sample is width-converted to 16-bit for the encoder."""
         from .utils.codecs import write_mp3
         write_mp3(file, self._frames_16bit(), self._samplerate,
-                  self.nchannels, bitrate=bitrate)
+                  self._nchannels, bitrate=bitrate)
         return self
 
     def write_ogg(self, file, quality: float = 0.4) -> "Sample":
@@ -294,7 +746,7 @@ class Sample:
         libvorbisenc (``utils.codecs``).  Lossy: 16-bit input."""
         from .utils.codecs import write_vorbis
         write_vorbis(file, self._frames_16bit(), self._samplerate,
-                     self.nchannels, quality=quality)
+                     self._nchannels, quality=quality)
         return self
 
     def write_opus(self, file, bitrate: int = 128000) -> "Sample":
@@ -307,7 +759,7 @@ class Sample:
         if self._samplerate not in (8000, 12000, 16000, 24000, 48000):
             smp = self.copy().resample(48000)
         write_opus(file, smp._frames_16bit(), smp._samplerate,
-                   smp.nchannels, bitrate=bitrate)
+                   smp._nchannels, bitrate=bitrate)
         return self
 
     def write_m4a(self, file, bitrate: int = 128000) -> "Sample":
@@ -315,7 +767,7 @@ class Sample:
         .aac, through the libav shim (``utils.libav``).  Lossy: 16-bit."""
         from .utils.libav import write_with_libav
         write_with_libav(os.fspath(file), self._frames_16bit(),
-                         self._samplerate, self.nchannels, bitrate=bitrate)
+                         self._samplerate, self._nchannels, bitrate=bitrate)
         return self
 
     def write_audio(self, file) -> "Sample":
@@ -339,56 +791,56 @@ class Sample:
 
     def amplify(self, factor: float) -> "Sample":
         """floor(f32(v) * f32(factor)), clamp (audioop.mul, f32 spec)."""
-        return self._set(dpcm.mul_floor(self._frames, factor))
+        self._stage("amplify", dyn=(factor,))
+        return self
 
     def amplify_max(self) -> "Sample":
-        """Amplify to full scale; the f32 factor maxval/peak is computed on
-        the device (no host copy)."""
-        x = self._frames
-        pk = dpcm.peak(x)
-        full = W.scalar(MAXVAL[self._samplewidth], x.device)
-        factor = torch.where(pk == 0, torch.ones_like(full),
-                             full / pk.to(torch.float32))
-        return self._set(dpcm.mul_floor(x, factor))
+        """Amplify to full scale; the f32 factor maxval/peak is computed in
+        the program on the device (no host copy)."""
+        self._stage("amplify_max")
+        return self
 
     def invert(self) -> "Sample":
         return self.amplify(-1.0)
 
     def bias(self, amount: int) -> "Sample":
         """Wrapping DC offset (audioop.bias)."""
-        return self._set(dpcm.bias_wrap(self._frames, int(amount)))
+        self._stage("bias", static=(int(amount),))
+        return self
 
     # -- arrangement ----------------------------------------------------------------------
 
-    def _silence(self, n: int) -> torch.Tensor:
-        x = self._frames
-        return torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
-
     def clip(self, start_seconds: float, end_seconds: float) -> "Sample":
-        a = min(self._n(start_seconds), self.nframes)
-        b = min(max(self._n(end_seconds), a), self.nframes)
-        return self._set(self._frames[a:b])
+        a = min(self._n(start_seconds), self._nframes)
+        b = min(max(self._n(end_seconds), a), self._nframes)
+        self._stage("slice", static=(a, b))
+        self._nframes = b - a
+        return self
 
     def cut(self, start_seconds: float, end_seconds: float) -> "Sample":
-        a = min(self._n(start_seconds), self.nframes)
-        b = min(max(self._n(end_seconds), a), self.nframes)
-        x = self._frames
-        return self._set(torch.cat([x[:a], x[b:]], dim=0))
+        a = min(self._n(start_seconds), self._nframes)
+        b = min(max(self._n(end_seconds), a), self._nframes)
+        self._stage("cut", static=(a, b))
+        self._nframes -= (b - a)
+        return self
 
     def split(self, seconds: float) -> "Sample":
-        n = min(self._n(seconds), self.nframes)
+        n = min(self._n(seconds), self._nframes)
         tail = self.copy()
-        tail._frames = self._frames[n:]
-        self._frames = self._frames[:n]
+        tail._stage("slice", static=(n, tail._nframes))
+        tail._nframes = self._nframes - n
+        self._stage("slice", static=(0, n))
+        self._nframes = n
         return tail
 
     def add_silence(self, seconds: float, at_start: bool = False) -> "Sample":
         return self._pad(self._n(seconds), at_start)
 
     def _pad(self, n: int, at_start: bool) -> "Sample":
-        z = self._silence(max(int(n), 0))
-        x = self._frames
-        return self._set(torch.cat([z, x] if at_start else [x, z], dim=0))
+        n = max(int(n), 0)
+        self._stage("pad", static=(n, bool(at_start)))
+        self._nframes += n
+        return self
 
     def pad_frames(self, nframes: int, at_start: bool = False) -> "Sample":
         """Frame-precise silence padding (no seconds round-trip)."""
@@ -398,102 +850,90 @@ class Sample:
 
     def truncate_frames(self, nframes: int) -> "Sample":
         """Keep only the first ``nframes`` frames (frame-precise clip)."""
-        n = min(int(nframes), self.nframes)
-        return self._set(self._frames[:n])
+        n = min(int(nframes), self._nframes)
+        self._stage("slice", static=(0, n))
+        self._nframes = n
+        return self
 
     def join(self, other: "Sample") -> "Sample":
         self._check_format(other)
-        return self._set(torch.cat([self._frames, self._of(other)], dim=0))
+        sub_ops, dyn, leaves = other._as_subprogram()
+        self._stage("join", static=(sub_ops,), dyn=dyn, leaves=leaves)
+        self._nframes += other._nframes
+        return self
 
     def reverse(self) -> "Sample":
-        return self._set(torch.flip(self._frames, [0]))
+        self._stage("reverse")
+        return self
 
     def delay(self, seconds: float, keep_length: bool = False) -> "Sample":
         n = self._n(abs(seconds))
         if seconds >= 0:
             self.add_silence(abs(seconds), at_start=True)
             if keep_length and n > 0:
-                end = max(self.nframes - n, 0)
-                self._frames = self._frames[:end]
+                end = max(self._nframes - n, 0)
+                self._stage("slice", static=(0, end))
+                self._nframes = end
         else:
-            n = min(n, self.nframes)
-            self._frames = self._frames[n:]
+            n = min(n, self._nframes)
+            self._stage("slice", static=(n, self._nframes))
+            self._nframes -= n
             if keep_length:
                 self.add_silence(abs(seconds))
         return self
 
     # -- fades & envelopes ---------------------------------------------------------------
 
-    def _ramp(self, n: int) -> torch.Tensor:
-        return torch.arange(n, dtype=torch.float32, device=self._frames.device)
-
     def fadein(self, seconds: float, start_volume: float = 0.0) -> "Sample":
-        n = min(self._n(seconds), self.nframes)
+        n = min(self._n(seconds), self._nframes)
         if n > 0:
-            x = self._frames
-            start = np.float32(start_volume)
-            rise = float(np.float32(1.0) - start)
-            g = float(start) + rise * W.div(self._ramp(n), n)
-            head = dpcm.gain_apply(x[:n], g[:, None])
-            self._frames = torch.cat([head, x[n:]], dim=0)
+            self._stage("fadein", static=(n,), dyn=(start_volume,))
         return self
 
     def fadeout(self, seconds: float, target_volume: float = 0.0) -> "Sample":
-        n = min(self._n(seconds), self.nframes)
+        n = min(self._n(seconds), self._nframes)
         if n > 0:
-            x = self._frames
-            total = self.nframes
-            target = np.float32(target_volume)
-            g = float(target) + float(np.float32(1.0) - target) * W.div(
-                float(np.float32(n) - np.float32(1.0)) - self._ramp(n), n)
-            tail = dpcm.gain_apply(x[total - n:], g[:, None])
-            self._frames = torch.cat([x[:total - n], tail], dim=0)
+            self._stage("fadeout", static=(n, self._nframes),
+                        dyn=(target_volume,))
         return self
 
     def envelope(self, attack: float, decay: float, sustainlevel: float,
                  release: float) -> "Sample":
         """ADSR gain curve over the whole buffer (goldref.sample.adsr_gains)."""
-        n, samplerate = self.nframes, self._samplerate
-        a = max(np.float32(attack), np.float32(0.0))
-        d = max(np.float32(decay), np.float32(0.0))
-        sl = np.float32(sustainlevel)
-        r = max(np.float32(release), np.float32(0.0))
-        t = W.div(self._ramp(n), samplerate)
-        dur = np.float32(n / samplerate)
-        eps = np.float32(1e-30)
-        g = torch.ones_like(t)
-        if a > 0:
-            g = torch.minimum(g, W.div(t, max(a, eps)))
-        in_decay = (t >= float(a)) & (t < float(a + d))
-        g = torch.where(
-            in_decay,
-            1.0 + W.div(float(sl - np.float32(1.0)) * (t - float(a)),
-                        max(d, eps)),
-            g)
-        g = torch.where(t >= float(a + d), W.scalar(sl, t.device), g)
-        if r > 0:
-            rel_gain = W.div(g * (float(dur) - t), max(r, eps))
-            g = torch.where(t >= float(dur - r), rel_gain, g)
-        return self._set(dpcm.gain_apply(
-            self._frames, torch.clamp_min(g, 0.0)[:, None]))
+        self._stage("envelope", static=(self._nframes, self._samplerate),
+                    dyn=(attack, decay, sustainlevel, release))
+        return self
 
     def modulate_amp(self, modulator) -> "Sample":
         """Per-sample amplitude modulation by a Sample, f32 array or
-        tensor, or an object exposing ``gains(n)`` (oscillators)."""
-        n = self.nframes
-        if hasattr(modulator, "spec") and not isinstance(modulator, Sample):
+        tensor, or an object exposing ``gains(n)`` (oscillators).  A Sample
+        modulator's own staged chain fuses in as a sub-program; an
+        oscillator's patch renders in the program."""
+        if isinstance(modulator, Sample):
+            sub_ops, dyn, leaves = modulator._as_subprogram()
+            self._stage("modulate_sample",
+                        static=(MAXVAL[modulator._samplewidth], sub_ops),
+                        dyn=dyn, leaves=leaves)
+            return self
+        if hasattr(modulator, "spec"):
             from .models import graph as G
-            g = G.render_patch(modulator.spec, n, modulator.samplerate,
-                               device=self.device)
-        else:
-            g = _modulator_gains(modulator, n, self.device)
-        return self._set(dpcm.gain_apply(self._frames, g[:, None]))
+            from .models import spec as S
+            if S.has_host_source(modulator.spec):
+                # a user-oscillator LFO cannot render in one pass: its
+                # gains render now through the per-block hybrid loop
+                g = G.render_patch(modulator.spec, self._nframes,
+                                   modulator.samplerate, device=self.device)
+                self._stage("modulate", leaves=(g,))
+                return self
+            self._stage("modulate_patch",
+                        static=(modulator.spec, self._nframes,
+                                modulator.samplerate))
+            return self
+        g = _modulator_gains(modulator, self._nframes, self.device)
+        self._stage("modulate", leaves=(g,))
+        return self
 
     # -- mixing -------------------------------------------------------------------------------
-
-    def _of(self, other: "Sample") -> torch.Tensor:
-        """Another sample's frames on this sample's device."""
-        return other._frames.to(self._frames.device)
 
     def mix(self, other: "Sample", other_seconds: Optional[float] = None,
             pad_shortest: bool = True) -> "Sample":
@@ -503,24 +943,26 @@ class Sample:
                other_seconds: Optional[float] = None,
                pad_shortest: bool = True) -> "Sample":
         """Saturating add of ``other`` at a frame offset (the trackmixer
-        hot loop)."""
+        hot loop), staged; ``other``'s own pending chain fuses in as a
+        sub-program, so a whole multi-track mixdown of staged samples is
+        ONE device program."""
         self._check_format(other)
         if seconds < 0:
             raise ValueError("mix_at offset must be >= 0")
-        m = other.nframes
+        m = other._nframes
         if other_seconds is not None:
             m = min(m, other._n(other_seconds))
         start = self._n(seconds)
-        if start + m > self.nframes and not pad_shortest:
-            m = max(0, self.nframes - start)
+        if start + m > self._nframes and not pad_shortest:
+            m = max(0, self._nframes - start)
         if m == 0:
             return self
-        out_len = max(self.nframes, start + m)
-        x = self._frames
-        if out_len > x.shape[0]:
-            x = torch.cat([x, self._silence(out_len - x.shape[0])], dim=0)
-        mixed = dpcm.sat_add(x[start:start + m], self._of(other)[:m])
-        return self._set(torch.cat([x[:start], mixed, x[start + m:]], dim=0))
+        out_len = max(self._nframes, start + m)
+        sub_ops, dyn, leaves = other._as_subprogram()
+        self._stage("mix_at", static=(start, m, out_len, sub_ops),
+                    dyn=dyn, leaves=leaves)
+        self._nframes = out_len
+        return self
 
     def echo(self, length: float, amount: int, delay: float,
              decay: float) -> "Sample":
@@ -529,23 +971,9 @@ class Sample:
         matching the oracle's per-copy mix_at exactly."""
         total = self._n(length)
         offsets = tuple(self._n(k * delay) for k in range(1, int(amount) + 1))
-        orig = x = self._frames
-        cur = x.shape[0]
-        if total > cur:
-            x = torch.cat([x, self._silence(total - cur)], dim=0)
-        else:
-            x = x[:total]
-        decay = np.float32(decay)
-        gain = np.float32(1.0)
-        for dk in offsets:
-            gain = np.float32(gain * decay)
-            if dk >= total:
-                continue
-            m = min(orig.shape[0], total - dk)
-            copy_k = dpcm.mul_floor(orig[:m], gain)
-            mixed = dpcm.sat_add(x[dk:dk + m], copy_k)
-            x = torch.cat([x[:dk], mixed, x[dk + m:]], dim=0)
-        return self._set(x)
+        self._stage("echo", static=(total, offsets), dyn=(decay,))
+        self._nframes = total
+        return self
 
     # -- effects rack (beyond the reference; contract: goldref.effects) --------------------------
 
@@ -555,80 +983,96 @@ class Sample:
                  sidechain: Optional["Sample"] = None) -> "Sample":
         """Peak compressor / limiter (``ratio=math.inf``): the detector and
         attack smoother are log-depth scans (ops.effects); spec/tolerance:
-        goldref.effects.compressor_gains.  ``knee_db`` > 0 softens the
+        goldref.effects.compressor_gains.  Knobs travel in the dyn vector,
+        so tweaking them reuses the program.  ``knee_db`` > 0 softens the
         static curve over a knee_db-wide window (0 keeps the hard knee).
-        With ``sidechain`` the detector listens to the KEY sample, as it
-        stands (ducking); past the key's end the gain releases to 1."""
+        With ``sidechain`` the detector listens to the KEY sample, whose
+        own staged chain fuses in as a sub-program (ducking); past the
+        key's end the gain releases to 1."""
         alpha, decay = C.compressor_coeffs(self._samplerate, attack, release)
         slope = 1.0 if math.isinf(ratio) else 1.0 - 1.0 / ratio
         makeup = float(np.exp2(np.float32(makeup_db) / np.float32(6.0206)))
         if not 0.0 <= knee_db <= 24.0:
             raise ValueError("compress knee_db must be in [0, 24]")
-        knee = knee_db if knee_db > 0.0 else None
-        x = self._frames
+        has_knee = knee_db > 0.0
+        knobs = (threshold_db, slope, alpha, decay, makeup)
+        if has_knee:
+            knobs = knobs + (knee_db,)
         if sidechain is None:
-            g = dfx.compressor_gains_from_coeffs(x, threshold_db, slope,
-                                                 alpha, decay, knee=knee)
-        else:
-            if sidechain._samplerate != self._samplerate:
-                raise ValueError("sidechain samplerate mismatch")
-            key = W.div(self._of(sidechain).to(torch.float32),
-                        MAXVAL[sidechain._samplewidth])
-            a = torch.amax(torch.abs(key), dim=1)
-            n = x.shape[0]
-            a = a[:n] if a.shape[0] >= n else torch.cat(
-                [a, torch.zeros(n - a.shape[0], dtype=torch.float32,
-                                device=a.device)])
-            g = dfx.compressor_gains_from_level(a, threshold_db, slope,
-                                                alpha, decay, knee=knee)
-        return self._set(dpcm.gain_apply(x, (g * makeup)[:, None]))
+            self._stage("compress", static=(has_knee,), dyn=knobs)
+            return self
+        if sidechain._samplerate != self._samplerate:
+            raise ValueError("sidechain samplerate mismatch")
+        sub_ops, dyn, leaves = sidechain._as_subprogram()
+        self._stage("compress_sc",
+                    static=(MAXVAL[sidechain._samplewidth], sub_ops,
+                            has_knee),
+                    dyn=knobs + dyn, leaves=leaves)
+        return self
 
     def reverb(self, roomsize: float = 0.7, damping: float = 0.5,
                wet: float = 0.33, dry: float = 0.7, width: float = 1.0,
                tail: float = 1.5) -> "Sample":
         """Freeverb-style reverb (lag-aligned comb stage, see ops.effects);
         extends the sample by ``tail`` seconds of decay.  Spec/tolerance:
-        goldref.effects.reverb."""
+        goldref.effects.reverb.  Knobs are dyn: no new program on a
+        tweak."""
         feedback, damp, wet1, wet2 = C.reverb_params(roomsize, damping, wet,
                                                    width)
-        return self._set(dfx.reverb_from_params(
-            self._frames, self._samplerate, feedback, damp, wet1, wet2, dry,
-            self._n(tail)))
+        tail_frames = self._n(tail)
+        static = (self._samplerate, tail_frames)
+        dyn = (feedback, damp, wet1, wet2, dry)
+        nets = [C.reverb_delays(self._samplerate, ch)
+                for ch in range(min(self._nchannels, 2))]
+        if dfx.whole_reverb_route(self._nframes + tail_frames,
+                                  nets) == "one":
+            self._stage("reverb", static=static, dyn=dyn)
+        else:
+            # a longer comb stage replays programs of its own
+            # (ops.effects._reverb_networks_whole), which no chain's
+            # program can hold: it runs after the staged chain
+            self._base = _x_reverb(self._materialize(), static, dyn, ())
+        self._nframes += tail_frames
+        return self
 
     def chorus(self, rate: float = 0.5, depth: float = 0.002,
                delay: float = 0.02, voices: int = 3, wet: float = 0.4,
                dry: float = 1.0) -> "Sample":
         """Multi-voice chorus (LFO-modulated fractional delays).
-        Spec/tolerance: goldref.effects.chorus."""
-        return self._set(dfx.chorus(self._frames, self._samplerate,
-                                    float(rate), float(depth), float(delay),
-                                    int(voices), wet, dry))
+        Spec/tolerance: goldref.effects.chorus.  ``rate``, ``depth`` and
+        ``delay`` are static (the LFO's DDS increment needs the host's
+        exact f64 round), wet/dry dyn."""
+        self._stage("chorus", static=(self._samplerate, float(rate),
+                                      float(depth), float(delay),
+                                      int(voices)),
+                    dyn=(wet, dry))
+        return self
 
     def filter(self, kind: str, cutoff: float, q: float = 0.7071,
                gain_db: float = 0.0) -> "Sample":
         """Resonant RBJ biquad on the PCM (parallel companion-matrix scan —
         ops.effects.companion_scan); spec/tolerance:
         goldref.effects.biquad_filter.  Kinds: lowpass/highpass/bandpass,
-        plus the gain kinds lowshelf/highshelf/peaking (``gain_db``)."""
+        plus the gain kinds lowshelf/highshelf/peaking (``gain_db``).
+        Coefficients travel in the dyn vector."""
         if kind in ("lowshelf", "highshelf", "peaking"):
             coeffs = C.eq_band_coeffs(kind, cutoff, gain_db, q,
                                     self._samplerate)
         else:
             coeffs = C.biquad_coeffs(kind, cutoff, q, self._samplerate)
-        return self._biquad(coeffs)
+        self._stage_biquad(coeffs)
+        return self
 
-    def _biquad(self, coeffs) -> "Sample":
+    def _stage_biquad(self, coeffs) -> None:
         """One biquad, routed by conditioning: coefficient sets with
         near-unit poles (ops.coeffs.wants_ff_scan) run the float-float scan
         with (hi, lo) coefficient pairs, the rest the plain f32 scan."""
-        x = self._frames
-        w = self._samplewidth
-        s = W.div(x.to(torch.float32), MAXVAL[w])
         if C.wants_ff_scan(coeffs):
-            y, _ = dfx.biquad_apply_ff(s, tuple(C.ff_split(c) for c in coeffs))
+            self._stage("biquad_ff",
+                        dyn=tuple(float(v) for c in coeffs
+                                  for v in C.ff_split(c)))
         else:
-            y, _ = dfx.biquad_apply(s, coeffs)
-        return self._set(dfx.to_int_samples(y, w))
+            self._stage("biquad", dyn=coeffs)
 
     def eq(self, low_db: float = 0.0, mid_db: float = 0.0,
            high_db: float = 0.0, low_freq: float = 120.0,
@@ -641,7 +1085,8 @@ class Sample:
                               ("peaking", mid_freq, mid_db, mid_q),
                               ("highshelf", high_freq, high_db, 0.7071)):
             if g != 0.0:
-                self._biquad(C.eq_band_coeffs(kind, f, g, q, self._samplerate))
+                self._stage_biquad(C.eq_band_coeffs(kind, f, g, q,
+                                                    self._samplerate))
         return self
 
     def loudness_lufs(self) -> float:
@@ -650,30 +1095,30 @@ class Sample:
         host (ops/loudness.py).  -inf for silence or programmes shorter
         than one 400 ms block.  Spec/tolerance:
         goldref.effects.loudness_lufs."""
-        return dl.loudness_integrated(self._frames, self._samplerate)
+        return dl.loudness_integrated(self._materialize(), self._samplerate)
 
     def loudness_stats(self) -> dict:
         """The EBU R128 meter set in one pass: ``integrated`` (LUFS),
         ``lra`` (LU), ``momentary_max`` and ``short_term_max`` (LUFS).
         Spec/tolerance: goldref.effects.loudness_stats."""
-        return dl.loudness_stats(self._frames, self._samplerate)
+        return dl.loudness_stats(self._materialize(), self._samplerate)
 
     def true_peak_dbtp(self) -> float:
         """True peak (dBTP, BS.1770-4 Annex 2, 4x polyphase oversampling);
         -inf for silence.  Spec/tolerance: goldref.effects.true_peak_dbtp."""
-        tp = dl.true_peak_norm(self._frames)
+        tp = dl.true_peak_norm(self._materialize())
         return float("-inf") if tp <= 0.0 else 20.0 * math.log10(tp)
 
     def normalize_lufs(self, target_lufs: float = -14.0,
                        true_peak_db: float = -1.0) -> "Sample":
         """Loudness-normalize to a target (default -14 LUFS): gain = target
         - measured, capped so that the true peak stays <= ``true_peak_db``
-        dBTP, applied as one ``amplify``.  Silence is returned unchanged."""
-        li = dl.loudness_integrated(self._frames, self._samplerate)
+        dBTP, staged as one ``amplify``.  Silence is returned unchanged."""
+        li = dl.loudness_integrated(self._materialize(), self._samplerate)
         if not math.isfinite(li):
             return self
         gain_db = target_lufs - li
-        tp = dl.true_peak_norm(self._frames)
+        tp = dl.true_peak_norm(self._materialize())
         if tp > 0.0:
             gain_db = min(gain_db, true_peak_db - 20.0 * math.log10(tp))
         return self.amplify(float(10.0 ** (gain_db / 20.0)))
@@ -684,10 +1129,8 @@ class Sample:
         parallel scans); spec/tolerance: goldref.effects.gate_gains."""
         alpha, decay, floor_gain = C.gate_coeffs(self._samplerate, attack,
                                                release, range_db)
-        x = self._frames
-        g = dfx.gate_gains_from_coeffs(x, threshold_db, floor_gain, alpha,
-                                       decay, e0=0.0, z0=floor_gain)
-        return self._set(dpcm.gain_apply(x, g[:, None]))
+        self._stage("gate", dyn=(threshold_db, floor_gain, alpha, decay))
+        return self
 
     def feedback_echo(self, delay: float, feedback: float = 0.4,
                       wet: float = 0.5, dry: float = 1.0,
@@ -702,8 +1145,10 @@ class Sample:
         D = max(1, self._n(delay))
         tail_frames = C.echo_tail_frames(self._samplerate, delay, feedback,
                                        wet, tail)
-        return self._set(dfx.feedback_echo(self._frames, D, feedback, wet,
-                                           dry, tail_frames))
+        self._stage("fb_echo", static=(D, tail_frames),
+                    dyn=(feedback, wet, dry))
+        self._nframes += tail_frames
+        return self
 
     def _lfo_grid(self, grid: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(grid, np.float32)).to(self.device)
@@ -718,10 +1163,11 @@ class Sample:
             raise ValueError("tremolo depth must be in [0, 1]")
         if not 0.0 < rate <= 20.0:
             raise ValueError("tremolo rate must be in (0, 20] Hz")
-        P = C.static_phase(int(start_frame), self.nframes, self._samplerate,
+        P = C.static_phase(int(start_frame), self._nframes, self._samplerate,
                          rate)
-        return self._set(dfx.tremolo(
-            self._frames, self._lfo_grid(C.tremolo_gain_grid(P, depth))))
+        self._stage("tremolo",
+                    leaves=(self._lfo_grid(C.tremolo_gain_grid(P, depth)),))
+        return self
 
     def autopan(self, rate: float = 0.5, depth: float = 1.0,
                 start_frame: int = 0) -> "Sample":
@@ -729,25 +1175,27 @@ class Sample:
         house equal-gain pan law, derived on the host at absolute frames
         (ops.coeffs.autopan_pan_grid).  Stereo only.  Spec/budget:
         goldref.effects.autopan."""
-        if self.nchannels != 2:
+        if self._nchannels != 2:
             raise ValueError("autopan needs a stereo sample")
         if not 0.0 <= depth <= 1.0:
             raise ValueError("autopan depth must be in [0, 1]")
         if not 0.0 < rate <= 20.0:
             raise ValueError("autopan rate must be in (0, 20] Hz")
-        P = C.static_phase(int(start_frame), self.nframes, self._samplerate,
+        P = C.static_phase(int(start_frame), self._nframes, self._samplerate,
                          rate)
-        return self._set(dfx.autopan(
-            self._frames, self._lfo_grid(C.autopan_pan_grid(P, depth))))
+        self._stage("autopan",
+                    leaves=(self._lfo_grid(C.autopan_pan_grid(P, depth)),))
+        return self
 
     def stereo_width(self, amount: float) -> "Sample":
         """Mid/side stereo-width control (0 = mono, 1 = unity, up to 4 =
         wider).  Spec/budget: goldref.effects.stereo_width."""
-        if self.nchannels != 2:
+        if self._nchannels != 2:
             raise ValueError("stereo_width needs a stereo sample")
         if not 0.0 <= amount <= 4.0:
             raise ValueError("width amount must be in [0, 4]")
-        return self._set(dfx.stereo_width(self._frames, amount))
+        self._stage("width", dyn=(amount,))
+        return self
 
     def limit(self, ceiling_db: float = -1.0, release: float = 0.05,
               lookahead: float = 0.005) -> "Sample":
@@ -761,8 +1209,9 @@ class Sample:
         L = max(1, self._n(lookahead))
         decay = C.compressor_coeffs(self._samplerate, 0.0, release)[1]
         cint = C.limiter_ceiling(ceiling_db, self._samplewidth)
-        return self._set(dfx.limiter(self._frames, ceiling_db, decay, L,
-                                     cint))
+        self._stage("limit", static=(self._samplerate, L, cint),
+                    dyn=(ceiling_db, decay))
+        return self
 
     def phaser(self, rate: float = 0.5, depth: float = 1.0,
                min_freq: float = 300.0, max_freq: float = 3000.0,
@@ -779,54 +1228,64 @@ class Sample:
         if min_freq < 30.0 or max_freq <= min_freq:
             raise ValueError("phaser needs 30 <= min_freq < max_freq")
         ff = C.phaser_wants_ff(min_freq)
-        x = self._frames
         grids = C.phaser_coeff_grids(
-            0, x.shape[0], self._samplerate, rate, depth, min_freq,
+            0, self._nframes, self._samplerate, rate, depth, min_freq,
             max_freq, q, dtype=np.float64 if ff else np.float32)
-        z = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
         if ff:
-            grids = tuple(tuple(self._lfo_grid(part) for part in C.ff_split(g))
-                          for g in grids)
-            states = tuple((z,) * 6 for _ in range(int(stages)))
+            leaves = tuple(self._lfo_grid(part) for g in grids
+                           for part in C.ff_split(g))
         else:
-            grids = tuple(self._lfo_grid(g) for g in grids)
-            states = tuple((z,) * 4 for _ in range(int(stages)))
-        s = W.div(x.to(torch.float32), MAXVAL[self._samplewidth])
-        y, _ = dfx.phaser_apply(s, grids, states, ff)
-        out = float(np.float32(dry)) * s + float(np.float32(wet)) * y
-        return self._set(dfx.to_int_samples(out, self._samplewidth))
+            leaves = tuple(self._lfo_grid(g) for g in grids)
+        self._stage("phaser", static=(int(stages), ff), dyn=(wet, dry),
+                    leaves=leaves)
+        return self
 
     def convolve(self, ir: "Sample", wet: float = 1.0,
                  dry: float = 0.0) -> "Sample":
         """Convolve with an impulse-response sample (f32 FFT product; a
-        mono IR applies to all channels); extends by len(ir)-1 frames.
-        Spec/tolerance: goldref.effects.convolve."""
+        mono IR applies to all channels); extends by len(ir)-1 frames.  The
+        IR's own staged chain fuses in as a sub-program.  Spec/tolerance:
+        goldref.effects.convolve."""
         if ir._samplerate != self._samplerate:
             raise ValueError("impulse response samplerate mismatch")
-        if ir.nchannels not in (1, self.nchannels):
+        if ir._nchannels not in (1, self._nchannels):
             raise ValueError("impulse response channel mismatch")
-        if ir.nframes == 0:
+        if ir._nframes == 0:
             raise ValueError("empty impulse response")
-        ir_norm = W.div(self._of(ir).to(torch.float32),
-                        MAXVAL[ir._samplewidth])
-        return self._set(dfx.convolve(self._frames, ir_norm, wet, dry))
+        sub_ops, dyn, leaves = ir._as_subprogram()
+        self._stage("convolve", static=(MAXVAL[ir._samplewidth], sub_ops),
+                    dyn=(wet, dry) + dyn, leaves=leaves)
+        self._nframes += ir._nframes - 1
+        return self
 
     def granulate(self, duration: float, grain: float = 0.05,
                   density: float = 25.0, jitter: float = 0.02,
                   amplitude: float = 0.7, seed: int = 0) -> "Sample":
         """Granular resynthesis onto a ``duration``-second canvas (one
         gather, the grains added in a fixed order); spec/tolerance:
-        goldref.effects.granulate."""
-        return self._set(dfx.granulate(
-            self._frames, self._samplerate, float(duration), float(grain),
-            float(density), float(jitter), amplitude, int(seed)))
+        goldref.effects.granulate.  Position/jitter params are static (the
+        grain grid is host-computed)."""
+        _, _, _, out_len = C.grain_grid(self._nframes, self._samplerate,
+                                        float(duration), float(grain),
+                                        float(density), float(jitter),
+                                        int(seed))
+        self._stage("granulate",
+                    static=(self._samplerate, float(duration), float(grain),
+                            float(density), float(jitter), int(seed)),
+                    dyn=(amplitude,))
+        self._nframes = out_len
+        return self
 
     def stretch(self, factor: float, frame: int = 2048,
                 hop: int = 512) -> "Sample":
         """Phase-vocoder time stretch (duration x factor, pitch kept);
-        spec/tolerance: goldref.effects.stretch."""
-        return self._set(dfx.stretch(self._frames, float(factor),
-                                     int(frame), int(hop)))
+        spec/tolerance: goldref.effects.stretch.  ``factor`` is static (the
+        analysis grid is host-computed)."""
+        _, target = C.stretch_grid(self._nframes, float(factor), int(frame),
+                                   int(hop))
+        self._stage("stretch", static=(float(factor), int(frame), int(hop)))
+        self._nframes = target
+        return self
 
     def pitch_shift(self, semitones: float, frame: int = 2048,
                     hop: int = 512, quality: str = "linear") -> "Sample":
@@ -841,9 +1300,8 @@ class Sample:
     def make_32bit(self, scale_amplitude: bool = True) -> "Sample":
         if self._samplewidth == 4:
             return self
-        x = self._frames
-        self._frames = dpcm.lin2lin(x, 4) if scale_amplitude \
-            else x.to(torch.int32)
+        self._stage("lin2lin" if scale_amplitude else "astype_i32",
+                    static=(4,) if scale_amplitude else ())
         self._samplewidth = 4
         return self
 
@@ -851,7 +1309,7 @@ class Sample:
         if maximize_amplitude:
             self.amplify_max()
         if self._samplewidth != 2:
-            self._frames = dpcm.lin2lin(self._frames, 2)
+            self._stage("lin2lin", static=(2,))
             self._samplewidth = 2
         return self
 
@@ -888,7 +1346,7 @@ class Sample:
         return self
 
     def _hq_resample(self, inrate: int, outrate: int,
-                     snap: bool = False) -> "Sample":
+                     snap: bool = False) -> None:
         g = math.gcd(inrate, outrate)
         M, L = inrate // g, outrate // g
         if max(L, M) > dresample.HQ_MAX_FACTOR:
@@ -899,62 +1357,64 @@ class Sample:
                     f"{dresample.HQ_MAX_FACTOR} after gcd reduction; "
                     f"got {L}/{M}")
             L, M = dresample.bounded_ratio(outrate, inrate)
-        nout = dresample.nframes_out(self.nframes, M, L)
-        return self._set(dresample.hq_resample(self._frames, L, M, nout))
+        nout = dresample.nframes_out(self._nframes, M, L)
+        self._stage("hq_resample", static=(L, M, nout))
+        self._nframes = nout
 
-    def _ratecv(self, inrate: int, outrate: int) -> "Sample":
-        return self._set(dresample.resample_tensor(self._frames, inrate,
-                                                   outrate))
+    def _ratecv(self, inrate: int, outrate: int) -> None:
+        g = math.gcd(inrate, outrate)
+        inr, outr = inrate // g, outrate // g
+        self._stage("ratecv", static=(inr, outr))
+        self._nframes = dresample.nframes_out(self._nframes, inr, outr)
 
     def mono(self, left_factor: float = 1.0, right_factor: float = 1.0) -> "Sample":
-        if self.nchannels == 1:
+        if self._nchannels == 1:
             return self
-        return self._set(dpcm.to_mono(self._frames, left_factor,
-                                      right_factor))
+        self._stage("tomono", dyn=(left_factor, right_factor))
+        self._nchannels = 1
+        return self
 
     def stereo(self, left_factor: float = 1.0, right_factor: float = 1.0) -> "Sample":
-        if self.nchannels == 2:
+        if self._nchannels == 2:
             return self
-        return self._set(dpcm.to_stereo(self._frames, left_factor,
-                                        right_factor))
+        self._stage("tostereo", dyn=(left_factor, right_factor))
+        self._nchannels = 2
+        return self
 
     def stereo_mix(self, other: "Sample", other_channel: str,
                    other_mix_factor: float = 1.0) -> "Sample":
-        if other_channel not in ("L", "R") or other.nchannels != 1:
+        if other_channel not in ("L", "R") or other._nchannels != 1:
             raise ValueError("stereo_mix needs a mono sample and channel "
                              "'L' or 'R'")
-        if self.nchannels == 1:
+        if self._nchannels == 1:
             self.stereo()
         ch = 0 if other_channel == "L" else 1
-        m = min(self.nframes, other.nframes)
-        x = self._frames
-        scaled = dpcm.mul_floor(self._of(other)[:m, 0], other_mix_factor)
-        mixed = dpcm.sat_add(x[:m, ch], scaled)
-        # the write goes into a fresh tensor that nobody else holds
-        y = x.clone()
-        y[:m, ch] = mixed
-        return self._set(y)
+        m = min(self._nframes, other._nframes)
+        sub_ops, dyn, leaves = other._as_subprogram()
+        self._stage("stereo_mix", static=(ch, m, sub_ops),
+                    dyn=(other_mix_factor,) + dyn, leaves=leaves)
+        return self
 
     def pan(self, amount: float = 0.0, lfo=None) -> "Sample":
-        if self.nchannels == 1:
+        if self._nchannels == 1:
             self.stereo()
-        x = self._frames
-        n = self.nframes
         if lfo is None:
-            amount = np.float32(amount)
-            la = min(np.float32(1.0), np.float32(1.0) - amount)
-            ra = min(np.float32(1.0), np.float32(1.0) + amount)
-            gains = torch.stack([W.scalar(la, x.device),
-                                 W.scalar(ra, x.device)])[None, :]
-        elif isinstance(lfo, Sample):
-            gains = _pan_gains(_modulator_gains(lfo, n, x.device))
-        elif hasattr(lfo, "spec"):       # Oscillator: render the patch
+            self._stage("pan_const", dyn=(amount,))
+        elif isinstance(lfo, Sample):    # its chain fuses as a sub-program
+            sub_ops, dyn, leaves = lfo._as_subprogram()
+            self._stage("pan_sample",
+                        static=(MAXVAL[lfo._samplewidth], self._nframes,
+                                sub_ops),
+                        dyn=dyn, leaves=leaves)
+        elif hasattr(lfo, "spec"):       # Oscillator: render in the program
             from .models import graph as G
-            gains = _pan_gains(G.patch_values(lfo.spec, n, lfo.samplerate,
-                                              device=x.device))
+            G.check_inline(lfo.spec)
+            self._stage("pan_patch",
+                        static=(lfo.spec, self._nframes, lfo.samplerate))
         else:
-            gains = _pan_gains(_modulator_gains(lfo, n, x.device))
-        return self._set(dpcm.gain_apply(x, gains))
+            self._stage("pan_lfo", leaves=(_modulator_gains(
+                lfo, self._nframes, self.device),))
+        return self
 
     # -- chunking -------------------------------------------------------------------------------------
 
@@ -985,18 +1445,17 @@ class Sample:
             if params.norm_samplewidth == 2:
                 self.make_16bit(maximize_amplitude=False)
             else:
-                self._frames = dpcm.lin2lin(self._frames,
-                                            params.norm_samplewidth)
+                self._stage("lin2lin", static=(params.norm_samplewidth,))
                 self._samplewidth = params.norm_samplewidth
-        if self.nchannels == 1 and params.norm_nchannels == 2:
+        if self._nchannels == 1 and params.norm_nchannels == 2:
             self.stereo()
-        elif self.nchannels == 2 and params.norm_nchannels == 1:
+        elif self._nchannels == 2 and params.norm_nchannels == 1:
             self.mono()
         return self
 
     def _check_format(self, other: "Sample") -> None:
-        if (other._samplerate, other._samplewidth, other.nchannels) != \
-                (self._samplerate, self._samplewidth, self.nchannels):
+        if (other._samplerate, other._samplewidth, other._nchannels) != \
+                (self._samplerate, self._samplewidth, self._nchannels):
             raise ValueError(
                 f"sample format mismatch: {other!r} vs {self!r}")
 
@@ -1016,11 +1475,7 @@ def _modulator_gains(modulator, n: int, device) -> torch.Tensor:
             modulator = torch.from_numpy(
                 np.array(modulator, dtype=np.float32))
         g = modulator.to(device=device, dtype=torch.float32)
-    if g.shape[0] < n:
-        g = torch.cat([g, torch.ones(n - g.shape[0], dtype=torch.float32,
-                                     device=device)])
-    return g[:n]
-
+    return _fit(g, n, 1.0)
 
 
 

@@ -5,8 +5,10 @@ The realtime factor is a first-class counter: wrap any render path in a
 :class:`RenderTimer` to accumulate audio-seconds vs wall-seconds.
 :func:`trace` captures a ``torch.profiler`` trace (host and, on the card,
 CUDA activity) as a Chrome trace file, and :func:`count_program_launches`
-counts the launches of the port's hand-written kernels
-(``ops.kernels.voice_setup`` and ``render_stereo``) inside a block.
+counts, inside a block, the launches of the port's hand-written kernels
+(``ops.kernels.voice_setup`` and ``render_stereo``) and the device
+programs it called (``utils.program.Program``: an eager first call, a
+capture or a replay each, as :func:`record_program_launch` counts them).
 """
 
 from __future__ import annotations
@@ -69,21 +71,34 @@ class RenderTimer:
         log.log(level, "render: %s", self.stats)
 
 
-def _kernel_launches() -> int:
+#: device-program launch counter: one per top-level call of a
+#: ``utils.program.Program`` (a ``Sample`` chain's materialisation, a patch
+#: render, a voice block, a processor's chunk), so tests can hold fusion
+#: claims ("this chain is ONE device program") as the JAX package's do.
+program_launches = 0
+
+
+def record_program_launch() -> None:
+    global program_launches
+    program_launches += 1
+
+
+def _launches() -> int:
     from ..ops import kernels as K
-    return K.voice_setup.launches + K.render_stereo.launches
+    return (K.voice_setup.launches + K.render_stereo.launches
+            + program_launches)
 
 
 @contextlib.contextmanager
 def count_program_launches() -> Iterator[list]:
     """Yield a single-element list whose [0] is the number of hand-written
-    kernels the port launched inside the block."""
-    start = _kernel_launches()
+    kernels and device programs the port launched inside the block."""
+    start = _launches()
     out = [0]
     try:
         yield out
     finally:
-        out[0] = _kernel_launches() - start
+        out[0] = _launches() - start
 
 
 @contextlib.contextmanager

@@ -18,10 +18,14 @@ device).  The block stream ends once the release ramp (and the echo tail)
 completes, which makes the playback mixer drop the voice and fire its
 ended-callback.
 
-**Launches.**  The JAX package runs one compiled program per superblock.
-Here a superblock is eager PyTorch: each op of the patch's step, the gate
-and the echo is a launch of its own, and the superblock's int16 block
-crosses to the host once (``utils.device.to_host``, pinned).
+**Launches.**  One mixer block -- the patch's step, the gate and the echo
+-- is ONE device program (``utils.program.Program``; the JAX package's
+``@jax.jit`` voice step): its block's first frame, release frame and
+release level are device scalars, and the patch state and echo tail ride
+in one flat buffer (``utils.program.Flat``), so a block costs one copy in,
+one replay and one copy out on the card.  A superblock of
+``lookahead_blocks`` replays crosses to the host once
+(``utils.device.to_host``, pinned).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .ops import wave as W
 from .oscillators import Oscillator
 from .utils.device import resolve as _device
 from .utils.device import to_host
+from .utils.program import Flat, program
 
 _HELD = 2**31 - 1   # release_start sentinel: never released
 _EPS = float(np.float32(1e-30))
@@ -47,12 +52,14 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _gate_gains(n0: int, n: int, samplerate: int, attack: float,
-                decay: float, sustain_level: float, release_start: int,
-                release_level: float, release: float,
-                device) -> torch.Tensor:
+def _gate_gains(n0: torch.Tensor, n: int, samplerate: int, attack: float,
+                decay: float, sustain_level: float,
+                release_start: torch.Tensor, release_level: torch.Tensor,
+                release: float, device) -> torch.Tensor:
     """Piecewise gate envelope for one block at absolute frame ``n0`` ->
-    f32 [n].
+    f32 [n].  ``n0`` and ``release_start`` are 0-dim int64 tensors and
+    ``release_level`` a 0-dim f32 tensor on ``device`` (the program's
+    dynamic scalars).
 
     Frames (integer index) before ``release_start`` get the held A/D/S
     curve; frames at or after it get the release ramp from
@@ -75,7 +82,7 @@ def _gate_gains(n0: int, n: int, samplerate: int, attack: float,
     held = torch.clamp_min(g, 0.0)
     # ramp position in whole frames (exact), then seconds in f32
     dt_rel = W.div((idx - release_start).to(torch.float32), samplerate)
-    rel = torch.clamp(_f32(release_level)
+    rel = torch.clamp(release_level
                       * (1.0 - W.div(dt_rel, max(_f32(release), _EPS))),
                       0.0, 1.0)
     return torch.where(idx < release_start, held, rel)
@@ -96,24 +103,26 @@ def _echo_step(gated: torch.Tensor, tail: torch.Tensor, offsets: tuple,
     return out, buf[-dmax:]
 
 
-#: lowered voice programs keyed by the full static config and the device:
-#: re-pressing a key (same patch/ADSR/echo) reuses the lowered patch
-_voice_program_cache: dict = {}
-
-
-def _voice_program(spec, samplerate: int, rbs: int, attack: float,
+def _voice_program(spec, samplerate: int, bs: int, attack: float,
                    decay: float, sustain_level: float, release_time: float,
                    echo_offsets: tuple, echo_gains: tuple, device):
-    key = (spec, samplerate, rbs, attack, decay, sustain_level,
-           release_time, echo_offsets, echo_gains, device)
-    entry = _voice_program_cache.get(key)
-    if entry is None:
-        init_state, step = G.lower(spec, samplerate, rbs, device)
+    """(initial carry, program) of one ``bs``-frame block:
+    ``program(carry, f=(release_level,), i=(n0, release_frame)) -> (int16
+    [bs], carry)``, the carry being the patch state and the echo tail in
+    one flat buffer.  Cached by the full static config and the device:
+    re-pressing a key (same patch/ADSR/echo) reuses the program."""
+    def build():
+        init_state, step = G.lower(spec, samplerate, bs, device)
+        tail0 = (torch.zeros((max(echo_offsets),), dtype=torch.float32,
+                             device=device) if echo_offsets else ())
+        flat = Flat((init_state, tail0), device)
 
-        def voice_step(state, tail, n0: int, rn: int, rlevel: float):
+        def voice_step(carry, f, i):
+            state, tail = flat.unpack(carry)
+            n0, rn = i[0], i[1]
             vals, state = step(state, n0)
-            gains = _gate_gains(n0, rbs, samplerate, attack, decay,
-                                sustain_level, rn, rlevel, release_time,
+            gains = _gate_gains(n0, bs, samplerate, attack, decay,
+                                sustain_level, rn, f[0], release_time,
                                 device)
             gated = vals * gains
             if echo_offsets:
@@ -121,11 +130,13 @@ def _voice_program(spec, samplerate: int, rbs: int, attack: float,
                                          echo_gains)
             v = torch.clamp(torch.round(gated * 32767.0), -32768,
                             32767).to(torch.int16)
-            return v, state, tail
+            return v, flat.pack((state, tail))
+        return voice_step, flat.pack((init_state, tail0))
 
-        entry = (init_state, voice_step)
-        _voice_program_cache[key] = entry
-    return entry
+    prog = program("voice_block", (spec, samplerate, bs, attack, decay,
+                                   sustain_level, release_time,
+                                   echo_offsets, echo_gains), build, device)
+    return prog.aux, prog
 
 
 class RealtimeVoice:
@@ -159,7 +170,6 @@ class RealtimeVoice:
         self.stereo = stereo
         self._echo_offsets: tuple = ()
         self._echo_gains: tuple = ()
-        self._echo_tail = None
         if echo is not None:
             after, amount, delay, decay_g = echo
             offs, gains, g = [], [], 1.0
@@ -173,15 +183,13 @@ class RealtimeVoice:
             if offs:
                 self._echo_offsets = tuple(offs)
                 self._echo_gains = tuple(gains)
-                self._echo_tail = torch.zeros((max(offs),),
-                                              dtype=torch.float32,
-                                              device=self.device)
         self._released = threading.Event()
         self._release_at: Optional[int] = None
         self._release_n: Optional[int] = None
         self._release_level: Optional[float] = None
-        self._voice_state, self._voice_step = _voice_program(
-            patch.spec, self.samplerate, self._rbs, self.attack, self.decay,
+        self._carry, self._program = _voice_program(
+            patch.spec, self.samplerate, self.blocksize, self.attack,
+            self.decay,
             self.sustain_level, self.release_time, self._echo_offsets,
             self._echo_gains, self.device)
 
@@ -206,8 +214,8 @@ class RealtimeVoice:
     def chunks(self) -> Iterator[bytes]:
         """Yield interleaved int16 frame bytes; ends after the release ramp."""
         n0 = 0
-        state = self._voice_state
-        tail = self._echo_tail
+        carry = self._carry
+        bs = self.blocksize
         while True:
             if self._release_n is None and self._released.is_set():
                 rn = n0 if self._release_at is None else self._release_at
@@ -220,9 +228,13 @@ class RealtimeVoice:
                 rn_arg, level_arg = _HELD, 1.0
             else:
                 rn_arg, level_arg = self._release_n, self._release_level
-            out, state, tail = self._voice_step(state, tail, n0, rn_arg,
-                                                level_arg)
-            sup = to_host(out)            # ONE host sync per superblock
+            outs = []
+            for j in range(self.lookahead):
+                out, carry = self._program(carry, f=(level_arg,),
+                                           i=(n0 + j * bs, rn_arg))
+                outs.append(out)
+            # ONE host sync per superblock
+            sup = to_host(outs[0] if len(outs) == 1 else torch.cat(outs))
             if self.stereo:
                 sup = np.repeat(sup[:, None], 2, axis=1)
             for j in range(self.lookahead):

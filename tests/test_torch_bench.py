@@ -29,7 +29,6 @@ from synthesizer_tpu.ops import effects as JF
 from synthesizer_tpu.ops.resample import hq_resample as jax_hq_resample
 from synthesizer_tpu_torch import bench as B
 from synthesizer_tpu_torch import bench_song
-from synthesizer_tpu_torch.models import graph as TG
 from synthesizer_tpu_torch.ops.effects import BUDGETS
 
 torch.set_num_threads(2)
@@ -199,8 +198,7 @@ def test_patch_configs_match_jax(config):
                     2 * SR, 32768),
         "config4": (bench_song.config4_patch, _bench_config4_patch,
                     1470 * 30, 1470)}[config]
-    got = B.patch_render(TG.lower(port(), SR, block, "cpu"), total,
-                         block).numpy()
+    got = B.patch_render(port(), total, block, "cpu").numpy()
     state, step = JG.lower(ref(), SR, block)
     step = jax.jit(step)
     want = []

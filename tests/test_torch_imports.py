@@ -51,6 +51,7 @@ def test_port_modules_found():
                  "synthesizer_tpu_torch.server",
                  "synthesizer_tpu_torch.utils.native",
                  "synthesizer_tpu_torch.utils.profiling",
+                 "synthesizer_tpu_torch.utils.program",
                  "synthesizer_tpu_torch.utils.flac",
                  "synthesizer_tpu_torch.utils.decoders",
                  "synthesizer_tpu_torch.utils.codecs",
