@@ -47,6 +47,7 @@ from .ops import coeffs as C
 from .ops import effects as dfx
 from .ops import pcm as dpcm
 from .ops.wave import div, interp, scalar
+from .utils import profiling
 from .utils.device import resolve
 from .utils.program import Flat, program
 
@@ -1540,6 +1541,7 @@ class FxChain:
             return StreamingGate(samplerate, device=dev, **q)
         raise ValueError(name)                      # pragma: no cover
 
+    @profiling.spanned("effects.fx_stream")
     def process(self, x: torch.Tensor) -> torch.Tensor:
         for p in self.processors:
             x = p.process(x)
@@ -1601,6 +1603,7 @@ def apply_fx_sample(sample, fx: Sequence[Tuple[str, dict]],
                             tickf=tickf, sidechain_keys=sidechain_keys)
 
 
+@profiling.spanned("effects.fx_offline")
 def run_fx_chain_ops(sample, fx: Sequence[Tuple[str, dict]],
                      ir_samples: Optional[Dict[str, "object"]] = None,
                      automation: Optional[Dict[str, list]] = None,

@@ -78,6 +78,7 @@ from .models.voicebank import (Voice, VoiceBank, _device, audible_ranges,
                                pack_voices)
 from .sample import Sample
 from .sequencer import SynthDef
+from .utils import profiling
 from . import params
 
 __all__ = ["MidiNote", "parse_midi", "midi_to_voices", "render_midi",
@@ -221,6 +222,7 @@ def release_grace_for(
     return max(_RELEASE_GRACE, max(releases) + _RELEASE_GRACE_MARGIN)
 
 
+@profiling.spanned("midi.parse_midi")
 def parse_midi(source: Union[str, bytes],
                release_grace: float = _RELEASE_GRACE) -> List[MidiNote]:
     """Parse an SMF file (path or bytes) into note events in seconds.
@@ -522,6 +524,7 @@ def _gm_instrument(program: int) -> SynthDef:
     return best
 
 
+@profiling.spanned("midi.to_voices")
 def midi_to_voices(notes: Sequence[MidiNote],
                    instruments: Optional[Dict[int, SynthDef]] = None,
                    a4: float = 440.0,
@@ -602,6 +605,7 @@ def midi_to_voices(notes: Sequence[MidiNote],
     return voices
 
 
+@profiling.spanned("midi.render_midi")
 def render_midi(source: Union[str, bytes],
                 instruments: Optional[Dict[int, SynthDef]] = None,
                 samplerate: int = 0, tail_seconds: float = 0.3,
@@ -645,6 +649,7 @@ def note_ranges(voices: Sequence[Voice], nrows: int, samplerate: int):
     return starts, ends, live
 
 
+@profiling.spanned("midi.render_notes")
 def render_notes(notes: Sequence[MidiNote],
                  instruments: Optional[Dict[int, SynthDef]] = None,
                  samplerate: int = 0, tail_seconds: float = 0.3,

@@ -62,6 +62,7 @@ from ..ops.wave import noise_u32, noise_values
 from ..ops.wave import phase_x as _phase_x
 from ..ops.wave import semicircle as _semicircle
 from ..ops.wave import triangle as _triangle
+from ..utils import profiling
 from ..utils.device import resolve as _device
 
 WAVE_IDS = {
@@ -367,6 +368,7 @@ def compile_depth_segments(curve, fm_frequency: float, fm_phase: float,
     return starts, cs, a0s, bs
 
 
+@profiling.spanned("voicebank.pack_voices")
 def pack_voices(voices: Sequence[Voice], samplerate: int,
                 num_harmonics: int = 8, pad_to: int = 8,
                 sort_by_wave: bool = False,
@@ -1019,6 +1021,7 @@ class VoiceBank:
             self.device = torch.device("cuda", torch.cuda.current_device())
 
     @classmethod
+    @profiling.spanned("voicebank.for_voices")
     def for_voices(cls, voices: Sequence[Voice], samplerate: int = 44100,
                    chunk_frames: int = 8192, num_harmonics: int = 8,
                    layout: Optional[BankLayout] = None,
@@ -1079,11 +1082,13 @@ class VoiceBank:
             raise ValueError(f"seg needs one bus in [0, {nseg}) per voice")
         return t
 
+    @profiling.spanned("voicebank.render")
     def render_chunk(self, vp: VoiceParams, n0: int) -> torch.Tensor:
         """One streaming chunk: stereo f32 [chunk, 2] (stateless)."""
         self._check(vp)
         return self._render(vp, n0, self.chunk_frames)
 
+    @profiling.spanned("voicebank.render")
     def render_song(self, vp: VoiceParams, total_frames: int) -> torch.Tensor:
         """Offline mixdown: stereo f32 [total_frames, 2].  On a CUDA device
         the whole song is one kernel launch; on the CPU it renders chunk by
@@ -1096,6 +1101,7 @@ class VoiceBank:
         out = torch.cat([self._render(vp, i * cf, cf) for i in range(nchunks)])
         return out[:total_frames]
 
+    @profiling.spanned("voicebank.render")
     def render_song_grouped(self, vp: VoiceParams, seg, nseg: int,
                             total_frames: int) -> torch.Tensor:
         """Grouped offline mixdown: every voice renders in one pass and
@@ -1114,6 +1120,7 @@ class VoiceBank:
                          for i in range(nchunks)])
         return out[:total_frames]
 
+    @profiling.spanned("voicebank.render")
     def render_chunk_grouped(self, vp: VoiceParams, seg, nseg: int,
                              n0: int) -> torch.Tensor:
         """One streaming chunk of the grouped render: f32 [chunk, nseg, 2]
@@ -1138,6 +1145,7 @@ class VoiceBank:
         fn, idx, pad_start, nchunks = plan
         return fn(vp, idx, pad_start, nchunks)[:total_frames]
 
+    @profiling.spanned("voicebank.sparse_plan")
     def sparse_plan(self, vp: VoiceParams, total_frames: int,
                     ranges=None):
         """Host side of :meth:`render_song_sparse`: bucket the voices'
@@ -1189,6 +1197,7 @@ class VoiceBank:
         return (self._render_rows, torch.from_numpy(idx).to(self.device),
                 total_frames + cf + 8, nchunks)
 
+    @profiling.spanned("voicebank.render")
     def _render_rows(self, vp: VoiceParams, idx: torch.Tensor,
                      pad_start: int, nchunks: int) -> torch.Tensor:
         """The sparse plan's fn: chunk c renders over the rows idx[c].  On

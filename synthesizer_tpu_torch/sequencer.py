@@ -61,6 +61,7 @@ from .models.voicebank import Voice, VoiceBank, pack_voices
 from .ops.wave import U32, div, f32_to_i32, interp
 from .sample import Sample
 from .synth import note_freq
+from .utils import profiling
 from .utils.device import resolve
 
 __all__ = ["Song", "HitSchedule", "SynthDef", "SamplerDef"]
@@ -715,6 +716,7 @@ class Song:
         return np.asarray([vel * min(1.0, 1.0 - pan),
                            vel * min(1.0, 1.0 + pan)], np.float32)
 
+    @profiling.spanned("sequencer.volume")
     def _apply_master_volume(self, x16: torch.Tensor,
                              n0: int) -> torch.Tensor:
         pts = self.automation["master.volume"]
@@ -1395,6 +1397,7 @@ class Song:
                                     device=self.device)
         return bank, vp
 
+    @profiling.spanned("sequencer.compile")
     def _compile(self):
         """The one schedule compile every path shares -> (sched, voices,
         vtracks, pitched arrays (8), pitched end frames, song frames
@@ -1427,6 +1430,7 @@ class Song:
 
     # -- offline mixdown ----------------------------------------------------
 
+    @profiling.spanned("sequencer.mix")
     def mix(self, normalize: bool = True, tail_seconds: float = 0.3,
             mesh=None, max_frames: Optional[int] = None) -> Sample:
         """Offline song mixdown on the song's device -> an int16 Sample.
@@ -1461,27 +1465,30 @@ class Song:
         sc_keys = self._sidechain_key_samples(total)
         out32 = torch.zeros((total, self.nchannels), dtype=torch.int32,
                             device=self.device)
-        for m, tname in (self._sampler_fx_masks(self._last_pitched_tracks)
-                         if len(pidx) else ()):
-            bus32 = self._pitched_mix(pbank, plens, pidx[m], pstart[m],
-                                      prate[m], pgains[m], ploopf[m],
-                                      ploopu[m], pends[m], total, mesh=mesh)
-            if tname is None:
-                out32 = out32 + bus32
-            else:
-                out32 = out32 + self._run_track_chain(
-                    _to16(bus32), self.sampler_fx[tname], tname, total,
-                    sc_keys)
-        if len(sched.hits):
-            main_m, drum_buses = self._drum_bus_split(sched)
-            bank_d = _t(sched.bank, self.device)
-            if main_m.any():
-                out32 = out32 + self._scatter(sched, main_m, total, bank_d,
-                                              mesh)
-            for name, m in drum_buses.items():
-                out32 = out32 + self._run_track_chain(
-                    _to16(self._scatter(sched, m, total, bank_d)),
-                    self.drum_fx_bus[name], name, total, sc_keys)
+        with profiling.span("sequencer.pitched"):
+            for m, tname in (self._sampler_fx_masks(
+                    self._last_pitched_tracks) if len(pidx) else ()):
+                bus32 = self._pitched_mix(pbank, plens, pidx[m], pstart[m],
+                                          prate[m], pgains[m], ploopf[m],
+                                          ploopu[m], pends[m], total,
+                                          mesh=mesh)
+                if tname is None:
+                    out32 = out32 + bus32
+                else:
+                    out32 = out32 + self._run_track_chain(
+                        _to16(bus32), self.sampler_fx[tname], tname, total,
+                        sc_keys)
+        with profiling.span("sequencer.drums"):
+            if len(sched.hits):
+                main_m, drum_buses = self._drum_bus_split(sched)
+                bank_d = _t(sched.bank, self.device)
+                if main_m.any():
+                    out32 = out32 + self._scatter(sched, main_m, total,
+                                                  bank_d, mesh)
+                for name, m in drum_buses.items():
+                    out32 = out32 + self._run_track_chain(
+                        _to16(self._scatter(sched, m, total, bank_d)),
+                        self.drum_fx_bus[name], name, total, sc_keys)
         fx_tracks = self._fx_synth_tracks(vtracks)
         if voices and mesh is not None:
             from .parallel import mesh as PM
@@ -1681,6 +1688,46 @@ class Song:
         main drum rows and the pitched rows (each padded to a multiple of
         the mesh size) and the synth voices shard as in ``mix(mesh=)``;
         the drum fx buses stay unsharded."""
+        plan = self._stream_plan(chunk_frames, start_frame, sidechain_keys,
+                                 mesh)
+        if plan is None:
+            return
+        (start_frame, total, cf, bank, main_rows, bus_rows, drum_chunk,
+         pitched_groups, pitched_chunk, pbank_d, plens_d, synth,
+         track_chains) = plan
+        for ci, c0 in enumerate(range(start_frame, total, cf)):
+            # the chunk's span closes before the chunk is handed out
+            with profiling.span("sequencer.chunk"):
+                with profiling.span("sequencer.drums"):
+                    acc = drum_chunk(bank, *(r[ci] for r in main_rows), c0,
+                                     cf)
+                    for rows, chain in bus_rows.values():
+                        b16 = _to16(_stream_chunk(
+                            bank, *(r[ci] for r in rows), c0, cf))
+                        acc = acc + chain.process(b16).to(torch.int32)
+                with profiling.span("sequencer.pitched"):
+                    for rows, chain in pitched_groups:
+                        pc = pitched_chunk(pbank_d, plens_d,
+                                           *(r[ci] for r in rows), c0, cf)
+                        acc = acc + (pc if chain is None else
+                                     chain.process(_to16(pc)).to(torch.int32))
+                synth_chunk = None
+                if synth is not None:
+                    synth_chunk, tbuses = synth(c0)
+                    for tname, tb in tbuses.items():
+                        acc = acc + track_chains[tname].process(
+                            _to16(_quantize(tb))).to(torch.int32)
+                chunk = _finish_chunk(acc, synth_chunk)
+                n = min(cf, total - c0)
+                out = Sample.from_torch(chunk[:n], self.samplerate, 2,
+                                        name=f"chunk@{c0}")
+            yield out
+
+    @profiling.spanned("sequencer.stream_setup")
+    def _stream_plan(self, chunk_frames, start_frame, sidechain_keys, mesh):
+        """A pass's set-up for ``_mix_generator_raw``: the compiled song,
+        the bucketed rows of every chunk, the banks and the track chains;
+        None when nothing is left to stream."""
         from .effects import FxChain
         sched, voices, vtracks, pitched, pends, total = self._compile()
         (pbank, plens, pidx, pstart, prate, pgains, ploopf,
@@ -1691,7 +1738,7 @@ class Song:
         if start_frame < 0:
             raise ValueError("start_frame must be >= 0")
         if total == 0 or start_frame >= total:
-            return
+            return None
         dev = self.device
         sc_fns = (sidechain_keys if sidechain_keys is not None
                   else self._sidechain_key_fns())
@@ -1761,6 +1808,7 @@ class Song:
             def pitched_chunk(*a):
                 return sharded_pitched(*a[:-1]).to(dev)
         pitched_groups = []     # (rows, chain or None)
+        pbank_d = plens_d = None
         if len(pidx):
             pbank_d = _t(pbank, dev)
             plens_d = _t(plens, dev)
@@ -1789,25 +1837,6 @@ class Song:
                               insts[m], starts[m], sched.gains[m]),
                    track_chain(self.drum_fx_bus[name], name))
             for name, m in drum_buses.items()}
-
-        for ci, c0 in enumerate(range(start_frame, total, cf)):
-            acc = drum_chunk(bank, *(r[ci] for r in main_rows), c0, cf)
-            for rows, chain in bus_rows.values():
-                b16 = _to16(_stream_chunk(bank, *(r[ci] for r in rows), c0,
-                                          cf))
-                acc = acc + chain.process(b16).to(torch.int32)
-            for rows, chain in pitched_groups:
-                pc = pitched_chunk(pbank_d, plens_d,
-                                   *(r[ci] for r in rows), c0, cf)
-                acc = acc + (pc if chain is None else
-                             chain.process(_to16(pc)).to(torch.int32))
-            synth_chunk = None
-            if synth is not None:
-                synth_chunk, tbuses = synth(c0)
-                for tname, tb in tbuses.items():
-                    acc = acc + track_chains[tname].process(
-                        _to16(_quantize(tb))).to(torch.int32)
-            chunk = _finish_chunk(acc, synth_chunk)
-            n = min(cf, total - c0)
-            yield Sample.from_torch(chunk[:n], self.samplerate, 2,
-                                    name=f"chunk@{c0}")
+        return (start_frame, total, cf, bank, main_rows, bus_rows, drum_chunk,
+                pitched_groups, pitched_chunk, pbank_d, plens_d, synth,
+                track_chains)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
+
 
 def resolve(device) -> torch.device:
     """``device`` as a torch.device.  The port's entry points default to the
@@ -35,6 +37,7 @@ def pinned_like(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=True)
 
 
+@profiling.spanned("device.to_host")
 def to_host(t: torch.Tensor, out: torch.Tensor = None) -> np.ndarray:
     """``t`` as a numpy array on the host.
 
@@ -57,5 +60,6 @@ def to_host(t: torch.Tensor, out: torch.Tensor = None) -> np.ndarray:
                 f"out= is {tuple(out.shape)} {out.dtype}, the frames are "
                 f"{tuple(t.shape)} {t.dtype}")
     out.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
+    with profiling.span("device.wait"):
+        torch.cuda.current_stream(t.device).synchronize()
     return out.numpy()

@@ -316,6 +316,10 @@ class Program:
         if _depth():
             # inside another program's body: inline, as jit inlines
             return self._run(args, self._vec(f, i), len(f))
+        return self._launch(args, f, i)
+
+    @profiling.spanned("program.call")
+    def _launch(self, args, f, i):
         profiling.record_program_launch()
         leaves, spec = pytree.tree_flatten(list(args))
         for t in leaves:
@@ -354,7 +358,8 @@ class Program:
             else:
                 for dst, src in zip(e.inputs, leaves):
                     dst.copy_(src)
-                e.event.synchronize()
+                with profiling.span("program.wait"):
+                    e.event.synchronize()
                 _scalars(f, i, e.host)
                 e.vec.copy_(e.host, non_blocking=True)
                 e.event.record()
@@ -363,6 +368,7 @@ class Program:
             outs = [t.clone() for t in e.outputs]
         return pytree.tree_unflatten(outs, e.spec)
 
+    @profiling.spanned("program.capture")
     def _capture(self, e: _Entry, key, leaves, spec, f, i) -> None:
         e.inputs = [t.clone() for t in leaves]
         e.host = torch.empty(len(f) + len(i), dtype=torch.float64,
@@ -434,6 +440,15 @@ def program(name: str, static, build: Callable, device) -> Program:
 def programs(name: str) -> list:
     """The cached programs named ``name`` (for tests and reports)."""
     return [p for (n, _, _), p in list(_PROGRAMS.items()) if n == name]
+
+
+def totals() -> dict:
+    """``eager_calls``, ``captures``, ``replays`` and ``capture_s`` summed
+    over every cached program: read before and after a window, their
+    differences are the window's."""
+    progs = list(_PROGRAMS.values())
+    return {k: sum(getattr(p, k) for p in progs)
+            for k in ("eager_calls", "captures", "replays", "capture_s")}
 
 
 class Flat:
