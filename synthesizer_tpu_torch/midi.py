@@ -7,8 +7,10 @@ events, and render the whole file in one batched bank render on the card:
 by default the sparse render (``VoiceBank.sparse_plan``), which launches
 the Hopper render kernel once with per-chunk rows of the voices that may
 sound.  A minimal writer is included for tests and for exporting songs.
-The parser, the GM tables, ``midi_to_voices`` and the writer are the
-reference's pure Python, copied so the same bytes give equal results.
+The GM tables, ``midi_to_voices`` and the writer are the reference's pure
+Python, copied so the same bytes give equal results; the parser keeps the
+sounding notes per channel and gives the reference's notes, field for
+field, in the same order.
 
     smp = render_midi("song.mid")                 # int16 Sample on the card
     smp = render_midi("song.mid", instruments={0: SynthDef(wave="sine")})
@@ -68,6 +70,8 @@ from __future__ import annotations
 
 import io
 import struct
+from collections import deque
+from operator import itemgetter
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -87,7 +91,7 @@ __all__ = ["MidiNote", "parse_midi", "midi_to_voices", "render_midi",
 _A4_KEY = 69  # MIDI note number of A4
 
 #: how long after its note-off a note still receives bend/controller
-#: events (the release tail keeps sounding; see parse_midi._sounding).
+#: events (the release tail keeps sounding; see parse_midi._record).
 #: This is the FLOOR: :func:`release_grace_for` extends it past any
 #: instrument whose ADSR release outlasts it, so long-release pads keep
 #: receiving bend/wheel through their whole tail (render_midi threads
@@ -134,22 +138,37 @@ def _read_vlq(data: bytes, pos: int) -> Tuple[int, int]:
             return value, pos
 
 
-class _Event(NamedTuple):
-    tick: int
-    kind: str           # "on" | "off" | "tempo" | "program" | "cc" |
-    #                     "bend" | "press" (0xD0) | "ppress" (0xA0)
-    channel: int
-    a: int              # note / tempo µs-per-quarter / program / controller
-    b: int              # velocity / controller value / signed 14-bit bend
+#: event kinds of a decoded track, dispatched on in ``parse_midi``
+_TEMPO, _PROGRAM, _CC, _BEND, _PRESS, _PPRESS, _ON, _OFF = range(8)
+
+#: channel-message status nibble -> kind (note on with velocity 0 is an off)
+_KINDS = {0x80: _OFF, 0x90: _ON, 0xA0: _PPRESS, 0xB0: _CC, 0xC0: _PROGRAM,
+          0xD0: _PRESS, 0xE0: _BEND}
 
 
-def _parse_track(data: bytes) -> List[_Event]:
-    events: List[_Event] = []
+def _parse_track(data: bytes) -> List[tuple]:
+    """One track's events as ``(order, kind, channel, a, b)`` tuples.
+
+    ``order`` is twice the tick, plus one for every kind but a tempo
+    change, so a stable sort on it puts each tick's tempo changes first
+    and keeps file and track order otherwise.  ``a``: note, tempo (µs
+    per quarter), program, controller or pressure; ``b``: velocity,
+    controller or poly-pressure value, or the signed 14-bit bend.
+    """
+    events: List[tuple] = []
+    append = events.append
+    end = len(data)
     pos = 0
     tick = 0
     status = 0
-    while pos < len(data):
-        delta, pos = _read_vlq(data, pos)
+    while pos < end:
+        b = data[pos]                              # delta time (VLQ)
+        pos += 1
+        delta = b & 0x7F
+        while b & 0x80:
+            b = data[pos]
+            pos += 1
+            delta = (delta << 7) | (b & 0x7F)
         tick += delta
         b0 = data[pos]
         if b0 == 0xFF:                             # meta (cancels running status)
@@ -160,50 +179,38 @@ def _parse_track(data: bytes) -> List[_Event]:
             pos = p2 + length
             if meta == 0x51 and length == 3:
                 tempo = (body[0] << 16) | (body[1] << 8) | body[2]
-                events.append(_Event(tick, "tempo", 0, tempo, 0))
+                append((tick << 1, _TEMPO, 0, tempo, 0))
             elif meta == 0x2F:                     # end of track
                 break
-        elif b0 in (0xF0, 0xF7):                   # sysex (cancels running status)
+            continue
+        if b0 == 0xF0 or b0 == 0xF7:               # sysex (cancels running status)
             status = 0
             length, p2 = _read_vlq(data, pos + 1)
             pos = p2 + length
+            continue
+        if b0 & 0x80:
+            status = b0
+            pos += 1
+        elif not status & 0x80:                    # SMF spec: meta/sysex end
+            raise ValueError(                      # any running-status run
+                f"data byte 0x{b0:02x} at offset {pos} with no running status")
+        kind = _KINDS.get(status & 0xF0)
+        if kind is None:
+            raise ValueError(f"unexpected MIDI byte 0x{status:02x}")
+        a = data[pos]
+        if kind == _PROGRAM or kind == _PRESS:     # one data byte
+            pos += 1
+            append((tick << 1 | 1, kind, status & 0x0F, a, 0))
+            continue
+        b = data[pos + 1]
+        pos += 2
+        if kind == _BEND:                          # pitch bend (14-bit)
+            append((tick << 1 | 1, kind, status & 0x0F, 0,
+                    (a | (b << 7)) - 8192))
         else:
-            if b0 & 0x80:
-                status = b0
-                pos += 1
-            elif not status & 0x80:                # SMF spec: meta/sysex end
-                raise ValueError(                  # any running-status run
-                    f"data byte 0x{b0:02x} at offset {pos} with no running status")
-            kind = status & 0xF0
-            ch = status & 0x0F
-            if kind == 0x90:                       # note on (vel 0 == off)
-                note, vel = data[pos], data[pos + 1]
-                pos += 2
-                events.append(_Event(tick, "on" if vel else "off", ch, note, vel))
-            elif kind == 0x80:
-                note, vel = data[pos], data[pos + 1]
-                pos += 2
-                events.append(_Event(tick, "off", ch, note, vel))
-            elif kind == 0xB0:                     # control change
-                events.append(_Event(tick, "cc", ch, data[pos],
-                                     data[pos + 1]))
-                pos += 2
-            elif kind == 0xE0:                     # pitch bend (14-bit)
-                value = (data[pos] | (data[pos + 1] << 7)) - 8192
-                pos += 2
-                events.append(_Event(tick, "bend", ch, 0, value))
-            elif kind == 0xA0:                     # poly (key) aftertouch
-                events.append(_Event(tick, "ppress", ch, data[pos],
-                                     data[pos + 1]))
-                pos += 2
-            elif kind == 0xC0:                     # program change
-                events.append(_Event(tick, "program", ch, data[pos], 0))
-                pos += 1
-            elif kind == 0xD0:                     # channel pressure
-                events.append(_Event(tick, "press", ch, data[pos], 0))
-                pos += 1
-            else:
-                raise ValueError(f"unexpected MIDI byte 0x{status:02x}")
+            if kind == _ON and not b:
+                kind = _OFF
+            append((tick << 1 | 1, kind, status & 0x0F, a, b))
     return events
 
 
@@ -253,22 +260,29 @@ def parse_midi(source: Union[str, bytes],
         rate = 30000.0 / 1001.0 if fps == 29 else float(fps)
         smpte_sec_per_tick = 1.0 / (rate * tpf)
     pos = 8 + hlen
-    events: List[_Event] = []
+    events: List[tuple] = []
     for _ in range(ntrks):
         if data[pos:pos + 4] != b"MTrk":
             raise ValueError("bad track header")
         tlen = struct.unpack(">I", data[pos + 4:pos + 8])[0]
-        events.extend(_parse_track(data[pos + 8:pos + 8 + tlen]))
+        events += _parse_track(data[pos + 8:pos + 8 + tlen])
         pos += 8 + tlen
-    events.sort(key=lambda e: (e.tick, e.kind != "tempo"))
+    events.sort(key=itemgetter(0))
 
-    # tick -> seconds with the tempo map (default 120 bpm)
-    notes: List[MidiNote] = []
-    #: (ch, note) -> (t0, vel, prog, volume, pan)
-    open_notes: Dict[Tuple[int, int], tuple] = {}
+    # tick -> seconds with the tempo map (default 120 bpm).  The notes
+    # are kept per channel, so an event costs time in proportion to the
+    # notes sounding on its own channel.  A note is one list, [t0, vel,
+    # prog, volume, pan, bend, mod, bend curve, gain curve, mod curve,
+    # channel, key, t_off]: a curve is None until its first point, t_off
+    # None until the note closes
+    #: per channel: key -> the open note
+    open_notes: List[Dict[int, list]] = [{} for _ in range(16)]
     #: notes whose note-off arrived while CC64 was down: they keep
-    #: sounding until the pedal releases (the GM sustain rule)
-    sustained: Dict[Tuple[int, int], tuple] = {}
+    #: sounding until the pedal releases (the GM sustain rule).  Per
+    #: channel, and in ``sustained`` over all channels in the order the
+    #: end of the file closes them
+    held: List[Dict[int, list]] = [{} for _ in range(16)]
+    sustained: Dict[Tuple[int, int], list] = {}
     programs = [0] * 16
     # neutral defaults (a file that never sends CC7/CC11 renders exactly
     # as before CC support); files that DO send them get the relative
@@ -278,14 +292,14 @@ def parse_midi(source: Union[str, bytes],
     cc10: List[Optional[int]] = [None] * 16   # pan (None = never sent)
     cc1 = [0] * 16              # mod wheel (vibrato)
     press = [0] * 16            # channel pressure (GM: vibrato, like CC1)
-    #: (ch, note) -> (poly aftertouch (0xA0) value, event seconds):
+    #: per channel: note -> (poly aftertouch (0xA0) value, event seconds):
     #: per-NOTE pressure, merged into that note's vibrato depth alongside
     #: the channel-wide CC1/pressure.  Reset at note-on — a new note
     #: instance starts pressure-free — EXCEPT a pressure event at the
     #: note-on's own moment: write_midi orders same-tick controllers
     #: before the on ("the state the note starts in"), so only STRICTLY
     #: OLDER stored values are stale (the event time disambiguates)
-    ppress: Dict[Tuple[int, int], Tuple[int, float]] = {}
+    ppress: List[Dict[int, Tuple[int, float]]] = [{} for _ in range(16)]
     pedal = [False] * 16
     bend14 = [0] * 16           # signed 14-bit wheel position (-8192..8191)
     # RPN 0,0 (pitch-bend sensitivity): GM default ±2 semitones; CC6/CC38
@@ -303,175 +317,180 @@ def parse_midi(source: Union[str, bytes],
     # rings — a GM synth bends release tails too); render_midi derives
     # the grace from the instruments' actual ADSR releases
     # (release_grace_for), and points past envelope-zero are
-    # acoustically inert
-    ringing: List[tuple] = []        # (key, started, t1)
+    # acoustically inert.  Notes close at the current time, which only
+    # grows, so each channel's queue is in order of expiry
+    ringing = [deque() for _ in range(16)]
+    #: every closed note, in the order it closed: the notes' order before
+    #: their stable sort by start
+    closed: List[list] = []
 
-    def _close(key, started, t1):
-        ringing.append((key, started, t1))
+    def _close(nt):
+        nt[12] = sec
+        ringing[nt[10]].append(nt)
+        closed.append(nt)
 
-    def _materialize(key, started, t1):
-        t0, vel, prog, vol, pan, bend, mod, bcurve, gcurve, mcurve = started
-        notes.append(MidiNote(
-            t0, max(t1 - t0, 1e-3), key[1], vel, key[0], prog, vol, pan,
-            bend,
-            tuple([(0.0, bend)] + bcurve) if bcurve else None,
-            tuple([(0.0, vol)] + gcurve) if gcurve else None,
-            mod,
-            tuple([(0.0, mod)] + mcurve) if mcurve else None))
+    def _close_all(found):
+        # close every note of ``found`` now, in the order it holds them
+        for nt in found.values():
+            _close(nt)
+        found.clear()
 
-    def _sounding(ch):
-        # every note the channel's wheel/controllers reach RIGHT NOW:
-        # open, pedal-held, and recently-released (ringing) ones; expired
-        # ringing notes materialize here (events arrive time-ordered, so
-        # this keeps the scan bounded by the polyphony inside the grace
-        # window, not the whole song).  Yields (key, started, t_off_or_None).
-        keep = []
-        for rec in ringing:
-            if sec < rec[2] + release_grace:
-                keep.append(rec)
-            else:
-                _materialize(*rec)
-        ringing[:] = keep
-        return ([(k, st, None) for k, st in list(open_notes.items())
-                 + list(sustained.items()) if k[0] == ch]
-                + [(k, st, t1) for k, st, t1 in ringing if k[0] == ch])
+    def _close_held(ch):
+        # close every note the channel's pedal holds
+        for key in held[ch]:
+            del sustained[ch, key]
+        _close_all(held[ch])
 
     def _depth(ch, key):
         # a note's vibrato depth merges the channel-wide wheel (CC1) and
         # pressure (0xD0) with its OWN poly aftertouch (0xA0): all three
         # are depth controllers, the strongest one wins (max preserves
         # whichever is driving)
-        return max(cc1[ch], press[ch], ppress.get(key, (0, 0.0))[0]) / 127.0
+        return max(cc1[ch], press[ch],
+                   ppress[ch].get(key, (0, 0.0))[0]) / 127.0
 
-    def _record(st, t1, idx, val, base_idx):
-        # append a curve sample.  For a RINGING note's first post-off
-        # event, first anchor the curve at the off time with the last
-        # in-note value: curve points are samples of continuous wheel
-        # motion and ramp linearly between, so without the anchor a
-        # recenter-at-note-off (ubiquitous in real files) would
-        # retro-sweep the WHOLE note instead of just the release tail.
-        lst = st[idx]
-        trel = sec - st[0]
-        if t1 is not None:
-            anchor = t1 - st[0]
+    def _record(ch, idx, base_idx, val, only=None):
+        # append (now, val) to curve ``idx`` of every note the channel's
+        # wheel/controllers reach RIGHT NOW (of note ``only`` alone where
+        # given; ``val`` None: each note's vibrato depth): open,
+        # pedal-held, and recently-released (ringing) ones
+        if val is None and not ppress[ch]:     # one depth for every note
+            val = max(cc1[ch], press[ch]) / 127.0
+        for nt in (*open_notes[ch].values(), *held[ch].values()):
+            if only is None or nt[11] == only:
+                point = (sec - nt[0],
+                         _depth(ch, nt[11]) if val is None else val)
+                if nt[idx] is None:
+                    nt[idx] = [point]
+                else:
+                    nt[idx].append(point)
+        # expired ringing notes leave the head of the channel's queue
+        # (they wait in ``closed``)
+        ring = ringing[ch]
+        while ring and not sec < ring[0][12] + release_grace:
+            ring.popleft()
+        for nt in ring:
+            if only is not None and nt[11] != only:
+                continue
+            lst = nt[idx]
+            if lst is None:
+                lst = nt[idx] = []
+            trel = sec - nt[0]
+            # a RINGING note's first post-off event first anchors the
+            # curve at the off time with the last in-note value:
+            # curve points are samples of continuous wheel motion and
+            # ramp linearly between, so without the anchor a
+            # recenter-at-note-off (ubiquitous in real files) would
+            # retro-sweep the WHOLE note instead of just the release
+            # tail
+            anchor = nt[12] - nt[0]
             if not lst or lst[-1][0] < anchor:
-                lst.append((anchor, lst[-1][1] if lst else st[base_idx]))
+                lst.append((anchor, lst[-1][1] if lst else nt[base_idx]))
             if trel <= anchor:
                 trel = anchor + 1e-3   # off-tick event: 1 ms into the tail
-        lst.append((trel, val))
+            lst.append((trel, _depth(ch, nt[11]) if val is None else val))
 
-    for ev in events:
+    for order, kind, ch, a, b in events:
+        tick = order >> 1
         if smpte_sec_per_tick:
-            sec += (ev.tick - last_tick) * smpte_sec_per_tick
+            sec += (tick - last_tick) * smpte_sec_per_tick
         else:
-            sec += (ev.tick - last_tick) * us_per_quarter / 1e6 / division
-        last_tick = ev.tick
-        if ev.kind == "tempo":
-            us_per_quarter = ev.a
-        elif ev.kind == "program":
-            programs[ev.channel] = ev.a
-        elif ev.kind == "cc":
-            ch = ev.channel
-            if ev.a == 64:                         # sustain pedal
-                down = ev.b >= 64
+            sec += (tick - last_tick) * us_per_quarter / 1e6 / division
+        last_tick = tick
+        if kind == _CC:
+            if a == 64:                            # sustain pedal
+                down = b >= 64
                 if pedal[ch] and not down:
                     # release: close every note held only by the pedal
-                    for key in [k for k in sustained if k[0] == ch]:
-                        _close(key, sustained.pop(key), sec)
+                    _close_held(ch)
                 pedal[ch] = down
-            elif ev.a in (7, 11):
-                (cc7 if ev.a == 7 else cc11)[ch] = ev.b
-                gain = (cc7[ch] / 127.0) * (cc11[ch] / 127.0)
-                for _k, st, t1 in _sounding(ch):
-                    _record(st, t1, 8, gain, 3)
-            elif ev.a == 1:                        # mod wheel (vibrato)
-                cc1[ch] = ev.b
-                for k, st, t1 in _sounding(ch):
-                    _record(st, t1, 9, _depth(ch, k), 6)
-            elif ev.a == 10:
-                cc10[ch] = ev.b
-            elif ev.a == 101:                      # RPN select MSB
-                rpn[ch] = (ev.b, rpn[ch][1])
-            elif ev.a == 100:                      # RPN select LSB
-                rpn[ch] = (rpn[ch][0], ev.b)
-            elif ev.a in (98, 99):                 # NRPN select: null the RPN
+            elif a in (7, 11):
+                (cc7 if a == 7 else cc11)[ch] = b
+                _record(ch, 8, 3, (cc7[ch] / 127.0) * (cc11[ch] / 127.0))
+            elif a == 1:                           # mod wheel (vibrato)
+                cc1[ch] = b
+                _record(ch, 9, 6, None)
+            elif a == 10:
+                cc10[ch] = b
+            elif a == 101:                         # RPN select MSB
+                rpn[ch] = (b, rpn[ch][1])
+            elif a == 100:                         # RPN select LSB
+                rpn[ch] = (rpn[ch][0], b)
+            elif a in (98, 99):                    # NRPN select: null the RPN
                 # so a later CC6/CC38 data entry addressed at the NRPN is
                 # not misread as a bend-range change (GS/XG files select
                 # RPN 0,0, then edit drum NRPNs with the same data CCs)
                 rpn[ch] = (0x7F, 0x7F)
-            elif ev.a == 6 and rpn[ch] == (0, 0):  # bend range semitones
-                range_msb[ch] = ev.b
-            elif ev.a == 38 and rpn[ch] == (0, 0):  # bend range cents
-                range_lsb[ch] = ev.b
-            elif ev.a in (120, 123):               # all sound/notes off
-                for key in [k for k in open_notes if k[0] == ch]:
-                    _close(key, open_notes.pop(key), sec)
-                for key in [k for k in sustained if k[0] == ch]:
-                    _close(key, sustained.pop(key), sec)
+            elif a == 6 and rpn[ch] == (0, 0):     # bend range semitones
+                range_msb[ch] = b
+            elif a == 38 and rpn[ch] == (0, 0):    # bend range cents
+                range_lsb[ch] = b
+            elif a in (120, 123):                  # all sound/notes off
+                _close_all(open_notes[ch])
+                _close_held(ch)
                 pedal[ch] = False
-        elif ev.kind == "press":                   # channel pressure (0xD0)
-            ch = ev.channel
-            press[ch] = ev.a
-            # GM-style: pressure deepens the vibrato exactly like CC1
-            # (same curve machinery, same depth mapping), merged with the
-            # wheel and poly pressure by max — a pressure-free file
-            # records nothing here and stays bit-identical
-            for k, st, t1 in _sounding(ch):
-                _record(st, t1, 9, _depth(ch, k), 6)
-        elif ev.kind == "ppress":                  # poly aftertouch (0xA0)
-            ch = ev.channel
-            key = (ch, ev.a)
-            ppress[key] = (ev.b, sec)
-            # per-NOTE pressure: only the keyed note's depth curve moves
-            # (open, pedal-held, or still ringing); other notes on the
-            # channel are untouched
-            for k, st, t1 in _sounding(ch):
-                if k == key:
-                    _record(st, t1, 9, _depth(ch, k), 6)
-        elif ev.kind == "bend":
-            ch = ev.channel
-            bend14[ch] = ev.b
+        elif kind == _BEND:
+            bend14[ch] = b
             # mid-note wheel movement: record on every sounding note of
             # the channel (pedal-sustained ones too — the wheel bends
             # whatever rings), with the RPN bend range in effect NOW
             semis_now = (range_msb[ch] + range_lsb[ch] / 100.0)
-            val = ev.b / 8192.0 * semis_now
-            for _k, st, t1 in _sounding(ch):
-                _record(st, t1, 7, val, 5)
-        elif ev.kind == "on":
-            key = (ev.channel, ev.a)
-            held = sustained.pop(key, None)
-            if held is not None:                   # pedal retrigger
-                _close(key, held, sec)
+            _record(ch, 7, 5, b / 8192.0 * semis_now)
+        elif kind == _ON:
+            nt = held[ch].pop(a, None)
+            if nt is not None:                     # pedal retrigger
+                del sustained[ch, a]
+                _close(nt)
             # a new note instance starts poly-pressure-free (0xA0 events
             # describe THIS key press, not the next one) — but keep a
             # pressure event from this very moment: same-tick controllers
             # precede the on and describe the state the note starts in
-            pp = ppress.get(key)
+            pp = ppress[ch].get(a)
             if pp is not None and pp[1] < sec:
-                del ppress[key]
-            pan = cc10[ev.channel]
+                del ppress[ch][a]
+            pan = cc10[ch]
             notes_pan = None if pan is None \
                 else max(-1.0, min(1.0, (pan - 64) / 63.0))
-            vol = (cc7[ev.channel] / 127.0) * (cc11[ev.channel] / 127.0)
-            semis = range_msb[ev.channel] + range_lsb[ev.channel] / 100.0
-            bend = bend14[ev.channel] / 8192.0 * semis
-            open_notes[key] = (sec, ev.b, programs[ev.channel], vol,
-                               notes_pan, bend, _depth(ev.channel, key),
-                               [], [], [])
-        elif ev.kind == "off":
-            key = (ev.channel, ev.a)
-            started = open_notes.pop(key, None)
-            if started is not None:
-                if pedal[ev.channel]:
-                    sustained[key] = started       # ring until pedal up
+            vol = (cc7[ch] / 127.0) * (cc11[ch] / 127.0)
+            semis = range_msb[ch] + range_lsb[ch] / 100.0
+            bend = bend14[ch] / 8192.0 * semis
+            open_notes[ch][a] = [sec, b, programs[ch], vol, notes_pan, bend,
+                                 _depth(ch, a), None, None, None, ch, a, None]
+        elif kind == _OFF:
+            nt = open_notes[ch].pop(a, None)
+            if nt is not None:
+                if pedal[ch]:                      # ring until pedal up
+                    held[ch][a] = sustained[ch, a] = nt
                 else:
-                    _close(key, started, sec)
+                    _close(nt)
+        elif kind == _PRESS:                       # channel pressure (0xD0)
+            press[ch] = a
+            # GM-style: pressure deepens the vibrato exactly like CC1
+            # (same curve machinery, same depth mapping), merged with the
+            # wheel and poly pressure by max — a pressure-free file
+            # records nothing here and stays bit-identical
+            _record(ch, 9, 6, None)
+        elif kind == _PPRESS:                      # poly aftertouch (0xA0)
+            ppress[ch][a] = (b, sec)
+            # per-NOTE pressure: only the keyed note's depth curve moves
+            # (open, pedal-held, or still ringing); other notes on the
+            # channel are untouched
+            _record(ch, 9, 6, None, only=a)
+        elif kind == _PROGRAM:
+            programs[ch] = a
+        else:                                      # tempo
+            us_per_quarter = a
     # a pedal still down at end of file: close what it was holding
-    for key in list(sustained):
-        _close(key, sustained.pop(key), sec)
-    for rec in ringing:
-        _materialize(*rec)
+    for nt in sustained.values():
+        _close(nt)
+    notes = [MidiNote(
+        t0, max(t1 - t0, 1e-3), note, vel, ch, prog, vol, pan, bend,
+        tuple([(0.0, bend)] + bcurve) if bcurve else None,
+        tuple([(0.0, vol)] + gcurve) if gcurve else None,
+        mod,
+        tuple([(0.0, mod)] + mcurve) if mcurve else None)
+        for (t0, vel, prog, vol, pan, bend, mod, bcurve, gcurve, mcurve, ch,
+             note, t1) in closed]
     notes.sort(key=lambda n: n.start)
     return notes
 

@@ -5,6 +5,7 @@ channel and poly pressure, percussion, SMPTE timing), and render_notes on
 both routes within 1 LSB at int16 of the reference's rendered Sample."""
 
 import dataclasses
+import struct
 
 import numpy as np
 import pytest
@@ -59,11 +60,19 @@ def test_write_midi_bytes_equal(seed):
     assert got == want and len(got) > 1000
 
 
-@pytest.mark.parametrize("smpte", [None, (25, 40), (29, 100)],
-                         ids=["ppq", "smpte25", "smpte2997"])
-@pytest.mark.parametrize("seed", range(2))
-def test_parse_midi_notes_equal(seed, smpte):
-    data, _ = _write_both(seed)
+#: (seed, SMPTE division or None, notes, seconds): the tests' 90-note
+#: files under three timings, and the benchmark's 3000-note, 180 s files
+_PARSE_CASES = [pytest.param(seed, smpte, 90, 8.0, id=f"{seed}-{name}")
+                for seed in range(2)
+                for smpte, name in ((None, "ppq"), ((25, 40), "smpte25"),
+                                    ((29, 100), "smpte2997"))] + \
+    [pytest.param(seed, None, 3000, 180.0, id=f"{seed}-gm3000")
+     for seed in range(2)]
+
+
+@pytest.mark.parametrize("seed, smpte, nnotes, duration", _PARSE_CASES)
+def test_parse_midi_notes_equal(seed, smpte, nnotes, duration):
+    data = bench_song.gm_file(nnotes, duration, seed)
     if smpte:
         data = _smpte(data, *smpte)
     for grace in (TM.release_grace_for(None), 2.0, 0.5):
@@ -76,6 +85,111 @@ def test_parse_midi_notes_equal(seed, smpte):
              "drums": any(n.channel == 9 for n in got),
              "pan": any(n.pan is not None for n in got)}
     assert all(kinds.values()), kinds
+    assert len(got) > nnotes * 0.9
+
+
+def _vlq(value: int) -> bytes:
+    out = [value & 0x7F]
+    while value > 0x7F:
+        value >>= 7
+        out.append(0x80 | (value & 0x7F))
+    return bytes(reversed(out))
+
+
+def _smf(tracks, division=96) -> bytes:
+    """A format-1 SMF of ``tracks``, each a list of (tick, message bytes)
+    in tick order, ended by an end-of-track meta event."""
+    out = b"MThd" + struct.pack(">IHHH", 6, 1, len(tracks), division)
+    for events in tracks:
+        body, last = b"", 0
+        for tick, msg in events:
+            body += _vlq(tick - last) + msg
+            last = tick
+        body += b"\x00\xff\x2f\x00"
+        out += b"MTrk" + struct.pack(">I", len(body)) + body
+    return out
+
+
+def _on(ch, note, vel=100):
+    return bytes([0x90 | ch, note, vel])
+
+
+def _off(ch, note):
+    return bytes([0x80 | ch, note, 64])
+
+
+def _cc(ch, number, value):
+    return bytes([0xB0 | ch, number, value])
+
+
+def _bend(ch, value):
+    value += 8192
+    return bytes([0xE0 | ch, value & 0x7F, value >> 7])
+
+
+def _tempo(us_per_quarter):
+    return b"\xff\x51\x03" + us_per_quarter.to_bytes(3, "big")
+
+
+#: a format-1 file of the orderings the note assembly must keep: notes,
+#: controllers and bends in the first track; tempo changes on the same
+#: ticks, and note-offs that share ticks with the first track's, in the
+#: second; chords whose notes start together and close in other orders; a
+#: pedal held across a retrigger; CC123 while the pedal is down; bends and
+#: pressure on open, held and ringing notes; and notes still ringing, or
+#: held by the pedal, when the file ends
+_ORDERINGS = _smf([
+    [(0, _cc(0, 7, 100)), (0, _bend(0, 0)),
+     # the chord starts on a tempo change's tick, with CC11 and a bend
+     (96, _on(0, 60)), (96, _on(0, 64)), (96, _on(0, 67)),
+     (96, _cc(0, 11, 90)), (96, _bend(0, 2000)),
+     (150, bytes([0xD0, 50])), (160, bytes([0xA0, 64, 70])),
+     # it closes top, bottom (second track), middle; bends reach the tails
+     (192, _off(0, 67)), (192, _bend(0, -3000)),
+     # the pedal holds 72 across its retrigger, then CC123 ends it all
+     (200, _off(0, 64)), (200, _cc(1, 64, 127)), (200, _on(1, 72)),
+     (204, _bend(0, 0)), (204, _cc(0, 1, 80)), (210, _on(1, 76)),
+     (240, _off(1, 72)), (250, _bend(1, 4000)), (260, _on(1, 72)),
+     (280, _off(1, 72)), (285, _off(1, 76)), (288, _cc(1, 11, 40)),
+     (300, _cc(1, 123, 0)), (310, _bend(1, -4000)),
+     # a chord on the last tempo change, ringing past the end of the
+     # file, and a chord still held by the pedal there
+     (400, _on(0, 48)), (400, _on(0, 52)), (400, _on(0, 55)),
+     (400, _cc(2, 64, 100)), (400, _on(2, 62)), (400, _on(2, 60)),
+     (400, _on(2, 61)), (420, _off(0, 48)), (430, _off(0, 55)),
+     (440, _off(2, 62)), (440, _off(0, 52)), (445, _off(2, 60)),
+     (450, _bend(0, 6000)), (455, _cc(0, 7, 64))],
+    [(0, _tempo(500_000)), (96, _tempo(400_000)), (192, _off(0, 60)),
+     (288, _tempo(600_000)), (400, _tempo(300_000)), (440, _off(2, 61))],
+])
+
+
+def test_parse_midi_keeps_the_reference_orderings():
+    for grace in (2.0, 0.5, 0.01):
+        got = TM.parse_midi(_ORDERINGS, release_grace=grace)
+        want = JM.parse_midi(_ORDERINGS, release_grace=grace)
+        assert [tuple(n) for n in got] == [tuple(n) for n in want]
+    got = TM.parse_midi(_ORDERINGS, release_grace=2.0)
+    # notes that start together keep the order in which they closed
+    chords = {}
+    for n in got:
+        chords.setdefault((n.start, n.channel), []).append(n.note)
+    assert [v for v in chords.values() if len(v) == 3] == \
+        [[67, 60, 64], [48, 55, 52], [62, 61, 60]]
+    # the retrigger closed the held 72, and CC123 the rest of channel 1
+    assert sorted(n.note for n in got if n.channel == 1) == [72, 72, 76]
+    # the last chord's release tails took the bend after their offs
+    tails = [n for n in got if n.channel == 0 and n.note in (48, 52, 55)]
+    assert all(n.bend_curve and n.bend_curve[-1][0] > n.duration
+               for n in tails)
+
+
+def _error(parse, data):
+    try:
+        parse(data)
+    except Exception as e:                     # noqa: BLE001 - the class
+        return type(e)
+    return None
 
 
 def test_parse_rejects_what_the_reference_rejects():
@@ -86,6 +200,15 @@ def test_parse_rejects_what_the_reference_rejects():
             JM.parse_midi(bad)
         with pytest.raises(ValueError):
             TM.parse_midi(bad)
+    # a file cut inside a note-on, and one inside a delta time's VLQ
+    whole = _smf([[(0, _on(0, 60)), (300, _off(0, 60))]])
+    cuts = {"mid-event": whole.index(_on(0, 60)) + 2,
+            "mid-vlq": whole.index(_off(0, 60)) - 1}
+    assert whole[cuts["mid-vlq"] - 1] & 0x80
+    for name, cut in cuts.items():
+        want = _error(JM.parse_midi, whole[:cut])
+        assert want is not None, name
+        assert _error(TM.parse_midi, whole[:cut]) is want, name
 
 
 @pytest.mark.parametrize("instruments", [False, True],
