@@ -322,6 +322,7 @@ class _Biquads(_Processor):
                                           _biquads_body(flags), device)
         self._carry = self._flat.pack(states)
 
+    @profiling.spanned("effects.biquad")
     def process(self, x: torch.Tensor) -> torch.Tensor:
         if not self._bands:
             return x
@@ -573,6 +574,7 @@ class SweptStreamingBiquad(_Processor):
             _swept_biquad_body(kind, samplerate), self.device)
         self._carry = self._flat.pack(state)
 
+    @profiling.spanned("effects.biquad")
     def process(self, x: torch.Tensor) -> torch.Tensor:
         y = self._run(x, self._xs, self._vs, f=(self.q, self.tickf),
                       i=(self._n0,))

@@ -1325,14 +1325,15 @@ class Song:
 
             def key_fn(n0, n, idx=idx, starts=starts, gains=gains,
                        length=length, bank=bank):
-                act = np.nonzero((starts < n0 + n)
-                                 & (starts + length > n0))[0]
-                acc = _stream_chunk(
-                    bank, _t(np.full(len(act), idx, np.int64), dev),
-                    _t(starts[act], dev), torch.ones(len(act), dtype=torch.bool,
-                                                     device=dev),
-                    _t(gains[act], dev), int(n0), int(n))
-                return _to16(acc)
+                with profiling.span("sequencer.sidechain_key"):
+                    act = np.nonzero((starts < n0 + n)
+                                     & (starts + length > n0))[0]
+                    acc = _stream_chunk(
+                        bank, _t(np.full(len(act), idx, np.int64), dev),
+                        _t(starts[act], dev),
+                        torch.ones(len(act), dtype=torch.bool, device=dev),
+                        _t(gains[act], dev), int(n0), int(n))
+                    return _to16(acc)
 
             fns[name] = key_fn
         return fns

@@ -13,17 +13,19 @@ capture or a replay each, as :func:`record_program_launch` counts them).
 :func:`span` marks where the port's host time goes: ``with
 span("sequencer.chunk"):`` inside a function, or :func:`spanned` around
 a whole one, at each layer boundary (the MIDI front, the
-packing, ``Song.mix`` and the stream step, the fx chains, the device
-programs and the two places the host waits for the card,
-``program.wait`` and ``device.wait``).  Spans are off by default, and
-then cost one check of a module flag.  After :func:`tracing` ``(True)``
-each span is kept in memory as a :class:`Span` (name, start and end on
-``time.perf_counter_ns``, its parent, its root) until :func:`take_spans`
-hands the log over; :func:`self_ns` gives each span's self time.  While
-a ``torch.profiler`` profile runs, a span keeps nothing in the log and
-opens a ``record_function`` range ``"synth." + name`` instead, on the
-clock of the device events around it (the profiler slows the host, so
-the log and the trace never hold the same interval).
+packing, ``Song.mix`` and the stream step, the fx chains and their
+biquad processors (``effects.biquad``), a streamed sidechain key
+(``sequencer.sidechain_key``), the device programs and the two places
+the host waits for the card, ``program.wait`` and ``device.wait``).
+Spans are off by default, and then cost one check of a module flag.
+After :func:`tracing` ``(True)`` each span is kept in memory as a
+:class:`Span` (name, start and end on ``time.perf_counter_ns``, its
+parent, its root) until :func:`take_spans` hands the log over;
+:func:`self_ns` gives each span's self time.  While a ``torch.profiler``
+profile runs, a span keeps nothing in the log and opens a
+``record_function`` range ``"synth." + name`` instead, on the clock of
+the device events around it (the profiler slows the host, so the log
+and the trace never hold the same interval).
 """
 
 from __future__ import annotations
