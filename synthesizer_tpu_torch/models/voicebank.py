@@ -46,7 +46,8 @@ form, per-harmonic exponential decay).
 from __future__ import annotations
 
 import dataclasses
-import math
+from itertools import chain
+from operator import attrgetter
 from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -236,88 +237,219 @@ class BankLayout:
         return cls(((-1, use_fm, 0, nvoices),), nvoices, num_harmonics)
 
 
-def _fm_constants(fm_inc: int, fm_phase0: int) -> Tuple[float, float]:
-    b = fm_inc / 4294967296.0
-    phi = fm_phase0 / 4294967296.0
-    if fm_inc == 0:
-        return 0.0, 0.0
-    r = 1.0 / (2.0 * math.sin(math.pi * b))
-    c0 = math.cos(2.0 * math.pi * phi - math.pi * b)
-    return r, c0
-
-
 _I32_MAX = 2 ** 31 - 1
+_TWO32 = 4294967296.0
 #: pitch/amp curves denser than this are decimated (evenly, keeping the
 #: first and last points) at pack time — bounds the static segment dim
 MAX_CURVE_SEGS = 128
 
+# The host packing works in NumPy columns over all voices at once, with the
+# reference's f64 operations in the reference's order, so that every field
+# is the one its per-voice Python loops give, bit for bit: ``np.rint`` is
+# ``round`` (half to even), ``np.trunc`` is ``int()``, ``//`` on int64
+# floors like Python's, and u32 phase sums wrap in uint64, which is exact
+# mod 2**32.
 
-def _decimate_points(pts: list, cap: int) -> list:
-    if len(pts) <= cap:
-        return pts
-    idx = np.unique(np.round(np.linspace(0, len(pts) - 1, cap)).astype(int))
-    return [pts[i] for i in idx]
+
+def _finite(x: np.ndarray) -> None:
+    """Raise where Python's ``int`` would on a non-finite f64."""
+    if not np.isfinite(x).all():
+        if np.isnan(x).any():
+            raise ValueError("cannot convert float NaN to integer")
+        raise OverflowError("cannot convert float infinity to integer")
 
 
-def _frame_points(pts: list, samplerate: int) -> list:
-    """(t, value) points -> (frame, value), int(t * sr) at point of use;
-    same-frame duplicates keep the LAST event (later event wins)."""
-    framed: list = []
-    for t, val in pts:
-        f = int(t * samplerate)
-        if framed and framed[-1][0] == f:
-            framed[-1] = (f, val)
-        else:
-            framed.append((f, val))
-    return framed
+def _u32_round(x: np.ndarray) -> np.ndarray:
+    """``int(round(x)) & 0xFFFFFFFF`` over an f64 array, as int64 (exact
+    for every finite x: ``fmod`` of an integral f64 by 2**32 is exact)."""
+    _finite(x)
+    r = np.fmod(np.rint(x), _TWO32)
+    r[r < 0] += _TWO32
+    return r.astype(np.int64)
+
+
+def _phase_increments(frequency: np.ndarray, samplerate: int) -> np.ndarray:
+    """``S.phase_increment`` over an array."""
+    return _u32_round(frequency / samplerate * _TWO32)
+
+
+def _phase_offsets(turns: np.ndarray) -> np.ndarray:
+    """``S.phase_offset`` over an array (``np.mod`` is Python's ``%``)."""
+    with np.errstate(invalid="ignore"):       # inf % 1.0: NaN, raised next
+        x = np.mod(turns, 1.0) * _TWO32
+    return _u32_round(x)
+
+
+def _int32s(x: np.ndarray) -> np.ndarray:
+    """Integral f64 values -> int64, raising where Python's ``int`` would,
+    or where the value would not fit the int32 field it is bound for."""
+    if not ((x >= -2.0 ** 31) & (x <= _I32_MAX)).all():
+        _finite(x)
+        raise OverflowError("a value out of bounds for int32")
+    return x.astype(np.int64)
+
+
+def _frames(seconds: np.ndarray, samplerate: int) -> np.ndarray:
+    """``int(seconds * samplerate)`` over an array, as int64."""
+    return _int32s(np.trunc(seconds * samplerate))
+
+
+class _Points(NamedTuple):
+    """Curve control points of many voices, as the per-voice compile keeps
+    them (sorted, held from 0, decimated, framed, one a frame), flat and
+    ordered by voice, then frame."""
+    row: np.ndarray    # int64 voice row of each point
+    group: np.ndarray  # int64 index of its curve in the caller's list
+    pos: np.ndarray    # int64 segment index within its voice
+    frame: np.ndarray  # int64 note-relative start frame of its segment
+    value: np.ndarray  # f64 control value
+    nxt: np.ndarray    # int64 indices of the points followed in their voice
+    width: int         # most segments of one voice (0: no point)
+
+
+_NO_POINTS = _Points(*(np.zeros(0, np.int64),) * 4, np.zeros(0),
+                     np.zeros(0, np.int64), 0)
+
+
+def _curve_points(rows: Sequence[int], curves: Sequence, samplerate: int
+                  ) -> _Points:
+    """(t_seconds, value) control points of ``curves[k]`` (one per voice
+    row ``rows[k]``, none empty) -> ``_Points``.  Per voice, as the
+    reference: the points sorted as (t, value) tuples; a (0, first value)
+    hold before a first point after 0; more than ``MAX_CURVE_SEGS`` points
+    decimated evenly; ``int(t * samplerate)`` frames, of which a run of
+    equal frames keeps its last point."""
+    if not curves:
+        return _NO_POINTS
+    counts = np.fromiter(map(len, curves), np.int64, len(curves))
+    group = np.repeat(np.arange(len(curves)), counts)
+    pts = np.fromiter(chain.from_iterable(chain.from_iterable(curves)),
+                      np.float64)
+    if pts.size != 2 * counts.sum():
+        raise ValueError("curve points must be (t, value) pairs")
+    pts = pts.reshape(-1, 2)
+    order = np.lexsort((pts[:, 1], pts[:, 0], group))
+    t, val = pts[order, 0], pts[order, 1]
+    first = np.cumsum(counts) - counts
+    late = t[first] > 0.0
+    if late.any():
+        at = first[late]
+        t = np.insert(t, at, 0.0)
+        val = np.insert(val, at, val[at])
+        group = np.insert(group, at, group[at])
+        counts = counts + late
+        first = np.cumsum(counts) - counts
+    dense = np.flatnonzero(counts > MAX_CURVE_SEGS)
+    if dense.size:
+        keep = np.ones(t.size, bool)
+        for k in dense:
+            n = int(counts[k])
+            idx = np.unique(np.round(np.linspace(0, n - 1, MAX_CURVE_SEGS))
+                            .astype(int))
+            keep[first[k]:first[k] + n] = False
+            keep[first[k] + idx] = True
+        t, val, group = t[keep], val[keep], group[keep]
+    frame = _frames(t, samplerate)
+    # a run of equal frames (frames rise with t) keeps its last point
+    kept = np.ones(frame.size, bool)
+    kept[:-1] = (group[1:] != group[:-1]) | (frame[1:] != frame[:-1])
+    group, frame, val = group[kept], frame[kept], val[kept]
+    head = np.ones(group.size, bool)
+    head[1:] = group[1:] != group[:-1]
+    pos = np.arange(group.size) - np.flatnonzero(head)[np.cumsum(head) - 1]
+    nxt = np.flatnonzero(~np.append(head[1:], True))
+    width = int(pos.max()) + 1 if pos.size else 0
+    return _Points(np.asarray(rows, np.int64)[group], group, pos, frame, val,
+                   nxt, width)
+
+
+def _pitch_columns(p: _Points, frequency: np.ndarray, samplerate: int):
+    """Chirp segments of ``compile_pitch_segments`` for every point, with
+    ``frequency`` per point: (phases, incs, ds), int64 u32 values.  The
+    phase at a segment start sums ``L*inc + d*(L*(L-1)//2)`` over the
+    voice's earlier segments, in uint64 (exact mod 2**32)."""
+    incs = _phase_increments(frequency * p.value, samplerate)
+    j = p.nxt
+    L = p.frame[j + 1] - p.frame[j]
+    ds = np.zeros(incs.size, np.int64)
+    ds[j] = ((incs[j + 1] - incs[j]) // L) & 0xFFFFFFFF
+    step = np.zeros(incs.size, np.uint64)
+    Lu = L.astype(np.uint64)
+    step[j] = (Lu * incs[j].astype(np.uint64)
+               + ds[j].astype(np.uint64) * (L * (L - 1) // 2).astype(np.uint64))
+    run = np.cumsum(step) - step            # exclusive, wrapping in uint64
+    phases = run - run[p.pos == 0][p.group]
+    return (phases & np.uint64(0xFFFFFFFF)).astype(np.int64), incs, ds
+
+
+def _amp_columns(p: _Points) -> np.ndarray:
+    """Per-frame gain slopes of ``compile_amp_segments`` (0 on a voice's
+    last, held segment), f64."""
+    j = p.nxt
+    dgs = np.zeros(p.value.size)
+    dgs[j] = (p.value[j + 1] - p.value[j]) / (p.frame[j + 1] - p.frame[j])
+    return dgs
+
+
+def _depth_columns(p: _Points, inc: np.ndarray, ph0: np.ndarray,
+                   start_frame: np.ndarray):
+    """FM-depth-curve segments of ``compile_depth_segments`` for every
+    point, with the LFO's u32 ``inc`` and ``ph0`` (int64, ``inc`` > 0) and
+    the note's start frame per point: (cs, slopes), f64.  Each segment's
+    closed forms in the reference's operand order; ``C`` sums them along
+    each voice's row of a padded array, sequentially like the loop."""
+    b = inc / _TWO32
+    alpha = 2.0 * np.pi * b
+    r1 = 1.0 / (2.0 * np.sin(np.pi * b))
+    r2 = r1 * r1
+    m = (start_frame + p.frame).astype(np.uint64)
+    u = (ph0.astype(np.uint64) + m * inc.astype(np.uint64)) \
+        & np.uint64(0xFFFFFFFF)
+    theta = u / _TWO32 * 2.0 * np.pi
+    j = p.nxt
+    L = p.frame[j + 1] - p.frame[j]
+    d = p.value[j]
+    slope = (p.value[j + 1] - d) / L
+    th, th2, al, q1, q2 = theta[j], theta[j + 1], alpha[j], r1[j], r2[j]
+    s1 = (np.cos(th - al / 2.0) - np.cos(th2 - al / 2.0)) * q1
+    K = L - 1
+    A = np.sin(al * K) * q2 - K * np.cos(al * (K + 0.5)) * q1
+    B = K * np.sin(al * (K + 0.5)) * q1 - (1.0 - np.cos(al * K)) * q2
+    s2 = np.sin(th) * B + np.cos(th) * A
+    # exclusive running sum per voice: C_0 = 0, C_{k+1} = C_k + term_k
+    grid = np.zeros((int(p.group[-1]) + 1 if p.group.size else 0,
+                     max(p.width, 1)))
+    grid[p.group[j], p.pos[j] + 1] = d * s1 + slope * s2
+    cs = np.cumsum(grid, axis=1)[p.group, p.pos]
+    slopes = np.zeros(p.value.size)
+    slopes[j] = slope
+    return cs, slopes
 
 
 def compile_pitch_segments(curve, frequency: float, samplerate: int):
     """(t_rel, freq_ratio) control points -> exact integer chirp segments
     (starts, phases, incs, ds): per-segment note-relative start frame,
-    phase accumulated at that frame (mod 2^32, exact Python ints), DDS
-    increment at the start, and per-frame increment step (u32 two's
-    complement).  The last segment has d=0 and holds forever."""
-    pts = sorted((float(t), float(r)) for t, r in curve)
-    if not pts:
+    phase accumulated at that frame (mod 2^32, exact), DDS increment at the
+    start, and per-frame increment step (u32 two's complement).  The last
+    segment has d=0 and holds forever.  One voice of ``_pitch_columns``."""
+    curve = tuple(curve)
+    if not curve:
         return [0], [0], [int(S.phase_increment(frequency, samplerate))], [0]
-    if pts[0][0] > 0.0:
-        pts.insert(0, (0.0, pts[0][1]))            # hold before first point
-    framed = _frame_points(_decimate_points(pts, MAX_CURVE_SEGS), samplerate)
-    incs = [int(S.phase_increment(frequency * r, samplerate)) for _, r in framed]
-    starts, phases, segincs, ds = [], [], [], []
-    phase = 0
-    for j, (f, _) in enumerate(framed):
-        starts.append(f)
-        phases.append(phase)
-        segincs.append(incs[j])
-        if j + 1 < len(framed):
-            L = framed[j + 1][0] - f
-            d = ((incs[j + 1] - incs[j]) // L) & 0xFFFFFFFF
-            phase = (phase + L * incs[j] + d * (L * (L - 1) // 2)) % (2 ** 32)
-        else:
-            d = 0
-        ds.append(d)
-    return starts, phases, segincs, ds
+    p = _curve_points([0], [curve], samplerate)
+    phases, incs, ds = _pitch_columns(
+        p, np.full(p.row.size, frequency, np.float64), samplerate)
+    return p.frame.tolist(), phases.tolist(), incs.tolist(), ds.tolist()
 
 
 def compile_amp_segments(curve, samplerate: int):
     """(t_rel, gain) control points -> (starts, g0s, dgs) linear-ramp
-    segments (per-frame slope; last segment holds, dg=0)."""
-    pts = sorted((float(t), float(g)) for t, g in curve)
-    if pts[0][0] > 0.0:
-        pts.insert(0, (0.0, pts[0][1]))
-    framed = _frame_points(_decimate_points(pts, MAX_CURVE_SEGS), samplerate)
-    starts, g0s, dgs = [], [], []
-    for j, (f, g) in enumerate(framed):
-        starts.append(f)
-        g0s.append(g)
-        if j + 1 < len(framed):
-            L = framed[j + 1][0] - f
-            dgs.append((framed[j + 1][1] - g) / L)
-        else:
-            dgs.append(0.0)
-    return starts, g0s, dgs
+    segments (per-frame slope; last segment holds, dg=0).  One voice of
+    ``_amp_columns``."""
+    curve = tuple(curve)
+    if not curve:
+        raise ValueError("an amplitude curve needs a point")
+    p = _curve_points([0], [curve], samplerate)
+    return p.frame.tolist(), p.value.tolist(), _amp_columns(p).tolist()
 
 
 def compile_depth_segments(curve, fm_frequency: float, fm_phase: float,
@@ -326,46 +458,21 @@ def compile_depth_segments(curve, fm_frequency: float, fm_phase: float,
     (starts, cs, a0s, bs): per-segment note-relative start frame, the
     depth-weighted LFO sum accumulated at that frame (f64 closed form),
     depth at the segment start, and per-frame depth slope (0 on the final
-    hold segment).  Closed forms: the reference's docstring."""
+    hold segment).  Closed forms: the reference's docstring.  One voice of
+    ``_depth_columns``."""
     inc = int(S.phase_increment(fm_frequency, samplerate))
     if inc == 0:
         raise ValueError("fm_depth_curve requires fm_frequency > 0")
-    ph0 = int(S.phase_offset(fm_phase))
-    b = inc / 4294967296.0
-    alpha = 2.0 * math.pi * b
-    r1 = 1.0 / (2.0 * math.sin(math.pi * b))
-    r2 = r1 * r1
-    pts = sorted((float(t), float(d)) for t, d in curve)
-    if pts[0][0] > 0.0:
-        pts.insert(0, (0.0, pts[0][1]))
-    framed = _frame_points(_decimate_points(pts, MAX_CURVE_SEGS), samplerate)
-
-    def _theta(m_rel: int) -> float:
-        return ((ph0 + (start_frame + m_rel) * inc) % 2 ** 32) \
-            / 4294967296.0 * 2.0 * math.pi
-
-    starts, cs, a0s, bs = [], [], [], []
-    C = 0.0
-    for j, (f, d) in enumerate(framed):
-        starts.append(f)
-        cs.append(C)
-        a0s.append(d)
-        if j + 1 < len(framed):
-            L = framed[j + 1][0] - f
-            slope = (framed[j + 1][1] - d) / L
-            th = _theta(f)
-            s1 = (math.cos(th - alpha / 2.0)
-                  - math.cos(_theta(f + L) - alpha / 2.0)) * r1
-            K = L - 1
-            A = math.sin(alpha * K) * r2 - K * math.cos(alpha * (K + 0.5)) * r1
-            B = (K * math.sin(alpha * (K + 0.5)) * r1
-                 - (1.0 - math.cos(alpha * K)) * r2)
-            s2 = math.sin(th) * B + math.cos(th) * A
-            C += d * s1 + slope * s2
-        else:
-            slope = 0.0
-        bs.append(slope)
-    return starts, cs, a0s, bs
+    curve = tuple(curve)
+    if not curve:
+        raise ValueError("an FM-depth curve needs a point")
+    p = _curve_points([0], [curve], samplerate)
+    n = p.row.size
+    cs, bs = _depth_columns(
+        p, np.full(n, inc, np.int64),
+        np.full(n, S.phase_offset(fm_phase), np.int64),
+        np.full(n, start_frame, np.int64))
+    return p.frame.tolist(), cs.tolist(), p.value.tolist(), bs.tolist()
 
 
 @profiling.spanned("voicebank.pack_voices")
@@ -412,8 +519,7 @@ def pack_voices(voices: Sequence[Voice], samplerate: int,
             ordered.extend(members)
             otags.extend(mtags)
             groups.append((wid, has_fm, start, len(members)))
-        vp = voice_params_from_numpy(
-            _pack_flat(ordered, samplerate, num_harmonics), device)
+        vp = _pack_upload(ordered, samplerate, num_harmonics, device)
         layout = BankLayout(tuple(groups), len(ordered), num_harmonics)
         if tags is not None:
             return vp, layout, np.asarray(otags, np.int32)
@@ -422,135 +528,165 @@ def pack_voices(voices: Sequence[Voice], samplerate: int,
     npad = -len(voices) % pad_to
     ordered = list(voices) + [silent] * max(npad, pad_to - len(voices)
                                             if len(voices) < pad_to else npad)
-    return voice_params_from_numpy(
-        _pack_flat(ordered, samplerate, num_harmonics), device)
+    return _pack_upload(ordered, samplerate, num_harmonics, device)
+
+
+def _pack_upload(voices: Sequence[Voice], samplerate: int,
+                 num_harmonics: int, device) -> VoiceParams:
+    with profiling.span("voicebank.pack_columns"):
+        fields = _pack_flat(voices, samplerate, num_harmonics)
+    with profiling.span("voicebank.pack_upload"):
+        return voice_params_from_numpy(fields, device)
+
+
+#: the Voice fields that the packing reads, in one ``attrgetter`` pass;
+#: the first ``_NUMERIC`` are numbers, read as f64 columns
+_FIELDS = ("frequency", "amplitude", "phase", "bias", "pan", "start",
+           "duration", "attack", "decay", "sustain_level", "release",
+           "fm_frequency", "fm_depth", "fm_phase", "pulse_width", "damping",
+           "glide_from", "glide_time",
+           "wave", "seed", "harmonics", "pitch_curve", "amp_curve",
+           "fm_depth_curve")
+_NUMERIC = 18
+_voice_fields = attrgetter(*_FIELDS)
 
 
 def _pack_flat(voices: Sequence[Voice], samplerate: int,
                num_harmonics: int) -> dict:
     """Host packing -> {field: numpy array} with the reference's dtypes
-    (u32 fields as np.uint32) and f64 host arithmetic."""
+    (u32 fields as np.uint32) and f64 host arithmetic, in columns over all
+    voices (see the note above ``_u32_round``)."""
     V = len(voices)
     H = num_harmonics
+    sr = samplerate
+    cols = list(zip(*map(_voice_fields, voices))) or [()] * len(_FIELDS)
+    (freq, amp, phase, bias, pan, start, duration, attack, decay, sustain,
+     release, fm_freq, fm_depth, fm_phase, pulse_width, damping, glide_from,
+     glide_time) = np.array(cols[:_NUMERIC], np.float64).reshape(_NUMERIC, V)
+    waves, seeds, harmonics, pcurves, acurves, dcurves = cols[_NUMERIC:]
 
-    def arr(fn, dtype):
-        out = np.zeros(V, dtype)
-        for i, vc in enumerate(voices):
-            out[i] = fn(vc)
-        return out
-
+    wave = np.array([WAVE_IDS[w] for w in waves], np.int32)
+    fm_inc = _phase_increments(fm_freq, sr)
+    fm_phase0 = _phase_offsets(fm_phase)
     fm_r = np.zeros(V, np.float32)
     fm_c0 = np.zeros(V, np.float32)
-    for i, vc in enumerate(voices):
-        inc = S.phase_increment(vc.fm_frequency, samplerate)
-        r, c0 = _fm_constants(inc, S.phase_offset(vc.fm_phase))
-        fm_r[i], fm_c0[i] = r, c0
+    on = fm_inc != 0
+    b = fm_inc[on] / _TWO32
+    phi = fm_phase0[on] / _TWO32
+    fm_r[on] = 1.0 / (2.0 * np.sin(np.pi * b))
+    fm_c0[on] = np.cos(2.0 * np.pi * phi - np.pi * b)
 
     harm = np.zeros((V, max(H, 1)), np.float32)
-    for i, vc in enumerate(voices):
-        for j, a in enumerate(vc.harmonics[:H]):
-            harm[i, j] = a
+    rows = [i for i, h in enumerate(harmonics) if len(h)]
+    if rows and H:
+        parts = [harmonics[i][:H] for i in rows]
+        lens = np.fromiter(map(len, parts), np.int64, len(parts))
+        heads = np.cumsum(lens) - lens
+        harm[np.repeat(rows, lens),
+             np.arange(lens.sum()) - np.repeat(heads, lens)] = \
+            np.array(list(chain.from_iterable(parts)), np.float64)
 
     tables = np.zeros((V, BANK_TABLE_LEN), np.float32)
-    for i, vc in enumerate(voices):
-        if vc.wave == "wavetable":
-            tables[i] = bank_table(vc.table)
+    for i in np.flatnonzero(wave == WAVE_IDS["wavetable"]):
+        tables[i] = bank_table(voices[i].table)
 
-    # portamento constants (exact Python-int arithmetic mod 2^32):
-    # per-frame increment step d = floor((inc1 - inc0) / G)
+    # portamento constants: per-frame increment step d = floor((inc1 -
+    # inc0) / G), u32 two's complement
     g_inc0 = np.zeros(V, np.uint32)
     g_d = np.zeros(V, np.uint32)
     g_frames = np.zeros(V, np.int32)
-    for i, vc in enumerate(voices):
-        if vc.glide_from > 0.0 and vc.glide_time > 0.0 and vc.frequency > 0.0:
-            if vc.pitch_curve:
-                raise ValueError(
-                    "glide_from/glide_time and pitch_curve are mutually "
-                    "exclusive on one voice (both sweep the DDS increment)")
-            inc0 = int(S.phase_increment(vc.glide_from, samplerate))
-            inc1 = int(S.phase_increment(vc.frequency, samplerate))
-            G = max(1, int(vc.glide_time * samplerate))
-            g_inc0[i] = np.uint32(inc0)
-            g_d[i] = np.uint32(((inc1 - inc0) // G) & 0xFFFFFFFF)
-            g_frames[i] = G
+    glide = np.flatnonzero((glide_from > 0.0) & (glide_time > 0.0)
+                           & (freq > 0.0))
+    if glide.size:
+        if any(pcurves[i] for i in glide):
+            raise ValueError(
+                "glide_from/glide_time and pitch_curve are mutually "
+                "exclusive on one voice (both sweep the DDS increment)")
+        inc0 = _phase_increments(glide_from[glide], sr)
+        inc1 = _phase_increments(freq[glide], sr)
+        G = np.maximum(1, _frames(glide_time[glide], sr))
+        g_inc0[glide] = inc0
+        g_d[glide] = ((inc1 - inc0) // G) & 0xFFFFFFFF
+        g_frames[glide] = G
 
     # pitch/amp/depth curve segments (static [V, S] dims sized to the
     # densest curve in the bank; no-curve rows are INT32_MAX-start sentinels)
-    bsegs = {i: compile_pitch_segments(vc.pitch_curve, vc.frequency,
-                                       samplerate)
-             for i, vc in enumerate(voices) if vc.pitch_curve}
-    asegs = {i: compile_amp_segments(vc.amp_curve, samplerate)
-             for i, vc in enumerate(voices) if vc.amp_curve}
-    for vc in voices:
-        if vc.fm_depth_curve and vc.fm_depth != 0.0:
-            raise ValueError(
-                "fm_depth_curve and a non-zero constant fm_depth are "
-                "mutually exclusive on one voice (the curve IS the depth)")
-    dsegs = {i: compile_depth_segments(vc.fm_depth_curve, vc.fm_frequency,
-                                       vc.fm_phase,
-                                       int(vc.start * samplerate), samplerate)
-             for i, vc in enumerate(voices) if vc.fm_depth_curve}
-    SB = max([len(s[0]) for s in bsegs.values()], default=0) or 1
-    KA = max([len(s[0]) for s in asegs.values()], default=0) or 1
-    b_start = np.full((V, SB), _I32_MAX, np.int32)
-    b_phase = np.zeros((V, SB), np.uint32)
-    b_inc = np.zeros((V, SB), np.uint32)
-    b_d = np.zeros((V, SB), np.uint32)
-    for i, (st, ph, inc, d) in bsegs.items():
-        k = len(st)
-        b_start[i, :k] = st
-        b_phase[i, :k] = np.asarray(ph, np.uint64).astype(np.uint32)
-        b_inc[i, :k] = np.asarray(inc, np.uint64).astype(np.uint32)
-        b_d[i, :k] = np.asarray(d, np.uint64).astype(np.uint32)
-    a_start = np.full((V, KA), _I32_MAX, np.int32)
-    a_g0 = np.ones((V, KA), np.float32)
-    a_dg = np.zeros((V, KA), np.float32)
-    for i, (st, g0, dg) in asegs.items():
-        k = len(st)
-        a_start[i, :k] = st
-        a_g0[i, :k] = g0
-        a_dg[i, :k] = dg
-        if k < KA:            # pad by replicating the hold segment (never
-            a_start[i, k:] = _I32_MAX      # selected: starts at I32_MAX)
-            a_g0[i, k:] = g0[-1]
-    KD = max([len(s[0]) for s in dsegs.values()], default=0) or 1
-    d_start = np.full((V, KD), _I32_MAX, np.int32)
-    d_c = np.zeros((V, KD), np.float32)
-    d_a = np.zeros((V, KD), np.float32)
-    d_b = np.zeros((V, KD), np.float32)
-    for i, (st, cs, a0, bsl) in dsegs.items():
-        k = len(st)
-        d_start[i, :k] = st
-        d_c[i, :k] = cs
-        d_a[i, :k] = a0
-        d_b[i, :k] = bsl
+    rows = [i for i, c in enumerate(pcurves) if c]
+    p = _curve_points(rows, [pcurves[i] for i in rows], sr)
+    S = p.width or 1
+    b_start = np.full((V, S), _I32_MAX, np.int32)
+    b_phase = np.zeros((V, S), np.uint32)
+    b_inc = np.zeros((V, S), np.uint32)
+    b_d = np.zeros((V, S), np.uint32)
+    at = p.row, p.pos
+    b_start[at] = p.frame
+    b_phase[at], b_inc[at], b_d[at] = _pitch_columns(p, freq[p.row], sr)
+
+    rows = [i for i, c in enumerate(acurves) if c]
+    p = _curve_points(rows, [acurves[i] for i in rows], sr)
+    S = p.width or 1
+    a_start = np.full((V, S), _I32_MAX, np.int32)
+    a_g0 = np.ones((V, S), np.float32)
+    a_dg = np.zeros((V, S), np.float32)
+    held = np.ones(p.pos.size, bool)
+    held[p.nxt] = False
+    # pad by replicating the hold segment (never selected: I32_MAX start)
+    a_g0[p.row[held]] = p.value[held, None]
+    at = p.row, p.pos
+    a_start[at] = p.frame
+    a_g0[at] = p.value
+    a_dg[at] = _amp_columns(p)
+
+    rows = [i for i, c in enumerate(dcurves) if c]
+    if (fm_depth[rows] != 0.0).any():
+        raise ValueError(
+            "fm_depth_curve and a non-zero constant fm_depth are "
+            "mutually exclusive on one voice (the curve IS the depth)")
+    if (fm_inc[rows] == 0).any():
+        raise ValueError("fm_depth_curve requires fm_frequency > 0")
+    p = _curve_points(rows, [dcurves[i] for i in rows], sr)
+    S = p.width or 1
+    d_start = np.full((V, S), _I32_MAX, np.int32)
+    d_c = np.zeros((V, S), np.float32)
+    d_a = np.zeros((V, S), np.float32)
+    d_b = np.zeros((V, S), np.float32)
+    at = p.row, p.pos
+    d_start[at] = p.frame
+    d_a[at] = p.value
+    d_c[at], d_b[at] = _depth_columns(p, fm_inc[p.row], fm_phase0[p.row],
+                                      _frames(start[p.row], sr))
+
+    base_inc = _phase_increments(freq, sr)
+    noise_hold = np.ones(V, np.int32)
+    noisy = np.flatnonzero((wave == WAVE_IDS["white_noise"]) & (freq > 0))
+    noise_hold[noisy] = np.maximum(1, _int32s(np.rint(sr / freq[noisy])))
+
+    f32 = np.float32
     return dict(
-        wave=arr(lambda x: WAVE_IDS[x.wave], np.int32),
-        base_inc=arr(lambda x: S.phase_increment(x.frequency, samplerate), np.uint32),
-        phase0=arr(lambda x: S.phase_offset(x.phase), np.uint32),
-        amp=arr(lambda x: x.amplitude, np.float32),
-        bias=arr(lambda x: x.bias, np.float32),
-        pan=arr(lambda x: x.pan, np.float32),
-        start=arr(lambda x: int(x.start * samplerate), np.int32),
-        gate=arr(lambda x: int(x.duration * samplerate), np.int32),
-        attack=arr(lambda x: x.attack, np.float32),
-        decay=arr(lambda x: x.decay, np.float32),
-        sustain_level=arr(lambda x: x.sustain_level, np.float32),
-        release=arr(lambda x: x.release, np.float32),
-        fm_inc=arr(lambda x: S.phase_increment(x.fm_frequency, samplerate), np.uint32),
-        fm_phase0=arr(lambda x: S.phase_offset(x.fm_phase), np.uint32),
-        fm_depth=arr(lambda x: x.fm_depth, np.float32),
+        wave=wave,
+        base_inc=base_inc.astype(np.uint32),
+        phase0=_phase_offsets(phase).astype(np.uint32),
+        amp=amp.astype(f32),
+        bias=bias.astype(f32),
+        pan=pan.astype(f32),
+        start=_frames(start, sr).astype(np.int32),
+        gate=_frames(duration, sr).astype(np.int32),
+        attack=attack.astype(f32),
+        decay=decay.astype(f32),
+        sustain_level=sustain.astype(f32),
+        release=release.astype(f32),
+        fm_inc=fm_inc.astype(np.uint32),
+        fm_phase0=fm_phase0.astype(np.uint32),
+        fm_depth=fm_depth.astype(f32),
         fm_r=fm_r,
         fm_c0=fm_c0,
-        pulse_width=arr(lambda x: min(max(x.pulse_width, 1.0 / 65536.0),
-                                      1.0 - 1.0 / 65536.0), np.float32),
-        seed=arr(lambda x: x.seed & 0xFFFFFFFF, np.uint32),
-        noise_hold=arr(lambda x: max(1, int(round(samplerate / x.frequency)))
-                       if (x.wave == "white_noise" and x.frequency > 0) else 1,
-                       np.int32),
+        pulse_width=np.minimum(np.maximum(pulse_width, 1.0 / 65536.0),
+                               1.0 - 1.0 / 65536.0).astype(f32),
+        seed=np.array([s & 0xFFFFFFFF for s in seeds], np.uint32),
+        noise_hold=noise_hold,
         harm_amps=harm,
         table=tables,
-        damping=arr(lambda x: x.damping, np.float32),
+        damping=damping.astype(f32),
         glide_inc0=g_inc0,
         glide_d=g_d,
         glide_frames=g_frames,

@@ -241,6 +241,26 @@ def test_render_midi_spans(spans_on):
             assert s.parent == notes.id
 
 
+def test_pack_voices_child_spans(spans_on):
+    """One ``pack_voices`` call: the host columns and then the upload, each
+    a child of its span; with tracing off, none of the three is logged."""
+    from synthesizer_tpu_torch.models.voicebank import Voice, pack_voices
+    voices = [Voice(frequency=220.0 * (k + 1), amplitude=0.1,
+                    amp_curve=((0.0, 1.0), (0.1, 0.5))) for k in range(3)]
+    pack_voices(voices, SR, device="cpu")
+    spans = profiling.take_spans()
+    top = [s for s in spans if s.name == "voicebank.pack_voices"]
+    assert len(top) == 1 and top[0].parent == -1
+    kids = [s for s in spans if s.parent == top[0].id]
+    assert [s.name for s in kids] == ["voicebank.pack_columns",
+                                      "voicebank.pack_upload"]
+    assert top[0].start_ns <= kids[0].start_ns <= kids[0].end_ns \
+        <= kids[1].start_ns <= kids[1].end_ns <= top[0].end_ns
+    profiling.tracing(False)
+    pack_voices(voices, SR, device="cpu")
+    assert profiling.take_spans() == []
+
+
 def _tone(seconds, freq):
     t = np.arange(int(seconds * SR)) / SR
     x = 0.5 * np.sin(2 * np.pi * freq * t) * np.exp(-t * 12.0)

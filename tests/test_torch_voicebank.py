@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from synthesizer_tpu.models import voicebank as J
+from synthesizer_tpu_torch import bench_song
+from synthesizer_tpu_torch import midi as TM
 from synthesizer_tpu_torch.models import voicebank as T
 from test_pallas_kernel import VOICES as KERNEL_VOICES
 from test_voicebank import VOICES as BANK_VOICES
@@ -53,6 +55,44 @@ def _rand_bank(seed):
     return [rand_voice(rng) for _ in range(int(rng.integers(4, 16)))]
 
 
+def _gm_small():
+    """The port's MIDI front on a seeded 300-note GM file (bends, CC fades,
+    vibrato, pedal), as the reference's voices."""
+    data = bench_song.gm_file(300, 20.0, seed=21)
+    voices = TM.midi_to_voices(TM.parse_midi(data))
+    return [J.Voice(**dataclasses.asdict(v)) for v in voices]
+
+
+#: a bend of 300 points (decimated to MAX_CURVE_SEGS)
+_DENSE = tuple((0.002 * k, 2.0 ** (np.sin(0.1 * k) / 6.0)) for k in range(300))
+#: two points on one frame with different values, two with equal t (the
+#: (t, value) sort's tie), a first point after 0, given out of order
+_TIES = ((0.05, 1.2), (0.01, 0.9), (0.05, 0.7), (0.03, 1.1),
+         (0.03 + 0.2 / SR, 1.4), (0.2, 1.0))
+
+
+def _curve_edges():
+    def v(**kw):
+        return J.Voice(**{**dict(wave="sine", frequency=440.0, amplitude=0.2,
+                                 duration=0.3), **kw})
+    return [
+        v(pitch_curve=_DENSE),
+        v(wave="square_bl", pitch_curve=_TIES, start=0.01),
+        v(amp_curve=_TIES),
+        v(amp_curve=tuple((t, g) for t, g in reversed(_DENSE))),
+        v(fm_frequency=5.5, fm_phase=0.3, start=400.0,
+          fm_depth_curve=((0.01, 0.0), (0.02, 0.01), (0.02, 0.005),
+                          (0.25, 0.03))),
+        v(fm_frequency=7.0, fm_depth_curve=tuple(
+            (t, 0.01 * g) for t, g in _DENSE)),
+        v(frequency=660.0, glide_from=330.0, glide_time=0.04),
+        v(wave="wavetable", table=tuple(np.linspace(-1, 1, 37).tolist())),
+        v(wave="harmonics", harmonics=(1.0, 0.5, 0.25, 0.125)),
+        v(wave="pluck", seed=11, damping=1.3, amp_curve=((0.1, 0.5),)),
+        v(wave="white_noise", frequency=3000.0, seed=5),
+    ]
+
+
 PACK_CASES = {
     "bank_voices": lambda: BANK_VOICES,
     "kernel_voices": lambda: KERNEL_VOICES,
@@ -60,6 +100,8 @@ PACK_CASES = {
     "random0": lambda: _rand_bank(0),
     "random1": lambda: _rand_bank(1),
     "random2": lambda: _rand_bank(2),
+    "gm_small": _gm_small,
+    "curve_edges": _curve_edges,
 }
 
 
@@ -92,6 +134,74 @@ def test_pack_voices_bit_exact(case, sort_by_wave):
     for name in T.VoiceParams._fields:
         a, b = getattr(carried, name), getattr(got, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def _rand_curve(rng, k):
+    """A seeded control curve, out of order; by ``k``, one of the edges the
+    per-voice compile meets: a curve past ``MAX_CURVE_SEGS`` points, equal t
+    with different values (the (t, value) sort's tie), several points on
+    one frame, a first point after 0, a single point."""
+    n = int(rng.integers(2, 40))
+    t = rng.uniform(0.0, 1.0, n)
+    v = rng.uniform(0.5, 2.0, n)
+    edge = k % 5
+    if edge == 0:
+        n = int(rng.integers(129, 400))
+        t, v = rng.uniform(0.0, 3.0, n), rng.uniform(0.5, 2.0, n)
+    elif edge == 1:
+        t, v = np.round(t * 20) / 20, np.round(v, 1)
+    elif edge == 2:
+        t = (np.floor(t * 100) + rng.uniform(0, 0.5, n) / SR * 100) / 100
+    elif edge == 3:
+        t = t + 0.05
+    elif k % 10 == 4:
+        t, v = t[:1], v[:1]
+    pts = list(zip(t.tolist(), v.tolist()))
+    rng.shuffle(pts)
+    return tuple(pts)
+
+
+def _assert_same_segments(got, want, names, what):
+    """Segment lists equal the reference's element for element: the same
+    Python type and the same bits."""
+    for name, g, w in zip(names, got, want):
+        g, w = list(g), list(w)
+        assert len(g) == len(w), \
+            f"{what}: {len(g)} {name}, the reference {len(w)}"
+        for k, (a, b) in enumerate(zip(g, w)):
+            assert type(a) is type(b) and repr(a) == repr(b), \
+                f"{what}: {name}[{k}] = {a!r}, the reference {b!r}"
+
+
+def test_one_voice_compilers_match_the_reference():
+    """The three public curve compilers, one voice each through the batched
+    columns, against the reference's per-voice loops on 50 seeded curves
+    and their edges (decimation, ties, one frame, a late first point, an
+    LFO phase past 2**24 frames)."""
+    rng = np.random.default_rng(2101)
+    for k in range(50):
+        curve = _rand_curve(rng, k)
+        freq = float(rng.uniform(30.0, 4000.0))
+        what = f"curve {k} ({len(curve)} points)"
+        _assert_same_segments(
+            T.compile_pitch_segments(curve, freq, SR),
+            J.compile_pitch_segments(curve, freq, SR),
+            ("starts", "phases", "incs", "ds"), "pitch " + what)
+        _assert_same_segments(
+            T.compile_amp_segments(curve, SR),
+            J.compile_amp_segments(curve, SR),
+            ("starts", "g0s", "dgs"), "amp " + what)
+        depth = tuple((t, 0.02 * d) for t, d in curve)
+        lfo, ph = float(rng.uniform(0.5, 12.0)), float(rng.uniform(-1, 2))
+        start = int(rng.integers(2 ** 24, 2 ** 30)) if k % 2 else \
+            int(rng.integers(0, SR))
+        _assert_same_segments(
+            T.compile_depth_segments(depth, lfo, ph, start, SR),
+            J.compile_depth_segments(depth, lfo, ph, start, SR),
+            ("starts", "cs", "a0s", "bs"), "depth " + what)
+    _assert_same_segments(T.compile_pitch_segments((), 440.0, SR),
+                          J.compile_pitch_segments((), 440.0, SR),
+                          ("starts", "phases", "incs", "ds"), "no bend")
 
 
 def test_pack_tags_and_validation():
