@@ -590,6 +590,7 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
     from synthesizer_tpu_torch import bench_song as B
     from synthesizer_tpu_torch import sequencer as Q
     from synthesizer_tpu_torch.ab_smoke import bus_banks
+    from synthesizer_tpu_torch.ops import hits as H
     from synthesizer_tpu_torch.ops import kernels as K
     from synthesizer_tpu_torch.ops.effects import BUDGETS
     from synthesizer_tpu_torch.synth import WaveSynth
@@ -683,7 +684,7 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
         arr = song.instruments[sched.instruments[inst]].get_frame_array()
         m = min(len(arr), len(oracle) - start)
         oracle[start:start + m] += arr[:m].astype(np.int64)
-    drums = Q._mixdown_kernel(
+    drums = H._mixdown_kernel(
         torch.from_numpy(sched.bank).to(dev),
         torch.from_numpy(sched.hits[:, 0]).to(dev),
         torch.from_numpy(sched.hits[:, 1]).to(dev), off.shape[0])
@@ -760,8 +761,9 @@ def sequencer_phase(dev, card, ptxas, spread, profiled, midi_bank):
     # each voice on the bus of its channel mod 3; each timed here, after
     # the long song and at the end of the phase
     voices, vtracks = long_fx.compile_synth_voices(return_tracks=True)
-    bank, vp, seg, fx_tracks = long_fx._synth_fx_groups(voices, vtracks,
-                                                        32768)
+    fx_tracks, tags = long_fx._fx_bus_tags(vtracks)
+    bank, vp, seg = Q.LocalRender(dev, long_fx.samplerate)._bank(
+        voices, 32768, tags)
     nseg = len(fx_tracks) + 1
     total = long_fx.duration_frames(0.3)
     layout = bank._kernel_layout(vp)
@@ -1697,8 +1699,12 @@ def mesh_phase(dev, card, gm_data, spread, profiled, pick):
     # median note start
     notes = M.parse_midi(gm_data, release_grace=M.release_grace_for(None))
     voices = M.midi_to_voices(notes, None)
-    shards, uw, ufm, ugl, ub, ua, ud = PM.song_synth_shards(voices, SR, mesh)
-    flags = dict(use_glide=ugl, use_bend=ub, use_amp=ua, use_dmod=ud)
+    shards, _ = PM.voice_shards(voices, SR, mesh)
+    vflags = PM.voice_flags(voices)
+    ufm, ub, ua, ud = (vflags[k] for k in ("use_fm", "use_bend", "use_amp",
+                                           "use_dmod"))
+    flags = {k: vflags[k] for k in ("use_glide", "use_bend", "use_amp",
+                                    "use_dmod")}
     nfr = 16384
     same, starts = [], []
     for s in shards:
@@ -1742,9 +1748,10 @@ def mesh_phase(dev, card, gm_data, spread, profiled, pick):
               "demo song: sharded streaming chunk 0 == the sharded offline "
               "slice")
         voices, vtracks = song.compile_synth_voices(return_tracks=True)
-        fx_tracks = song._fx_synth_tracks(vtracks)
-        gsh, gseg, uw, ufm, ugl = PM.song_synth_shards_grouped(
-            voices, vtracks, fx_tracks, SR, mesh)
+        fx_tracks, tags = song._fx_bus_tags(vtracks)
+        gsh, gseg = PM.voice_shards(voices, SR, mesh, tags)
+        vflags = PM.voice_flags(voices)
+        ufm, ugl = vflags["use_fm"], vflags["use_glide"]
         nseg = len(fx_tracks) + 1
         same = []
         for s, g in zip(gsh, gseg):

@@ -70,8 +70,17 @@ def demo_bus_bank(dev):
     song = Q.Song.from_string(bench_song.repeated(bench_song.DEMO_INI, 14),
                               kit, device=dev)
     voices, tracks = song.compile_synth_voices(return_tracks=True)
-    bank, vp, seg, fx = song._synth_fx_groups(voices, tracks, 32768)
-    return bank, vp, seg, len(fx) + 1, song.duration_frames(0.3)
+    fx = song._fx_synth_tracks(tracks)
+    bus = {n: i + 1 for i, n in enumerate(fx)}
+    vp, layout, seg = pack_voices(voices, 44100, num_harmonics=8,
+                                  sort_by_wave=True,
+                                  tags=[bus.get(t, 0) for t in tracks],
+                                  device=dev)
+    bank = VoiceBank.for_voices(voices, 44100, chunk_frames=32768,
+                                num_harmonics=8, layout=layout,
+                                nvoices=layout.nvoices, device=dev)
+    return (bank, vp, torch.from_numpy(seg).to(dev), len(fx) + 1,
+            song.duration_frames(0.3))
 def midi_bus_bank(dev, data):
     notes = midi.parse_midi(data, release_grace=midi.release_grace_for(None))
     voices = midi.midi_to_voices(notes)

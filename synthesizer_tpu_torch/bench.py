@@ -24,9 +24,9 @@ per-block program (``config{1,4}_step_rtf``); config 2 (8 voices, nharm
 4, chunk 16384, 2 s);
 the reverb, the stretch, the chorus and the hq resampler on a 20 s stereo
 int32 signal from ``default_rng(7)``, each cut to its input's frames; then
-config 5's path to the host, one ``render_chunk``, ``render_midi`` on the
-3000-note General-MIDI file and its steps, the demo song's ``mix()`` and its
-stream with the master chain, and ``RealtimeVoice`` on config 4's patch.
+config 5's path to the host, one ``render_chunk``, and ``RealtimeVoice`` on
+config 4's patch.  The MIDI file and the demo and tracker songs are the
+benchmark's cells (``BENCHMARK.json``), held there to plain references.
 
 **Timing.**  ``bench.py`` chained k renders inside one compiled program and
 fitted the slope between two k, because each host-device round trip through
@@ -63,16 +63,6 @@ The windows:
 - ``evaluated_voice_frames``: the headline's voice-tiles that the render
   kernel evaluated, times 512 (``voice_msamples_per_sec_per_chip`` counts
   every voice-frame, as ``bench.py`` does);
-- ``midi_gm3000_wall_ms``: ``render_midi`` on ``bench_song.gm_file(3000,
-  180.0, 0)`` to int16 on the host; ``midi_{parse,voices,pack,plan}_ms``
-  its host steps, each synchronised, and ``midi_render_kernel_ms`` the
-  CUDA-event time of its render (the setup and render kernels of the
-  sparse plan's ``fn``, or of ``render_song`` for a file the plan leaves
-  flat, as ``render_midi`` chooses);
-- ``demo_song_mix_ms``: ``Song.mix()`` of the demo song as written
-  (``bench_song.DEMO_INI``) to the host; ``demo_song_stream_fx_chunks_per_
-  sec``: one pass of ``mix_generator(1470)`` with its master chain, each
-  chunk to the host (its spread has n = 1);
 - ``realtime_voice_blocks_per_sec_lookahead{1,4}``: ``RealtimeVoice``
   blocks of 1470 frames a second, after 8 warm blocks.
 
@@ -101,7 +91,6 @@ import math
 import re
 import statistics
 import sys
-import tempfile
 import time
 import traceback
 
@@ -131,9 +120,6 @@ BENCH_PY_KEYS = (
 EXTRA_KEYS = (
     "card", "kernel_build_seconds", "host_int16_ms",
     "evaluated_voice_frames", "render_chunk_131072_ms",
-    "midi_gm3000_wall_ms", "midi_parse_ms", "midi_voices_ms",
-    "midi_pack_ms", "midi_plan_ms", "midi_render_kernel_ms",
-    "demo_song_mix_ms", "demo_song_stream_fx_chunks_per_sec",
     "realtime_voice_blocks_per_sec_lookahead1",
     "realtime_voice_blocks_per_sec_lookahead4", "tf32_matmul_allowed",
     "tf32_cudnn_allowed", "tf32_capable_kernels",
@@ -161,9 +147,6 @@ class Sizes:
     long_past: int = 2 ** 24             # a window of the long render after
     sparse: tuple = (600, 300.0, 5)      # notes, seconds, seed
     fx_seconds: float = 20.0
-    gm: tuple = (3000, 180.0, 0)         # notes, seconds, seed
-    demo_patterns: str = ""              # "" = the demo song as written
-    stream_chunks: int = 0               # 0 = the whole streamed pass
     realtime_blocks: int = 48            # blocks in each timed repeat
     reps: int = 5
 
@@ -174,7 +157,6 @@ TINY = Sizes(headline=(4, 1.5), chunk=8192,
                     "8c73d480da50e4df36df18c8595ecda5",
              config3=(2, 0.5, 0.25), scale=(16, 0.5), long=(4, 3.0),
              long_past=SR, sparse=(24, 6.0, 5), fx_seconds=0.25,
-             gm=(2, 3.0, 0), demo_patterns="intro", stream_chunks=30,
              realtime_blocks=4, reps=1)
 
 
@@ -569,92 +551,6 @@ def section_fx(run: Run):
         run.put(f"{name}_rtf", tm.wall_s, lambda w: (n / SR) / w)
 
 
-def section_midi(run: Run):
-    """``render_midi`` on the GM file, then its steps one by one."""
-    from . import midi as M
-    from .models.voicebank import VoiceBank, pack_voices
-    from .sample import Sample
-    dev = run.device
-    data = bench_song.gm_file(*run.sizes.gm)
-    tm = run.timed("render_midi", lambda: M.render_midi(
-        data, device=dev).get_frame_array())
-    run.put("midi_gm3000_wall_ms", tm.wall_s, lambda w: w * 1e3)
-    steps = {k: [] for k in ("parse", "voices", "pack", "plan")}
-    kernel_ms, same = [], True
-
-    def step(name, fn):
-        out, _, wall = run.call(fn)
-        steps[name].append(wall * 1e3)
-        return out
-
-    grace = M.release_grace_for(None)
-    for _ in range(run.sizes.reps):
-        notes = step("parse", lambda: M.parse_midi(data,
-                                                   release_grace=grace))
-        voices = step("voices", lambda: M.midi_to_voices(notes))
-        vp = step("pack", lambda: pack_voices(voices, SR, num_harmonics=8,
-                                              device=dev))
-        V = vp.wave.shape[0]
-        bank = VoiceBank.for_voices(voices, SR, num_harmonics=8, nvoices=V,
-                                    device=dev)
-        total = M.song_frames(voices, SR)
-        plan = step("plan", lambda: bank.sparse_plan(
-            vp, total, ranges=M.note_ranges(voices, V, SR)))
-        if plan is not None:
-            fn, idx, pad, nchunks = plan
-            f32, ms, _ = run.call(lambda: fn(vp, idx, pad, nchunks)[:total])
-        else:           # render_midi's flat route, for a dense file
-            vp, layout = pack_voices(voices, SR, num_harmonics=8,
-                                     sort_by_wave=True, device=dev)
-            bank = VoiceBank.for_voices(voices, SR, num_harmonics=8,
-                                        layout=layout, nvoices=layout.nvoices,
-                                        device=dev)
-            f32, ms, _ = run.call(lambda: bank.render_song(vp, total))
-        kernel_ms.append(ms)
-        host = Sample.from_torch(VoiceBank.to_int16(f32), SR,
-                                 2).get_frame_array()
-        same = np.array_equal(host, tm.first) and same
-    run.check(same, f"MIDI steps one by one ({'sparse' if plan else 'flat'} "
-                    f"route) == render_midi, bit for bit")
-    for name, ms in steps.items():
-        run.put(f"midi_{name}_ms", ms)
-    run.put("midi_render_kernel_ms", kernel_ms)
-
-
-def section_demo(run: Run):
-    """The demo song as written: ``mix()``, and one streamed pass with its
-    master chain."""
-    from .sequencer import Song
-    text = bench_song.DEMO_INI
-    if run.sizes.demo_patterns:
-        text = re.sub(r"(?m)^patterns = .*$",
-                      f"patterns = {run.sizes.demo_patterns}", text)
-    with tempfile.TemporaryDirectory() as d:
-        bench_song.make_demo_kit(d, device=run.device)
-        song = Song.from_string(text, d, device=run.device)
-        tm = run.timed("demo mix", lambda: song.mix().get_frame_array())
-        run.put("demo_song_mix_ms", tm.wall_s, lambda w: w * 1e3)
-        run.check(bool(song.fx) and np.abs(tm.first).max() > 1000,
-                  f"demo song with a master chain: {tm.first.shape} int16")
-
-        def stream(limit=None):
-            out = []
-            for k, c in enumerate(song.mix_generator(chunk_frames=1470)):
-                if k == limit:
-                    break
-                out.append(c.get_frame_array())
-            return out
-        warm = [np.array(c) for c in stream(limit=10)]
-        chunks, _, wall = run.call(
-            lambda: stream(limit=run.sizes.stream_chunks or None))
-        run.check(len(chunks) > len(warm) and all(
-            np.array_equal(a, b) for a, b in zip(warm, chunks)),
-            f"demo stream: {len(chunks)} chunks of 1470, the first "
-            f"{len(warm)} == a warm pass's, bit for bit")
-        run.put("demo_song_stream_fx_chunks_per_sec", [wall],
-                lambda w: len(chunks) / w)
-
-
 def section_realtime(run: Run):
     """``RealtimeVoice`` on config 4's patch, lookahead 1 and 4."""
     from .oscillators import Oscillator
@@ -687,8 +583,7 @@ def section_realtime(run: Run):
 SECTIONS = (("headline", section_headline), ("config3", section_config3),
             ("scale", section_scale), ("long", section_long),
             ("sparse", section_sparse), ("configs", section_configs),
-            ("fx", section_fx), ("midi", section_midi),
-            ("demo", section_demo), ("realtime", section_realtime))
+            ("fx", section_fx), ("realtime", section_realtime))
 
 
 def run_bench(run: Run):

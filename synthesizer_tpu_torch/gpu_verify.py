@@ -596,8 +596,9 @@ def section_configs(device, check):
     from .models import graph as G
     from .models import spec as S
     from .models.voicebank import Voice
+    from .ops.hits import _mixdown_kernel
     from .sample import Sample
-    from .sequencer import Song, SynthDef, _mixdown_kernel
+    from .sequencer import Song, SynthDef
     from .synth import WaveSynth
 
     # biquad filters: the parallel scan vs the sequential f64 oracle

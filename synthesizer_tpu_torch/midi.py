@@ -81,7 +81,7 @@ import torch
 from .models.voicebank import (Voice, VoiceBank, _device, audible_ranges,
                                pack_voices)
 from .sample import Sample
-from .sequencer import SynthDef
+from .sequencer import SynthDef, render_on
 from .utils import profiling
 from . import params
 
@@ -695,17 +695,7 @@ def render_notes(notes: Sequence[MidiNote],
             torch.zeros((0, 2), dtype=torch.int16, device=dev), sr, 2)
     voices = midi_to_voices(notes, instruments)
     total = song_frames(voices, sr, tail_seconds)
-    if mesh is not None:
-        from .parallel.mesh import render_song_sharded, song_synth_shards
-        vp, uw, ufm, ugl, ub, ua, ud = song_synth_shards(
-            voices, sr, mesh, num_harmonics=8)
-        stereo = render_song_sharded(
-            vp, total, sr, chunk_frames=8192, num_harmonics=8, mesh=mesh,
-            used_waves=uw, use_fm=ufm, use_glide=ugl, use_bend=ub,
-            use_amp=ua, use_dmod=ud)
-        return Sample.from_torch(VoiceBank.to_int16(stereo).to(dev), sr, 2,
-                                 name="midi")
-    if sparse:
+    if sparse and mesh is None:
         # UNSORTED pack: the rows render ungrouped anyway, and keeping the
         # note order aligned with the vp rows lets the plan's ranges come
         # from the host note list
@@ -720,12 +710,8 @@ def render_notes(notes: Sequence[MidiNote],
             stereo = fn(vp_flat, idx, pad_start, nchunks)[:total]
             return Sample.from_torch(VoiceBank.to_int16(stereo), sr, 2,
                                      name="midi")
-    vp, layout = pack_voices(voices, sr, num_harmonics=8, sort_by_wave=True,
-                             device=dev)
-    bank = VoiceBank.for_voices(voices, sr, num_harmonics=8, layout=layout,
-                                nvoices=layout.nvoices, device=dev)
-    return Sample.from_torch(bank.to_int16(bank.render_song(vp, total)), sr,
-                             2, name="midi")
+    stereo = render_on(mesh, dev, sr).synth_song(voices, total, 8192)
+    return Sample.from_torch(VoiceBank.to_int16(stereo), sr, 2, name="midi")
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ is one process driving many devices, and so is this module:
   lays them out, and lives on ``mesh.devices[i]``;
 * each shard renders through the port's own ``VoiceBank`` / ``render_stereo``
   (the Hopper kernels on a CUDA device, the plain version on the CPU) and the
-  per-shard int32 scatters and chunk bodies of ``sequencer``;
+  int32 scatter and chunk bodies of ``ops.hits``;
 * the partials are summed on ``mesh.devices[0]`` in shard order 0..n-1, one
   add a shard (:func:`_psum`): never atomics, ``index_add_`` or a reduction
   whose order is not fixed, so a sharded render gives the same bytes every
@@ -22,8 +22,14 @@ is one process driving many devices, and so is this module:
 
 The static render flags (``used_waves``, ``use_fm``, ``use_glide``,
 ``use_bend``, ``use_amp``, ``use_dmod``) come from the WHOLE voice list
-(:func:`song_synth_shards`) and go to every shard's bank, so every shard runs
-the same kernel specialisation.
+(:func:`voice_flags`) and go to every shard's bank, so every shard runs the
+same kernel specialisation.
+
+A song or MIDI pass with ``mesh=`` renders through :meth:`VoiceMesh.renderer`
+(:class:`ShardedRender`), whose methods are those of the single-device
+``sequencer.LocalRender``: it packs and shards the voices, works out their
+flags, pads the hit rows to a multiple of the mesh size, and merges the
+partials onto the pass's device.
 
 Deliberate differences from the reference: :func:`voice_mesh` has no CPU
 fallback (with fewer devices than asked for and no ``devices=`` it raises),
@@ -40,15 +46,13 @@ import torch
 
 from ..models.voicebank import (ALL_WAVES, WAVE_IDS, VoiceBank, VoiceParams,
                                 pack_voices)
+from ..ops.hits import _mixdown_kernel, _pitched_chunk_body, _stream_chunk
 
 AXIS = "voices"
 
 __all__ = ["AXIS", "VoiceMesh", "voice_mesh", "shard_voice_params",
-           "song_synth_shards", "song_synth_shards_grouped",
-           "render_song_sharded", "render_song_grouped_sharded",
-           "render_chunk_sharded_fn", "render_chunk_grouped_sharded_fn",
-           "scatter_mix_sharded", "stream_chunk_sharded_fn",
-           "pitched_chunk_sharded_fn", "pitched_song_sharded"]
+           "voice_flags", "voice_shards", "render_song_sharded",
+           "ShardedRender"]
 
 
 class VoiceMesh:
@@ -75,6 +79,10 @@ class VoiceMesh:
 
     def __repr__(self) -> str:
         return f"VoiceMesh({[str(d) for d in self.devices]})"
+
+    def renderer(self, device, samplerate: int) -> "ShardedRender":
+        """A pass's renders over this mesh, with results on ``device``."""
+        return ShardedRender(self, device, samplerate)
 
 
 def voice_mesh(n_devices: Optional[int] = None, devices=None) -> VoiceMesh:
@@ -104,6 +112,19 @@ def _rows(t: torch.Tensor, mesh: VoiceMesh, dim: int = 0) -> List[torch.Tensor]:
     k = size // n
     return [t.narrow(dim, i * k, k).contiguous().to(d)
             for i, d in enumerate(mesh.devices)]
+
+
+def _split(t: torch.Tensor, mesh: VoiceMesh, dim: int = 0
+           ) -> List[torch.Tensor]:
+    """Hit rows padded along ``dim`` to a multiple of the mesh size with
+    zero rows, then sharded.  A zero row is invalid or has gain 0, so it
+    adds an exact 0 to the int32 sum."""
+    pad = -t.shape[dim] % mesh.size
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        t = torch.cat([t, t.new_zeros(shape)], dim)
+    return _rows(t, mesh, dim)
 
 
 def _psum(parts: Sequence[torch.Tensor], mesh: VoiceMesh) -> torch.Tensor:
@@ -146,7 +167,7 @@ def shard_voice_params(vp: VoiceParams, mesh: VoiceMesh) -> List[VoiceParams]:
 
 def _shards(vp, mesh: VoiceMesh) -> List[VoiceParams]:
     """``vp`` as per-device shards: a packed ``VoiceParams`` is sharded,
-    a list of shards (from :func:`song_synth_shards`) is checked."""
+    a list of shards (from :func:`voice_shards`) is checked."""
     if isinstance(vp, VoiceParams):
         return shard_voice_params(vp, mesh)
     shards = list(vp)
@@ -156,51 +177,33 @@ def _shards(vp, mesh: VoiceMesh) -> List[VoiceParams]:
     return shards
 
 
-def _any_glide(voices) -> bool:
-    return any(v.glide_from > 0.0 and v.glide_time > 0.0
-               and v.frequency > 0.0 for v in voices)
+def voice_flags(voices) -> dict:
+    """The static render flags of the whole voice list, for every shard's
+    bank (the curve flags carry MIDI bend, CC7+CC11 and CC1+pressure)."""
+    return dict(used_waves=tuple(sorted({WAVE_IDS[v.wave] for v in voices})),
+                use_fm=any(v.fm_depth != 0.0 for v in voices),
+                use_glide=any(v.glide_from > 0.0 and v.glide_time > 0.0
+                              and v.frequency > 0.0 for v in voices),
+                use_bend=any(v.pitch_curve for v in voices),
+                use_amp=any(v.amp_curve for v in voices),
+                use_dmod=any(v.fm_depth_curve for v in voices))
 
 
-def _flags(voices) -> tuple:
-    """(used_waves, use_fm, use_glide) of the whole voice list."""
-    used = tuple(sorted({WAVE_IDS[v.wave] for v in voices}))
-    return (used, any(v.fm_depth != 0.0 for v in voices),
-            _any_glide(voices))
-
-
-def song_synth_shards(voices, samplerate: int, mesh: VoiceMesh,
-                      num_harmonics: int = 8):
-    """Pack a song's synth voices for the mesh -> (voice shards,
-    used_waves, use_fm, use_glide, use_bend, use_amp, use_dmod).  The pack
-    is unsorted, padded with silent voices to a multiple of the mesh size;
-    the flags come from the whole voice list and hold for every shard (the
-    curve flags carry MIDI bend, CC7+CC11 and CC1+pressure onto the
-    mesh)."""
-    vp = pack_voices(voices, samplerate, num_harmonics=num_harmonics,
-                     pad_to=mesh.size, device="cpu")
-    return (shard_voice_params(vp, mesh), *_flags(voices),
-            any(v.pitch_curve for v in voices),
-            any(v.amp_curve for v in voices),
-            any(v.fm_depth_curve for v in voices))
-
-
-def song_synth_shards_grouped(voices, vtracks, fx_tracks, samplerate: int,
-                              mesh: VoiceMesh, num_harmonics: int = 8):
-    """Pack a song's synth voices with per-track bus tags for the mesh ->
-    (voice shards, tag shards int32, used_waves, use_fm, use_glide).
-
-    Bus 0 is the shared clean bus; bus i+1 is ``fx_tracks[i]``'s own stereo
-    bus.  The tags shard over the same voice axis as the params; padding
-    voices are silent and carry tag 0, so the clean bus receives exact
-    zeros from them."""
-    seg_index = {n: i + 1 for i, n in enumerate(fx_tracks)}
-    tags = [seg_index.get(t, 0) for t in vtracks]
-    vp = pack_voices(voices, samplerate, num_harmonics=num_harmonics,
-                     pad_to=mesh.size, device="cpu")
+def voice_shards(voices, samplerate: int, mesh: VoiceMesh, tags=None):
+    """Pack voices for the mesh -> (voice shards, bus tag shards int32 or
+    None).  The pack is unsorted, 8 harmonics, padded with silent voices to
+    a multiple of the mesh size; ``tags`` (each voice's bus) shard over the
+    same voice axis, the padding voices on bus 0, so the clean bus receives
+    exact zeros from them."""
+    vp = pack_voices(voices, samplerate, num_harmonics=8, pad_to=mesh.size,
+                     device="cpu")
+    shards = shard_voice_params(vp, mesh)
+    if tags is None:
+        return shards, None
     V = int(vp.base_inc.shape[0])
-    seg = torch.from_numpy(np.asarray(tags + [0] * (V - len(tags)),
+    seg = torch.from_numpy(np.asarray(list(tags) + [0] * (V - len(tags)),
                                       np.int32))
-    return (shard_voice_params(vp, mesh), _rows(seg, mesh), *_flags(voices))
+    return shards, _rows(seg, mesh)
 
 
 def _banks(mesh: VoiceMesh, shards: Sequence[VoiceParams], samplerate: int,
@@ -238,127 +241,111 @@ def render_song_sharded(vp, total_frames: int, samplerate: int = 44100,
                   for b, s in zip(banks, shards)], mesh)
 
 
-def render_song_grouped_sharded(vp, seg, nseg: int, total_frames: int,
-                                samplerate: int, chunk_frames: int,
-                                num_harmonics: int, mesh: VoiceMesh,
-                                used_waves: tuple, use_fm: bool,
-                                use_glide: bool = False) -> torch.Tensor:
-    """Offline grouped mixdown over the mesh: each shard renders its
-    voices into their buses (the kernel's bus mode on the card) and the
-    [total, nseg, 2] partial bus stacks add in shard order -> f32
-    [total_frames, nseg, 2] on ``mesh.devices[0]``."""
-    shards = _shards(vp, mesh)
-    banks = _banks(mesh, shards, samplerate, chunk_frames, num_harmonics,
-                   used_waves, use_fm, use_glide=use_glide)
-    return _psum([b.render_song_grouped(s, g, nseg, total_frames)
-                  for b, s, g in zip(banks, shards, seg)], mesh)
+class ShardedRender:
+    """A pass's renders over ``mesh``, with the methods of
+    ``sequencer.LocalRender`` and results on ``device``.
 
+    The hit rows pad to a multiple of the mesh size and shard as contiguous
+    blocks; each device runs the ``ops.hits`` body over its block and the
+    int32 partials add exactly, so drums and pitched rows are bit-exact
+    against one device.  The synth voices shard as :func:`voice_shards`
+    packs them, every bank with the whole list's :func:`voice_flags`, and
+    the f32 partials (or bus stacks) add in shard order."""
 
-def render_chunk_grouped_sharded_fn(mesh: VoiceMesh, chunk_frames: int,
-                                    samplerate: int, num_harmonics: int,
-                                    used_waves: tuple, use_fm: bool,
-                                    nseg: int, use_glide: bool = False):
-    """(voice shards, tag shards, c0) -> the summed [chunk, nseg, 2] bus
-    stack: the streaming counterpart of :func:`render_song_grouped_sharded`."""
-    def fn(vp, seg, c0: int) -> torch.Tensor:
-        shards = _shards(vp, mesh)
-        banks = _banks(mesh, shards, samplerate, chunk_frames, num_harmonics,
-                       used_waves, use_fm, use_glide=use_glide)
-        return _psum([b.render_chunk_grouped(s, g, nseg, int(c0))
-                      for b, s, g in zip(banks, shards, seg)], mesh)
-    return fn
+    def __init__(self, mesh: VoiceMesh, device, samplerate: int):
+        self.mesh = mesh
+        self.device = device
+        self.samplerate = samplerate
+        # the streaming bodies get the same banks every chunk
+        self._drum_banks = _Replicas()
+        self._pitched_banks = _Replicas()
+        self._lens = _Replicas()
 
+    def _merge(self, parts) -> torch.Tensor:
+        return _psum(parts, self.mesh).to(self.device)
 
-def render_chunk_sharded_fn(mesh: VoiceMesh, chunk_frames: int,
-                            samplerate: int, num_harmonics: int,
-                            used_waves: tuple, use_fm: bool,
-                            use_glide: bool = False, use_bend: bool = False,
-                            use_amp: bool = False, use_dmod: bool = False):
-    """(voice shards, c0) -> the summed stereo chunk [chunk, 2]: the
-    streaming counterpart of :func:`render_song_sharded`, with the same
-    static flags."""
-    def fn(vp, c0: int) -> torch.Tensor:
-        shards = _shards(vp, mesh)
-        banks = _banks(mesh, shards, samplerate, chunk_frames, num_harmonics,
-                       used_waves, use_fm, use_glide=use_glide,
-                       use_bend=use_bend, use_amp=use_amp, use_dmod=use_dmod)
-        return _psum([b.render_chunk(s, int(c0))
-                      for b, s in zip(banks, shards)], mesh)
-    return fn
+    def scatter(self, bank, inst, start, gain, total: int) -> torch.Tensor:
+        """Sharded song scatter-add of host hit rows -> int32 [total, C]:
+        each device scatters its block of hits from its copy of the (small)
+        instrument bank."""
+        rows = [_split(torch.from_numpy(np.ascontiguousarray(a)), self.mesh)
+                for a in (np.asarray(inst, np.int64),
+                          np.asarray(start, np.int64),
+                          np.asarray(gain, np.float32))]
+        return self._merge([_mixdown_kernel(bank.to(d), i, s, total, g)
+                            for d, i, s, g in zip(self.mesh.devices, *rows)])
 
+    def pitched_song(self, bank, lens, rows, cf: int) -> torch.Tensor:
+        """Sharded offline pitched mixdown: the bucketed rows [nchunks, K,
+        ...] shard on their K axis and each device walks all chunks over
+        its rows -> int32 [nchunks * cf, C]."""
+        sh = [_split(r, self.mesh, dim=1) for r in rows]
+        parts = []
+        for i, d in enumerate(self.mesh.devices):
+            b, ln = bank.to(d), lens.to(d)
+            parts.append(torch.cat([
+                _pitched_chunk_body(b, ln, *(r[i][c] for r in sh), c * cf, cf)
+                for c in range(len(rows[0]))]))
+        return self._merge(parts)
 
-def scatter_mix_sharded(bank: torch.Tensor, hits_inst, hits_start,
-                        total: int, mesh: VoiceMesh,
-                        hits_gain=None) -> torch.Tensor:
-    """Sharded song scatter-add -> int32 [total, C] on ``mesh.devices[0]``.
+    def drum_chunk(self, bank, inst_k, start_k, valid_k, gain_k, c0: int,
+                   cf: int) -> torch.Tensor:
+        """Sharded streaming drum chunk -> int32 [cf, C]."""
+        rows = [_split(r, self.mesh) for r in (inst_k, start_k, valid_k,
+                                               gain_k)]
+        return self._merge([
+            _stream_chunk(self._drum_banks.on(bank, d), *r, int(c0), cf)
+            for d, *r in zip(self.mesh.devices, *rows)])
 
-    The hits are padded to a multiple of the mesh size with rows that
-    start at ``total`` (dropped by the scatter) and gain 0; each device
-    scatters its block of hits from its copy of the (small) instrument
-    bank, and the int32 partials add exactly, so the result is bit-exact
-    against the single-device scatter however the hits fall."""
-    from ..sequencer import _mixdown_kernel
-    n = mesh.size
-    inst = np.asarray(hits_inst, np.int64).reshape(-1)
-    H = int(inst.shape[0])
-    C = int(bank.shape[2])
-    pad = -H % n if H else n
-    inst = np.concatenate([inst, np.zeros(pad, np.int64)])
-    start = np.concatenate([np.asarray(hits_start, np.int64).reshape(-1),
-                            np.full(pad, total, np.int64)])
-    gain = (np.ones((H, C), np.float32) if hits_gain is None
-            else np.asarray(hits_gain, np.float32).reshape(H, C))
-    gain = np.concatenate([gain, np.zeros((pad, C), np.float32)])
-    rows = [_rows(torch.from_numpy(a), mesh) for a in (inst, start, gain)]
-    return _psum([_mixdown_kernel(bank.to(d), i, s, total, g)
-                  for d, i, s, g in zip(mesh.devices, *rows)], mesh)
+    def pitched_chunk(self, bank, lens, idx_k, start_k, rate_k, gain_k,
+                      valid_k, loopf_k, loopu_k, c0: int,
+                      cf: int) -> torch.Tensor:
+        """Sharded pitched-sampler chunk -> int32 [cf, C] (each note is
+        rounded before the add)."""
+        rows = [_split(r, self.mesh) for r in (idx_k, start_k, rate_k,
+                                               gain_k, valid_k, loopf_k,
+                                               loopu_k)]
+        return self._merge([
+            _pitched_chunk_body(self._pitched_banks.on(bank, d),
+                                self._lens.on(lens, d), *r, int(c0), cf)
+            for d, *r in zip(self.mesh.devices, *rows)])
 
+    def _banks(self, voices, chunk_frames: int, tags=None):
+        """(a bank per shard, voice shards, bus tag shards or None)."""
+        shards, seg = voice_shards(voices, self.samplerate, self.mesh, tags)
+        return (_banks(self.mesh, shards, self.samplerate, chunk_frames, 8,
+                       **voice_flags(voices)), shards, seg)
 
-def stream_chunk_sharded_fn(mesh: VoiceMesh, cf: int):
-    """Sharded streaming drum chunk: (bank, inst_k, start_k, valid_k,
-    gain_k, c0) -> int32 [cf, C]; the K hit rows shard over the mesh and
-    the int32 partials add exactly."""
-    from ..sequencer import _stream_chunk
-    banks = _Replicas()
+    def synth_song(self, voices, total: int,
+                   chunk_frames: int) -> torch.Tensor:
+        """The voices' offline mixdown -> f32 [total, 2]."""
+        banks, shards, _ = self._banks(voices, chunk_frames)
+        return self._merge([b.render_song(s, total)
+                            for b, s in zip(banks, shards)])
 
-    def fn(bank, inst_k, start_k, valid_k, gain_k, c0: int) -> torch.Tensor:
-        rows = [_rows(r, mesh) for r in (inst_k, start_k, valid_k, gain_k)]
-        return _psum([_stream_chunk(banks.on(bank, d), *r, int(c0), cf)
-                      for d, *r in zip(mesh.devices, *rows)], mesh)
-    return fn
+    def grouped_song(self, voices, tags, nseg: int, total: int,
+                     chunk_frames: int) -> torch.Tensor:
+        """The voices' offline mixdown into their buses: each shard renders
+        its voices into the buses (the kernel's bus mode on the card) ->
+        f32 [total, nseg, 2]."""
+        banks, shards, segs = self._banks(voices, chunk_frames, tags)
+        return self._merge([b.render_song_grouped(s, g, nseg, total)
+                            for b, s, g in zip(banks, shards, segs)])
 
+    def synth_chunks(self, voices, cf: int):
+        """c0 -> the voices' chunk [cf, 2] at frame c0."""
+        banks, shards, _ = self._banks(voices, cf)
 
-def pitched_chunk_sharded_fn(mesh: VoiceMesh, cf: int):
-    """Sharded pitched-sampler chunk: (bank, lens, idx_k, start_k, rate_k,
-    gain_k, valid_k, loopf_k, loopu_k, c0) -> int32 [cf, C]; the note rows
-    shard over the mesh and the int32 partials add exactly (each note is
-    rounded before the add)."""
-    from ..sequencer import _pitched_chunk_body
-    banks, lens_r = _Replicas(), _Replicas()
+        def chunk(c0):
+            return self._merge([b.render_chunk(s, int(c0))
+                                for b, s in zip(banks, shards)])
+        return chunk
 
-    def fn(bank, lens, *rows_and_c0) -> torch.Tensor:
-        *rows, c0 = rows_and_c0
-        sh = [_rows(r, mesh) for r in rows]
-        return _psum([_pitched_chunk_body(banks.on(bank, d),
-                                          lens_r.on(lens, d), *r, int(c0), cf)
-                      for d, *r in zip(mesh.devices, *sh)], mesh)
-    return fn
+    def grouped_chunks(self, voices, tags, nseg: int, cf: int):
+        """c0 -> the voices' bus stack [cf, nseg, 2] at frame c0."""
+        banks, shards, segs = self._banks(voices, cf, tags)
 
-
-def pitched_song_sharded(bank, lens, idx_b, start_b, rate_b, gain_b,
-                         valid_b, loopf_b, loopu_b, c0s, cf: int,
-                         mesh: VoiceMesh) -> torch.Tensor:
-    """Sharded offline pitched mixdown: the bucketed note rows [nchunks, K,
-    ...] shard over the mesh on their K axis; each device walks all chunks
-    over its rows and the int32 partials add exactly -> int32
-    [nchunks * cf, C] on ``mesh.devices[0]``."""
-    from ..sequencer import _pitched_chunk_body
-    sh = [_rows(r, mesh, dim=1) for r in (idx_b, start_b, rate_b, gain_b,
-                                          valid_b, loopf_b, loopu_b)]
-    parts = []
-    for i, d in enumerate(mesh.devices):
-        b, ln = bank.to(d), lens.to(d)
-        parts.append(torch.cat([
-            _pitched_chunk_body(b, ln, *(r[i][c] for r in sh), int(c0), cf)
-            for c, c0 in enumerate(c0s)]))
-    return _psum(parts, mesh)
+        def chunk(c0):
+            return self._merge([b.render_chunk_grouped(s, g, nseg, int(c0))
+                                for b, s, g in zip(banks, shards, segs)])
+        return chunk

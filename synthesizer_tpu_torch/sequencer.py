@@ -14,8 +14,8 @@ passes ``device="cpu"``):
 * **drum hits**: every hit is a row of a gather from the padded instrument
   bank, velocity-scaled (f32 product, rounded), and one ``index_add_``
   places all rows into a widened int32 buffer, in memory-bounded batches
-  (``_SCATTER_BATCH_ELEMS``).  Integer adds are exact in any order, so the
-  result does not depend on the order the card adds in;
+  (``ops.hits._SCATTER_BATCH_ELEMS``).  Integer adds are exact in any
+  order, so the result does not depend on the order the card adds in;
 * **pitched samplers**: per-chunk rows of notes read their WAV at
   pos = (n - start) * rate with f32 linear interpolation (rate 1.0 is a
   bit-exact passthrough); looped notes read a 32-bit DDS phase over the
@@ -34,7 +34,8 @@ passes ``device="cpu"``):
 (bit-identical to ``mix(normalize=False)`` without fx, within the chain's
 budgets with fx) and seeks with ``start_frame``.  The reference's device
 functions (``_mixdown_kernel``, ``_pitched_chunk_body``, the chunk
-programs) are XLA code, not Pallas kernels; they are plain PyTorch here.
+programs) are XLA code, not Pallas kernels; they are plain PyTorch here, in
+``ops/hits.py``.
 
 With ``mesh=`` (a ``parallel.mesh.VoiceMesh``) ``mix`` and
 ``mix_generator`` run data-parallel over the mesh's devices: the main drum
@@ -43,13 +44,16 @@ merge, and the synth voices (grouped into their track buses when
 ``[fx.TRACK]`` chains exist) shard over the same axis with the f32
 partials added in shard order (within 1 LSB of the single-device mix).
 The drum fx buses and the sidechain keys render unsharded, as in the
-reference.
+reference.  Each pass resolves ``mesh`` once (:func:`render_on`): the
+sharding lives behind ``VoiceMesh.renderer``, the single-device calls in
+:class:`LocalRender`.
 """
 
 from __future__ import annotations
 
 import configparser
 import dataclasses
+import functools
 import os
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -58,7 +62,8 @@ import torch
 
 from . import params
 from .models.voicebank import Voice, VoiceBank, pack_voices
-from .ops.wave import U32, div, f32_to_i32, interp
+from .ops.hits import _mixdown_kernel, _pitched_chunk_body, _stream_chunk
+from .ops.wave import div, interp
 from .sample import Sample
 from .synth import note_freq
 from .utils import profiling
@@ -150,123 +155,10 @@ class HitSchedule:
         return int(ends.max())
 
 
-#: cap on the materialized [batch, Lmax, C] gather per scatter step:
-#: ~32 M elements (128 MB of int32) whatever the song's length
-_SCATTER_BATCH_ELEMS = 32 * 1024 * 1024
-
-
 def _t(a, device, dtype=None) -> torch.Tensor:
     """A host array as a tensor on ``device``."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t.to(device=device, dtype=dtype) if dtype else t.to(device)
-
-
-def _sum_rows(vals: torch.Tensor) -> torch.Tensor:
-    """Sum int32 rows [K, n, C] -> [n, C] with int32 wrap-around (summed in
-    int64, then wrapped: the same value in any order)."""
-    return vals.sum(dim=0, dtype=torch.int64).to(torch.int32)
-
-
-def _scale_hits(vals: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
-    """Velocity-scale gathered int32 hit waveforms: f32 product, rounded
-    half to even.  Bank values are int16-scale (exact in f32), so a gain
-    of 1.0 is the identity and the no-automation path stays exact."""
-    return torch.round(vals.to(torch.float32) * gains).to(torch.int32)
-
-
-def _mixdown_kernel(bank: torch.Tensor, hits_inst: torch.Tensor,
-                    hits_start: torch.Tensor, total: int,
-                    hits_gain: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """All hits -> one int32 [total, C] song buffer on bank's device.
-
-    bank: [S, Lmax, C] int32; hits: [H].  Each batch of hits gathers its
-    [batch, Lmax, C] waveforms, velocity-scales them by ``hits_gain``
-    (None == all ones == the exact integer path) and adds them at their
-    frames with one ``index_add_``; frames past ``total`` go to a spare
-    row that is cut off.  Batches of at most ``_SCATTER_BATCH_ELEMS``
-    elements bound the memory; integer adds make the result independent of
-    the batching and of the card's order."""
-    dev = bank.device
-    H = int(hits_inst.shape[0])
-    Lmax, C = int(bank.shape[1]), int(bank.shape[2])
-    if hits_gain is None:
-        hits_gain = torch.ones((H, C), dtype=torch.float32, device=dev)
-    out = torch.zeros((total + 1, C), dtype=torch.int32, device=dev)
-    arange_l = torch.arange(Lmax, dtype=torch.int64, device=dev)[None, :]
-    batch = max(1, min(H, _SCATTER_BATCH_ELEMS // max(Lmax * C, 1)))
-    for b0 in range(0, H, batch):
-        ib = hits_inst[b0:b0 + batch].to(torch.int64)
-        vals = _scale_hits(bank[ib], hits_gain[b0:b0 + batch, None, :])
-        idx = (hits_start[b0:b0 + batch].to(torch.int64)[:, None]
-               + arange_l).clamp_(max=total)
-        out.index_add_(0, idx.reshape(-1), vals.reshape(-1, C))
-    return out[:total]
-
-
-def _stream_chunk(bank: torch.Tensor, inst_k, start_k, valid_k, gain_k,
-                  c0: int, cf: int) -> torch.Tensor:
-    """One streaming chunk of drum hits: rows [K] of (instrument, start,
-    valid, gains) -> int32 [cf, C] at absolute frames [c0, c0 + cf)."""
-    lmax = int(bank.shape[1])
-    pos = (c0 + torch.arange(cf, dtype=torch.int64, device=bank.device)
-           )[None, :] - start_k.to(torch.int64)[:, None]
-    inrange = (pos >= 0) & (pos < lmax) & valid_k[:, None]
-    vals = bank[inst_k.to(torch.int64)[:, None], pos.clamp(0, lmax - 1)]
-    vals = _scale_hits(vals, gain_k[:, None, :])
-    vals = torch.where(inrange[:, :, None], vals, torch.zeros_like(vals))
-    return _sum_rows(vals)
-
-
-def _pitched_chunk_body(bank, lens, idx_k, start_k, rate_k, gain_k, valid_k,
-                        loopf_k, loopu_k, c0: int, cf: int) -> torch.Tensor:
-    """One chunk of pitched-sampler playback -> int32 [cf, C]: each row
-    reads its WAV at pos = (n - start) * rate with f32 linear interpolation
-    (n relative to the note start), velocity/pan gains per channel, rows
-    summed in int32.  Stateless in the absolute frame, so streaming ==
-    offline.
-
-    Looped rows (loopf = (flag, ls, lp, gate_total, fade_r); loopu = (inc,
-    p0) as u32 in int64): past the loop end the read position comes from
-    a 32-bit DDS phase over the loop, pos = ls + x(p0 + n_rel*inc) * lp,
-    and a linear release fade gates the note after its tie length,
-    g = clip((gate_total - n_rel) * fade_r, 0, 1).  bank is pair-packed
-    [P, Lmax, 2C]: position i holds (wav[i], wav[i+1])."""
-    dev = bank.device
-    C = bank.shape[2] // 2
-    n_rel = (c0 + torch.arange(cf, dtype=torch.int64, device=dev)
-             )[None, :] - start_k.to(torch.int64)[:, None]
-    n_rel_f = n_rel.to(torch.float32)
-    pos = n_rel_f * rate_k[:, None]                            # [K, cf]
-    lens_k = lens[idx_k.to(torch.int64)].to(torch.int64)
-    last = (lens_k - 1).to(torch.float32)[:, None]
-    flag = loopf_k[:, 0:1] > 0
-    ls = loopf_k[:, 1:2]
-    lp = loopf_k[:, 2:3]
-    gate_total = loopf_k[:, 3:4]
-    fade_r = loopf_k[:, 4:5]
-    phase = (loopu_k[:, 1:2] + (n_rel & U32) * loopu_k[:, 0:1]) & U32
-    pos_loop = ls + phase.to(torch.float32) * float(2.0 ** -32) * lp
-    use_loop = flag & (pos > ls + lp)
-    pos = torch.where(use_loop, pos_loop, pos)
-    # a loop region ending at the sample's last frame sweeps pos through
-    # (len-1, len): clamp to the final frame instead of extrapolating
-    pos = torch.where(flag, torch.minimum(pos, last), pos)
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    env = torch.where(flag, torch.clamp((gate_total - n_rel_f) * fade_r,
-                                        0.0, 1.0), one)
-    inr = (n_rel >= 0) & valid_k[:, None] & torch.where(
-        flag, n_rel_f < gate_total, pos <= last)
-    hi = torch.clamp_min(lens_k - 2, 0)[:, None]
-    i = torch.minimum(torch.clamp_min(f32_to_i32(pos), 0), hi)
-    frac = pos - i.to(torch.float32)
-    v01 = bank[idx_k.to(torch.int64)[:, None], i].to(torch.float32)
-    v0 = v01[..., :C]
-    v1 = v01[..., C:]
-    vals = v0 + (v1 - v0) * frac[:, :, None]
-    vals = torch.round(vals * (gain_k[:, None, :] * env[:, :, None])
-                       ).to(torch.int32)
-    vals = torch.where(inr[:, :, None], vals, torch.zeros_like(vals))
-    return _sum_rows(vals)
 
 
 def _master_volume(x16: torch.Tensor, xs, vs, n0: int,
@@ -295,6 +187,85 @@ def _finish_chunk(acc32: torch.Tensor, synth_stereo) -> torch.Tensor:
     if synth_stereo is not None:
         acc32 = acc32 + _quantize(synth_stereo)
     return _to16(acc32)
+
+
+class LocalRender:
+    """A pass's renders on one device: the hit bodies and the voice bank,
+    called directly.  ``parallel.mesh.VoiceMesh.renderer`` gives the
+    sharded counterpart, with the same methods and results on ``device``.
+    Songs and MIDI files take one or the other through :func:`render_on`.
+
+    The synth voices pack by waveform, with 8 harmonics; ``tags`` give each
+    voice's stereo bus for a grouped render."""
+
+    #: the streaming bodies, called once a chunk: (bank, rows of the
+    #: chunk..., c0, cf) -> int32 [cf, C]
+    drum_chunk = staticmethod(_stream_chunk)
+    pitched_chunk = staticmethod(_pitched_chunk_body)
+
+    def __init__(self, device, samplerate: int):
+        self.device = device
+        self.samplerate = samplerate
+
+    def scatter(self, bank, inst, start, gain, total: int) -> torch.Tensor:
+        """Host hit rows (instrument [H], start [H], gains [H, C]) from
+        ``bank`` -> int32 [total, C]."""
+        dev = self.device
+        return _mixdown_kernel(bank, _t(inst, dev, torch.int64),
+                               _t(start, dev, torch.int64), total,
+                               _t(gain, dev))
+
+    def pitched_song(self, bank, lens, rows, cf: int) -> torch.Tensor:
+        """Bucketed pitched rows [nchunks, K, ...] -> int32 [nchunks * cf,
+        C]: a loop over chunks of the streaming body."""
+        return torch.cat([
+            _pitched_chunk_body(bank, lens, *(r[c] for r in rows), c * cf, cf)
+            for c in range(len(rows[0]))])
+
+    def _bank(self, voices, chunk_frames: int, tags=None):
+        """(bank, packed voices, the packed rows' bus tags or None)."""
+        vp, layout, *seg = pack_voices(voices, self.samplerate,
+                                       num_harmonics=8, sort_by_wave=True,
+                                       tags=tags, device=self.device)
+        bank = VoiceBank.for_voices(voices, self.samplerate,
+                                    chunk_frames=chunk_frames,
+                                    num_harmonics=8, layout=layout,
+                                    nvoices=layout.nvoices,
+                                    device=self.device)
+        return bank, vp, (_t(seg[0], self.device) if seg else None)
+
+    def synth_song(self, voices, total: int,
+                   chunk_frames: int) -> torch.Tensor:
+        """The voices' offline mixdown -> f32 [total, 2]."""
+        bank, vp, _ = self._bank(voices, chunk_frames)
+        return bank.render_song(vp, total)
+
+    def grouped_song(self, voices, tags, nseg: int, total: int,
+                     chunk_frames: int) -> torch.Tensor:
+        """The voices' offline mixdown into their buses -> f32 [total,
+        nseg, 2]."""
+        bank, vp, seg = self._bank(voices, chunk_frames, tags)
+        return bank.render_song_grouped(vp, seg, nseg, total)
+
+    def synth_chunks(self, voices, cf: int):
+        """c0 -> the voices' chunk [cf, 2] at frame c0 (built once a
+        pass)."""
+        bank, vp, _ = self._bank(voices, cf)
+        return functools.partial(bank.render_chunk, vp)
+
+    def grouped_chunks(self, voices, tags, nseg: int, cf: int):
+        """c0 -> the voices' bus stack [cf, nseg, 2] at frame c0."""
+        bank, vp, seg = self._bank(voices, cf, tags)
+        return functools.partial(bank.render_chunk_grouped, vp, seg, nseg)
+
+
+def render_on(mesh, device, samplerate: int):
+    """A pass's renderer: ``mesh``'s sharded one (a
+    ``parallel.mesh.VoiceMesh``), or a :class:`LocalRender` on ``device``
+    when ``mesh`` is None.  Either gives its results on ``device``."""
+    if mesh is None:
+        return LocalRender(device, samplerate)
+    return mesh.renderer(device, samplerate)
 
 
 class Song:
@@ -1055,11 +1026,9 @@ class Song:
         return ends
 
     @staticmethod
-    def _bucket(starts, ends, nchunks: int, cf: int, start_frame: int,
-                ndev: int = 0):
+    def _bucket(starts, ends, nchunks: int, cf: int, start_frame: int):
         """Per-chunk row indices of hits [start, end) for chunks
-        [start_frame + c*cf, ...) -> (per_chunk lists, K >= 1), K padded
-        to a multiple of ``ndev`` (a mesh's size) when one is given."""
+        [start_frame + c*cf, ...) -> (per_chunk lists, K >= 1)."""
         first_c = np.maximum(0, (starts - start_frame) // cf)
         last_c = np.minimum(nchunks - 1, (ends - 1 - start_frame) // cf)
         per_chunk: List[List[int]] = [[] for _ in range(nchunks)]
@@ -1067,8 +1036,6 @@ class Song:
             for c in range(int(first_c[h]), int(last_c[h]) + 1):
                 per_chunk[c].append(h)
         K = max((len(h) for h in per_chunk), default=1) or 1
-        if ndev:
-            K += -K % ndev
         return per_chunk, K
 
     def _pitched_rows(self, per_chunk, K, idx, starts, rates, gains,
@@ -1104,27 +1071,17 @@ class Song:
 
     def _pitched_mix(self, bank, lens, idx, starts, rates, gains,
                      loopf, loopu, ends, total: int, cf: int = 32768,
-                     mesh=None) -> torch.Tensor:
-        """Offline pitched-sampler mixdown -> int32 [total, C]: a loop over
-        chunks of the streaming body, rows bucketed per chunk.  With
-        ``mesh`` the rows (padded to a multiple of the mesh size) shard
-        over its devices and merge exactly in int32."""
-        nchunks = -(-total // cf)
-        per_chunk, K = self._bucket(starts, ends, nchunks, cf, 0,
-                                    mesh.size if mesh is not None else 0)
+                     render=None) -> torch.Tensor:
+        """Offline pitched-sampler mixdown -> int32 [total, C]: the rows
+        bucketed per chunk through ``render`` (this song's device by
+        default)."""
+        if render is None:
+            render = LocalRender(self.device, self.samplerate)
+        per_chunk, K = self._bucket(starts, ends, -(-total // cf), cf, 0)
         rows = self._pitched_rows(per_chunk, K, idx, starts, rates, gains,
                                   loopf, loopu)
-        bank_d = _t(bank, self.device)
-        lens_d = _t(lens, self.device)
-        if mesh is not None:
-            from .parallel.mesh import pitched_song_sharded
-            out = pitched_song_sharded(bank_d, lens_d, *rows,
-                                       range(0, nchunks * cf, cf), cf, mesh)
-            return out.to(self.device)[:total]
-        out = torch.cat([
-            _pitched_chunk_body(bank_d, lens_d, *(r[c] for r in rows),
-                                c * cf, cf) for c in range(nchunks)])
-        return out[:total]
+        return render.pitched_song(_t(bank, self.device),
+                                   _t(lens, self.device), rows, cf)[:total]
 
     def _synth_end_frame(self, voices: Sequence[Voice]) -> int:
         if not voices:
@@ -1275,21 +1232,15 @@ class Song:
                 sched.gains[m], int(sched.lengths[idx]))
 
     def _scatter(self, sched: HitSchedule, mask, total: int,
-                 bank_d=None, mesh=None) -> torch.Tensor:
-        """The hits ``mask`` selects -> int32 [total, C] (sharded over
-        ``mesh`` with an exact int32 merge when one is given)."""
-        dev = self.device
-        if mesh is not None:
-            from .parallel.mesh import scatter_mix_sharded
-            return scatter_mix_sharded(
-                _t(sched.bank, dev) if bank_d is None else bank_d,
-                sched.hits[mask, 0], sched.hits[mask, 1], total, mesh,
-                hits_gain=sched.gains[mask]).to(dev)
-        return _mixdown_kernel(
-            _t(sched.bank, dev) if bank_d is None else bank_d,
-            _t(sched.hits[mask, 0], dev, torch.int64),
-            _t(sched.hits[mask, 1], dev, torch.int64), total,
-            _t(sched.gains[mask], dev))
+                 bank_d=None, render=None) -> torch.Tensor:
+        """The hits ``mask`` selects -> int32 [total, C] through ``render``
+        (this song's device by default)."""
+        if render is None:
+            render = LocalRender(self.device, self.samplerate)
+        return render.scatter(
+            _t(sched.bank, self.device) if bank_d is None else bank_d,
+            sched.hits[mask, 0], sched.hits[mask, 1], sched.gains[mask],
+            total)
 
     def _sidechain_key_samples(self, total: int) -> Dict[str, Sample]:
         """Offline key buses: {name: int16 Sample of ``total`` frames} of
@@ -1338,28 +1289,13 @@ class Song:
             fns[name] = key_fn
         return fns
 
-    def _synth_fx_groups(self, voices: Sequence[Voice],
-                         vtracks: Sequence[str], chunk_frames: int):
-        """Pack all synth voices into one grouped bank whose buses are:
-        bus 0 the shared clean bus (tracks without fx), buses 1..N the
-        fx'd tracks in ``_fx_synth_tracks`` order.  One render per chunk
-        or song."""
+    def _fx_bus_tags(self, vtracks: Sequence[str]):
+        """(the fx'd synth tracks, each voice's bus) for one grouped render:
+        bus 0 is the shared clean bus (tracks without fx), buses 1..N the
+        fx'd tracks in ``_fx_synth_tracks`` order."""
         fx_tracks = self._fx_synth_tracks(vtracks)
-        seg_index = {n: i + 1 for i, n in enumerate(fx_tracks)}
-        return self._grouped_bank(voices, [seg_index.get(t, 0)
-                                           for t in vtracks],
-                                  chunk_frames) + (fx_tracks,)
-
-    def _grouped_bank(self, voices, tags, chunk_frames: int):
-        vp, layout, seg = pack_voices(voices, self.samplerate,
-                                      num_harmonics=8, sort_by_wave=True,
-                                      tags=tags, device=self.device)
-        bank = VoiceBank.for_voices(voices, self.samplerate,
-                                    chunk_frames=chunk_frames,
-                                    num_harmonics=8, layout=layout,
-                                    nvoices=layout.nvoices,
-                                    device=self.device)
-        return bank, vp, _t(seg, self.device)
+        bus = {n: i + 1 for i, n in enumerate(fx_tracks)}
+        return fx_tracks, [bus.get(t, 0) for t in vtracks]
 
     def _run_track_chain(self, t16: torch.Tensor, fx, name: str, total: int,
                          sidechain_keys) -> torch.Tensor:
@@ -1385,18 +1321,6 @@ class Song:
                 _to16(_quantize(buses[:, i + 1])), self.synth_fx[tname],
                 tname, total, sidechain_keys)
         return out32
-
-    def _synth_bank(self, voices: Sequence[Voice], chunk_frames: int):
-        if self.nchannels != 2:
-            raise ValueError("synth tracks require a stereo song format")
-        vp, layout = pack_voices(voices, self.samplerate, num_harmonics=8,
-                                 sort_by_wave=True, device=self.device)
-        bank = VoiceBank.for_voices(voices, self.samplerate,
-                                    chunk_frames=chunk_frames,
-                                    num_harmonics=8, layout=layout,
-                                    nvoices=layout.nvoices,
-                                    device=self.device)
-        return bank, vp
 
     @profiling.spanned("sequencer.compile")
     def _compile(self):
@@ -1464,6 +1388,7 @@ class Song:
             return Sample.from_raw_frames(b"", 2, self.samplerate,
                                           self.nchannels, device=self.device)
         sc_keys = self._sidechain_key_samples(total)
+        render = render_on(mesh, self.device, self.samplerate)
         out32 = torch.zeros((total, self.nchannels), dtype=torch.int32,
                             device=self.device)
         with profiling.span("sequencer.pitched"):
@@ -1472,7 +1397,7 @@ class Song:
                 bus32 = self._pitched_mix(pbank, plens, pidx[m], pstart[m],
                                           prate[m], pgains[m], ploopf[m],
                                           ploopu[m], pends[m], total,
-                                          mesh=mesh)
+                                          render=render)
                 if tname is None:
                     out32 = out32 + bus32
                 else:
@@ -1485,47 +1410,22 @@ class Song:
                 bank_d = _t(sched.bank, self.device)
                 if main_m.any():
                     out32 = out32 + self._scatter(sched, main_m, total,
-                                                  bank_d, mesh)
+                                                  bank_d, render)
                 for name, m in drum_buses.items():
                     out32 = out32 + self._run_track_chain(
                         _to16(self._scatter(sched, m, total, bank_d)),
                         self.drum_fx_bus[name], name, total, sc_keys)
-        fx_tracks = self._fx_synth_tracks(vtracks)
-        if voices and mesh is not None:
-            from .parallel import mesh as PM
-            if fx_tracks:
-                # the grouped render over the mesh: each shard renders its
-                # voices into the track buses, the bus stacks add in shard
-                # order, and each fx'd bus runs its chain as below
-                vp, seg, uw, ufm, ugl = PM.song_synth_shards_grouped(
-                    voices, vtracks, fx_tracks, self.samplerate, mesh)
-                buses = PM.render_song_grouped_sharded(
-                    vp, seg, len(fx_tracks) + 1, total, self.samplerate,
-                    chunk_frames=32768, num_harmonics=8, mesh=mesh,
-                    used_waves=uw, use_fm=ufm, use_glide=ugl)
-                out32 = self._add_synth_buses(out32, buses.to(self.device),
-                                              fx_tracks, total, sc_keys)
-            else:
-                vp, uw, ufm, ugl, ub, ua, ud = PM.song_synth_shards(
-                    voices, self.samplerate, mesh)
-                stereo = PM.render_song_sharded(
-                    vp, total, self.samplerate, chunk_frames=32768,
-                    num_harmonics=8, mesh=mesh, used_waves=uw, use_fm=ufm,
-                    use_glide=ugl, use_bend=ub, use_amp=ua, use_dmod=ud)
-                out32 = out32 + _quantize(stereo.to(self.device))
+        fx_tracks, tags = self._fx_bus_tags(vtracks)
+        if voices and fx_tracks:
+            # the grouped render: the clean bus plus a stereo bus per fx'd
+            # track from one kernel launch
+            buses = render.grouped_song(voices, tags, len(fx_tracks) + 1,
+                                        total, 32768)
+            out32 = self._add_synth_buses(out32, buses, fx_tracks, total,
+                                          sc_keys)
         elif voices:
-            if fx_tracks:
-                # the grouped render: the clean bus plus a stereo bus per
-                # fx'd track from one kernel launch
-                bank, vp, seg, fx_tracks = self._synth_fx_groups(
-                    voices, vtracks, chunk_frames=32768)
-                buses = bank.render_song_grouped(vp, seg,
-                                                 len(fx_tracks) + 1, total)
-                out32 = self._add_synth_buses(out32, buses, fx_tracks,
-                                              total, sc_keys)
-            else:
-                bank, vp = self._synth_bank(voices, chunk_frames=32768)
-                out32 = out32 + _quantize(bank.render_song(vp, total))
+            out32 = out32 + _quantize(render.synth_song(voices, total,
+                                                        32768))
         mv = self.automation.get("master.volume")
         if self.fx or mv:
             # the master chain takes the int16-saturated mix, the signal
@@ -1593,10 +1493,9 @@ class Song:
             # one grouped render with a bus per synth track
             track_names = sorted(set(vtracks))
             seg_index = {n: i for i, n in enumerate(track_names)}
-            bank, vp, seg = self._grouped_bank(
-                voices, [seg_index[t] for t in vtracks], 32768)
-            buses = bank.render_song_grouped(vp, seg, len(track_names),
-                                             total)
+            buses = LocalRender(self.device, self.samplerate).grouped_song(
+                voices, [seg_index[t] for t in vtracks], len(track_names),
+                total, 32768)
             for i, name in enumerate(track_names):
                 stem(_to16(_quantize(buses[:, i])), name,
                      self.synth_fx.get(name))
@@ -1686,9 +1585,8 @@ class Song:
         stateless in the absolute frame, so the first chunk starts exactly
         there, mid-hit and mid-note included, bit-exact with the offline
         slice (track chains start cold at the seek).  With ``mesh`` the
-        main drum rows and the pitched rows (each padded to a multiple of
-        the mesh size) and the synth voices shard as in ``mix(mesh=)``;
-        the drum fx buses stay unsharded."""
+        main drum rows, the pitched rows and the synth voices shard as in
+        ``mix(mesh=)``; the drum fx buses stay unsharded."""
         plan = self._stream_plan(chunk_frames, start_frame, sidechain_keys,
                                  mesh)
         if plan is None:
@@ -1733,7 +1631,7 @@ class Song:
         sched, voices, vtracks, pitched, pends, total = self._compile()
         (pbank, plens, pidx, pstart, prate, pgains, ploopf,
          ploopu) = pitched
-        fx_tracks = self._fx_synth_tracks(vtracks)
+        fx_tracks, tags = self._fx_bus_tags(vtracks)
         cf = chunk_frames or params.norm_frames_per_chunk
         start_frame = int(start_frame)
         if start_frame < 0:
@@ -1750,26 +1648,12 @@ class Song:
                            tickf=self._fx_tickf(), start_frame=start_frame,
                            sidechain_keys=sc_fns, device=dev)
 
+        render = render_on(mesh, dev, self.samplerate)
         synth = None          # c0 -> (clean f32 [cf, 2], {track: bus})
         track_chains: Dict[str, "object"] = {}
         if voices and fx_tracks:
-            nseg = len(fx_tracks) + 1
-            if mesh is not None:
-                from .parallel import mesh as PM
-                gvp, gseg, uw, ufm, ugl = PM.song_synth_shards_grouped(
-                    voices, vtracks, fx_tracks, self.samplerate, mesh)
-                gfn = PM.render_chunk_grouped_sharded_fn(
-                    mesh, cf, self.samplerate, 8, uw, ufm, nseg,
-                    use_glide=ugl)
-
-                def grouped(c0):
-                    return gfn(gvp, gseg, c0).to(dev)
-            else:
-                gbank, gvp, gseg, fx_tracks = self._synth_fx_groups(
-                    voices, vtracks, chunk_frames=cf)
-
-                def grouped(c0):
-                    return gbank.render_chunk_grouped(gvp, gseg, nseg, c0)
+            grouped = render.grouped_chunks(voices, tags, len(fx_tracks) + 1,
+                                            cf)
             track_chains = {n: track_chain(self.synth_fx[n], n)
                             for n in fx_tracks}
 
@@ -1777,37 +1661,14 @@ class Song:
                 buses = grouped(c0)
                 return buses[:, 0], {n: buses[:, i + 1]
                                      for i, n in enumerate(fx_tracks)}
-        elif voices and mesh is not None:
-            from .parallel import mesh as PM
-            svp, uw, ufm, ugl, ub, ua, ud = PM.song_synth_shards(
-                voices, self.samplerate, mesh)
-            sfn = PM.render_chunk_sharded_fn(
-                mesh, cf, self.samplerate, 8, uw, ufm, use_glide=ugl,
-                use_bend=ub, use_amp=ua, use_dmod=ud)
-
-            def synth(c0):
-                return sfn(svp, c0).to(dev), {}
         elif voices:
-            sbank, svp = self._synth_bank(voices, chunk_frames=cf)
+            flat = render.synth_chunks(voices, cf)
 
             def synth(c0):
-                return sbank.render_chunk(svp, c0), {}
+                return flat(c0), {}
 
         # chunk ci covers [start_frame + ci*cf, start_frame + (ci+1)*cf)
         nchunks = -(-(total - start_frame) // cf)
-        ndev = mesh.size if mesh is not None else 0
-        drum_chunk, pitched_chunk = _stream_chunk, _pitched_chunk_body
-        if mesh is not None:
-            from .parallel import mesh as PM
-            sharded_drums = PM.stream_chunk_sharded_fn(mesh, cf)
-            sharded_pitched = PM.pitched_chunk_sharded_fn(mesh, cf)
-
-            # the sharded fns hold cf: the bodies' last argument drops
-            def drum_chunk(*a):
-                return sharded_drums(*a[:-1]).to(dev)
-
-            def pitched_chunk(*a):
-                return sharded_pitched(*a[:-1]).to(dev)
         pitched_groups = []     # (rows, chain or None)
         pbank_d = plens_d = None
         if len(pidx):
@@ -1816,7 +1677,7 @@ class Song:
             for m, tname in self._sampler_fx_masks(
                     self._last_pitched_tracks):
                 pper, PK = self._bucket(pstart[m], pends[m], nchunks, cf,
-                                        start_frame, ndev)
+                                        start_frame)
                 rows = self._pitched_rows(pper, PK, pidx[m], pstart[m],
                                           prate[m], pgains[m], ploopf[m],
                                           ploopu[m])
@@ -1829,7 +1690,7 @@ class Song:
         main_m, drum_buses = self._drum_bus_split(sched)
         ends = starts + sched.lengths[insts]
         main_rows = self._rows(*self._bucket(starts[main_m], ends[main_m],
-                                             nchunks, cf, start_frame, ndev),
+                                             nchunks, cf, start_frame),
                                insts[main_m], starts[main_m],
                                sched.gains[main_m])
         bus_rows = {
@@ -1838,6 +1699,6 @@ class Song:
                               insts[m], starts[m], sched.gains[m]),
                    track_chain(self.drum_fx_bus[name], name))
             for name, m in drum_buses.items()}
-        return (start_frame, total, cf, bank, main_rows, bus_rows, drum_chunk,
-                pitched_groups, pitched_chunk, pbank_d, plens_d, synth,
-                track_chains)
+        return (start_frame, total, cf, bank, main_rows, bus_rows,
+                render.drum_chunk, pitched_groups, render.pitched_chunk,
+                pbank_d, plens_d, synth, track_chains)

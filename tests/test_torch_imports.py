@@ -26,6 +26,7 @@ def test_port_modules_found():
     for want in ("synthesizer_tpu_torch.models.voicebank",
                  "synthesizer_tpu_torch.models.spec",
                  "synthesizer_tpu_torch.ops.kernels",
+                 "synthesizer_tpu_torch.ops.hits",
                  "synthesizer_tpu_torch.ops.trig",
                  "synthesizer_tpu_torch.ops.pcm",
                  "synthesizer_tpu_torch.ops.effects",

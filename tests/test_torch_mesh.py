@@ -77,15 +77,19 @@ def test_shards_are_contiguous_row_blocks_with_the_whole_lists_flags(
     voices[0] = dataclasses.replace(voices[0], glide_from=55.0,
                                     glide_time=0.05)
     vp = pack_voices(voices, SR, num_harmonics=8, pad_to=8, device="cpu")
-    shards, uw, ufm, ugl, ub, ua, ud = PM.song_synth_shards(voices, SR, mesh)
+    shards, seg = PM.voice_shards(voices, SR, mesh)
+    assert seg is None
     assert len(shards) == 8 and all(s.device.type == "cpu" for s in shards)
     assert int(vp.wave.shape[0]) == 16
     for i, s in enumerate(shards):
         for a, b in zip(s, vp):
             assert torch.equal(a, b[2 * i:2 * i + 2])
-    assert (uw, ufm, ugl, ub, ua, ud) == (
-        tuple(sorted({WAVE_IDS[v.wave] for v in voices})), True, True,
-        False, False, False)
+    flags = PM.voice_flags(voices)
+    uw = flags["used_waves"]
+    assert flags == dict(
+        used_waves=tuple(sorted({WAVE_IDS[v.wave] for v in voices})),
+        use_fm=True, use_glide=True, use_bend=False, use_amp=False,
+        use_dmod=False)
     assert len(uw) == 8
     seen = []
     real = VoiceBank.render_song
@@ -95,7 +99,11 @@ def test_shards_are_contiguous_row_blocks_with_the_whole_lists_flags(
         return real(self, vp, total)
     monkeypatch.setattr(VoiceBank, "render_song", spy)
     PM.render_song_sharded(shards, 256, SR, chunk_frames=256, mesh=mesh,
-                           used_waves=uw, use_fm=ufm, use_glide=ugl)
+                           **flags)
+    assert seen == [(uw, True, True)] * 8
+    # the pass's renderer works out the same flags from the voices
+    seen.clear()
+    mesh.renderer(torch.device("cpu"), SR).synth_song(voices, 256, 256)
     assert seen == [(uw, True, True)] * 8
 
 
@@ -343,25 +351,25 @@ def test_entry_matches_the_graft_entry():
 
 @pytest.mark.parametrize("fx", [False, True])
 def test_song_paths_go_through_the_mesh(mesh, monkeypatch, tmp_path, fx):
-    """Under mesh= every sharded branch of mix and mix_generator runs:
-    the drum scatter, the pitched rows and the synth voices (flat, or
-    grouped when a synth track has an [fx.TRACK] chain)."""
+    """Under mesh= every sharded branch of mix and mix_generator runs
+    through the mesh's renderer: the drum scatter, the pitched rows and the
+    synth voices (flat, or grouped when a synth track has an [fx.TRACK]
+    chain) once offline; the synth once a streamed pass, the drum and
+    pitched bodies once a chunk."""
     from synthesizer_tpu_torch.sample import Sample
     calls = {}
 
     def spy(name):
-        real = getattr(PM, name)
+        real = getattr(PM.ShardedRender, name)
 
         def wrapped(*a, **k):
             calls[name] = calls.get(name, 0) + 1
             return real(*a, **k)
-        monkeypatch.setattr(PM, name, wrapped)
+        monkeypatch.setattr(PM.ShardedRender, name, wrapped)
 
-    for name in ("scatter_mix_sharded", "pitched_song_sharded",
-                 "render_song_sharded", "render_song_grouped_sharded",
-                 "stream_chunk_sharded_fn", "pitched_chunk_sharded_fn",
-                 "render_chunk_sharded_fn",
-                 "render_chunk_grouped_sharded_fn"):
+    for name in ("scatter", "pitched_song", "synth_song", "grouped_song",
+                 "drum_chunk", "pitched_chunk", "synth_chunks",
+                 "grouped_chunks"):
         spy(name)
     song = _make_song("torch")
     song.add_sampler("smp", Sample.from_array(_instruments()["kick"], 44100,
@@ -376,9 +384,9 @@ def test_song_paths_go_through_the_mesh(mesh, monkeypatch, tmp_path, fx):
                                song.mix_generator(chunk_frames=1000,
                                                   mesh=mesh)])
     assert _lsb(streamed, got[:len(streamed)]) <= (4 if fx else 0)
-    synth = ("render_song_grouped_sharded", "render_chunk_grouped_sharded_fn")
-    flat = ("render_song_sharded", "render_chunk_sharded_fn")
-    assert calls == {"scatter_mix_sharded": 1, "pitched_song_sharded": 1,
-                     "stream_chunk_sharded_fn": 1,
-                     "pitched_chunk_sharded_fn": 1,
+    nchunks = -(-len(streamed) // 1000)
+    synth = ("grouped_song", "grouped_chunks")
+    flat = ("synth_song", "synth_chunks")
+    assert calls == {"scatter": 1, "pitched_song": 1,
+                     "drum_chunk": nchunks, "pitched_chunk": nchunks,
                      **{n: 1 for n in (synth if fx else flat)}}

@@ -23,6 +23,7 @@ import torch
 
 from synthesizer_tpu import sequencer as J
 from synthesizer_tpu_torch import sequencer as T
+from synthesizer_tpu_torch.ops import hits as H
 from synthesizer_tpu_torch.ops.effects import BUDGETS
 from synthesizer_tpu_torch.utils import wavio
 
@@ -266,14 +267,14 @@ def test_mixdown_kernel_matches_jax(songs, monkeypatch, batch):
     import jax.numpy as jnp
     if batch:
         monkeypatch.setattr(J, "_SCATTER_BATCH_ELEMS", batch)
-        monkeypatch.setattr(T, "_SCATTER_BATCH_ELEMS", batch)
+        monkeypatch.setattr(H, "_SCATTER_BATCH_ELEMS", batch)
     sched = songs["drums"][1].compile_schedule()
     total = sched.total_frames - 500           # some hits run off the end
     want = np.asarray(J._mixdown_kernel(
         jnp.asarray(sched.bank), jnp.asarray(sched.hits[:, 0].astype(np.int32)),
         jnp.asarray(sched.hits[:, 1].astype(np.int32)), total,
         jnp.asarray(sched.gains)))
-    got = T._mixdown_kernel(torch.from_numpy(sched.bank),
+    got = H._mixdown_kernel(torch.from_numpy(sched.bank),
                             torch.from_numpy(sched.hits[:, 0]),
                             torch.from_numpy(sched.hits[:, 1]), total,
                             torch.from_numpy(sched.gains))
@@ -305,7 +306,7 @@ def test_pitched_chunks_match_jax_and_whole(songs):
     fn = J._pitched_chunk_fn(cf, bank.shape[1])
     worst = 0
     for c in range(-(-total // cf)):
-        got = T._pitched_chunk_body(torch.from_numpy(bank),
+        got = H._pitched_chunk_body(torch.from_numpy(bank),
                                     torch.from_numpy(lens),
                                     *(r[c] for r in rows), c * cf, cf)
         assert torch.equal(got[:total - c * cf], whole[c * cf:(c + 1) * cf])
