@@ -18,6 +18,7 @@ Tolerances:
 
 import io
 import sys
+import threading
 import time
 import wave
 from pathlib import Path
@@ -39,8 +40,6 @@ from synthesizer_tpu_torch.apps import trackmixer as tm  # noqa: E402
 from synthesizer_tpu_torch.apps.jukebox import backend, box  # noqa: E402
 from synthesizer_tpu_torch.midi import MidiNote, write_midi  # noqa: E402
 from synthesizer_tpu_torch.ops.effects import BUDGETS  # noqa: E402
-
-torch.set_num_threads(2)
 
 SR = 44100
 CPU = torch.device("cpu")
@@ -259,6 +258,81 @@ def test_repl_play_pattern_with_samplers(tmp_path, capsys):
 
 # -- the keyboard synthesizer -------------------------------------------------
 
+# The mixed-mode pump writes one block of ``fx_lookahead`` chunks a loop,
+# and a loop that carries a first fx compile can take seconds on a loaded
+# machine.  So a test that needs a finished voice's audio (and its fx tail)
+# in the sink waits on the frames the pump has written, with a deadline,
+# rather than sleeping a fixed time.
+def count_written(out):
+    """Count, from now on, the frames ``out``'s pump hands its sink.
+
+    Returns a one-element list holding the running count."""
+    written = [0]
+    play = out.api.play_chunk
+
+    def counting(frames):
+        play(frames)
+        written[0] += len(frames)
+
+    out.api.play_chunk = counting
+    return written
+
+
+def wait_written(out, written, tail_frames=0, deadline_s=120.0):
+    """Wait until the pump has written two more blocks and ``tail_frames``
+    beyond them: the loop that took a voice's last chunk has then reached
+    the sink.  Returns whether it did before the deadline."""
+    target = (written[0] + 2 * out.fx_lookahead * out.frames_per_chunk
+              + tail_frames)
+    deadline = time.time() + deadline_s
+    while written[0] < target and time.time() < deadline:
+        time.sleep(0.02)
+    return written[0] >= target
+
+
+class _Sink:
+    def play_chunk(self, frames):
+        pass
+
+
+class _Output:
+    """The pump's side of an Output, as the waits above see it."""
+    frames_per_chunk = 100
+    fx_lookahead = 2
+
+    def __init__(self):
+        self.api = _Sink()
+
+
+@pytest.mark.parametrize("pumping", [True, False], ids=["pump", "idle"])
+def test_wait_written_waits_for_the_pump(pumping):
+    out = _Output()
+    written = count_written(out)
+    stop = threading.Event()
+
+    def pump():
+        while not stop.is_set():
+            out.api.play_chunk(np.zeros((out.frames_per_chunk, 2)))
+            time.sleep(0.01)
+
+    thread = threading.Thread(target=pump, daemon=True)
+    if pumping:
+        thread.start()
+    try:
+        # two blocks of fx_lookahead chunks, then the tail
+        assert wait_written(out, written, tail_frames=50,
+                            deadline_s=10.0 if pumping else 0.2) is pumping
+        if pumping:
+            assert written[0] >= 2 * 2 * 100 + 50
+        else:
+            assert written[0] == 0
+    finally:
+        stop.set()
+        if pumping:
+            thread.join(timeout=5)
+            assert not thread.is_alive()
+
+
 def _controllers():
     return kb.SynthController(samplerate=SR, device="cpu"), \
         ref_kb.SynthController(samplerate=SR)
@@ -409,6 +483,7 @@ def test_controller_master_reverb_and_limiter(tmp_path):
     wav = str(tmp_path / "kb.wav")
     out = Output(samplerate=SR, nchannels=2, frames_per_chunk=2000,
                  mixing="mixed", wav_file=wav)
+    written = count_written(out)
     ref_out = type("Out", (), {"nchannels": 2, "fx": None})()
     try:
         ctrl = kb.SynthController(output=out, device="cpu")
@@ -443,7 +518,7 @@ def test_controller_master_reverb_and_limiter(tmp_path):
         while out.mixer.active_count and time.time() < deadline:
             time.sleep(0.02)
         assert out.mixer.active_count == 0
-        time.sleep(0.5)              # the pump drains the holdback
+        assert wait_written(out, written)   # the pump drains the holdback
         buf = io.StringIO()
         ctrl.save_preset(buf)
         buf.seek(0)

@@ -31,8 +31,6 @@ from synthesizer_tpu_torch import bench as B
 from synthesizer_tpu_torch import bench_song
 from synthesizer_tpu_torch.ops.effects import BUDGETS
 
-torch.set_num_threads(2)
-
 SR = 44100
 ROOT = Path(__file__).resolve().parents[1]
 LSB = 1.0 / 32767

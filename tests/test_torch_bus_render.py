@@ -21,8 +21,6 @@ from synthesizer_tpu_torch import bench_song
 from synthesizer_tpu_torch.models import voicebank as T
 from synthesizer_tpu_torch.ops import kernels as K
 
-torch.set_num_threads(2)
-
 SR = 44100
 TILE = K.TILE
 CHUNK = 32768            # the sequencer banks' chunk

@@ -23,8 +23,6 @@ from synthesizer_tpu_torch.ops import kernels as K
 from test_voicebank import VOICES as BANK_VOICES
 from test_voicebank import rand_voice
 
-torch.set_num_threads(2)
-
 SR = 44100
 
 

@@ -31,8 +31,6 @@ from synthesizer_tpu_torch.utils import libav as tlibav
 from synthesizer_tpu_torch.utils import native as tnative
 from synthesizer_tpu_torch.utils import profiling, soxr, wavio
 
-torch.set_num_threads(2)
-
 SR = 22050
 
 needs_mpeg = pytest.mark.skipif(

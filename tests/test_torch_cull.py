@@ -21,8 +21,6 @@ from synthesizer_tpu_torch.ops import kernels as K
 from synthesizer_tpu_torch.ops import trig as TRIG
 from test_pallas_kernel import VOICES
 
-torch.set_num_threads(1)
-
 SR = 44100
 TILE = K.TILE
 SR_R = float(np.float32(1.0 / SR))

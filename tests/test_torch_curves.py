@@ -17,8 +17,6 @@ from synthesizer_tpu.models import voicebank as J
 from synthesizer_tpu_torch.models import voicebank as T
 from test_torch_voicebank import assert_lsb, jax_fields, to_port
 
-torch.set_num_threads(1)
-
 SR = 44100
 WAVE_NAMES = sorted(J.WAVE_IDS, key=J.WAVE_IDS.get)
 KINDS = ("bend", "amp", "depth", "all")

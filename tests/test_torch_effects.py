@@ -21,8 +21,6 @@ from synthesizer_tpu.ops import effects as JF
 from synthesizer_tpu_torch.ops import coeffs as TC
 from synthesizer_tpu_torch.ops import effects as TF
 
-torch.set_num_threads(2)
-
 SR = 44100
 N = 4000
 

@@ -13,8 +13,6 @@ from synthesizer_tpu_torch.examples import (fm_bell, midi_demo,
                                             render_server_demo,
                                             sharded_mixdown)
 
-torch.set_num_threads(2)
-
 
 def _wav(path):
     with wave.open(str(path)) as w:

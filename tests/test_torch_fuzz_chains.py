@@ -12,12 +12,9 @@ the reference's lazy IR (``test_staged_metadata_consistency``,
 
 import numpy as np
 import pytest
-import torch
 
 import goldref.sample as gs
 from synthesizer_tpu_torch.sample import Sample
-
-torch.set_num_threads(2)
 
 SR = 44100
 CPU = "cpu"

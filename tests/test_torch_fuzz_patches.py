@@ -10,13 +10,10 @@ phase difference at the edge).
 
 import numpy as np
 import pytest
-import torch
 
 import goldref.osc as go
 from synthesizer_tpu_torch.models import graph as G
 from synthesizer_tpu_torch.models import spec as S
-
-torch.set_num_threads(2)
 
 SR = 44100
 N = 8192

@@ -14,13 +14,10 @@ import types
 
 import numpy as np
 import pytest
-import torch
 
 import goldref.sample as gs
 from synthesizer_tpu_torch import WaveSynth
 from synthesizer_tpu_torch.sequencer import Song, SynthDef
-
-torch.set_num_threads(2)
 
 SR = 44100
 NOTES = ["C2", "E2", "G2", "C3", "E3", "G3", "C4", "E4"]

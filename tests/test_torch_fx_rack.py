@@ -23,8 +23,6 @@ from synthesizer_tpu_torch.ops.effects import BUDGETS
 from synthesizer_tpu_torch.ops.wave import interp
 from synthesizer_tpu_torch.sample import Sample
 
-torch.set_num_threads(2)
-
 SR = 44100
 N = 6000
 CHUNK = 1500

@@ -27,8 +27,6 @@ from synthesizer_tpu_torch import gpu_verify as GV
 from synthesizer_tpu_torch.models import voicebank as TV
 from test_voicebank import _glide_phase_twin, oracle_voice as ref_oracle
 
-torch.set_num_threads(2)
-
 ROOT = Path(__file__).resolve().parents[1]
 SR = 44100
 CPU = torch.device("cpu")

@@ -30,8 +30,6 @@ from synthesizer_tpu_torch.models import graph as TG
 from synthesizer_tpu_torch.models import spec as TS
 from synthesizer_tpu_torch.ops import effects as TE
 
-torch.set_num_threads(2)
-
 SR = 44100
 N = 20000
 

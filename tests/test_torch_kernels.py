@@ -21,8 +21,6 @@ from synthesizer_tpu_torch.models import voicebank as T
 from synthesizer_tpu_torch.ops import kernels as K
 from test_pallas_kernel import VOICES
 
-torch.set_num_threads(1)
-
 SR = 44100
 
 

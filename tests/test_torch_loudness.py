@@ -19,8 +19,6 @@ import goldref.effects as gfx
 from synthesizer_tpu.ops import loudness as JL
 from synthesizer_tpu_torch.ops import loudness as TL
 
-torch.set_num_threads(2)
-
 SR = 48000
 
 

@@ -27,8 +27,6 @@ from synthesizer_tpu_torch.models.voicebank import (WAVE_IDS, VoiceBank,
 from synthesizer_tpu_torch.parallel import mesh as PM
 from synthesizer_tpu_torch.parallel.dryrun import _demo_voices, dryrun_multichip
 
-torch.set_num_threads(2)
-
 SR = 8000
 CPU8 = [torch.device("cpu")] * 8
 

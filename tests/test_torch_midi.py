@@ -19,8 +19,6 @@ from synthesizer_tpu_torch.models import voicebank as T
 from synthesizer_tpu_torch.sample import Sample
 from synthesizer_tpu_torch.sequencer import SynthDef as TSynthDef
 
-torch.set_num_threads(1)
-
 SR = 44100
 
 

@@ -20,8 +20,6 @@ import goldref.pcm as gp
 from synthesizer_tpu.ops import pcm as J
 from synthesizer_tpu_torch.ops import pcm as T
 
-torch.set_num_threads(2)
-
 NPDT = {1: np.int8, 2: np.int16, 4: np.int32}
 WIDTHS = (1, 2, 4)
 FACTORS = (0.0, 1.0, -1.0, 0.5, 0.3333, -0.75, 1.7, 2.5, 1e-3, 100.0, -3.0e9)

@@ -15,14 +15,11 @@ import wave
 
 import numpy as np
 import pytest
-import torch
 
 import synthesizer_tpu as J
 import synthesizer_tpu_torch as T
 from synthesizer_tpu import playback as JP
 from synthesizer_tpu_torch import playback as TP
-
-torch.set_num_threads(2)
 
 SR = 22050
 CF = 1000

@@ -34,8 +34,6 @@ from synthesizer_tpu_torch.utils import profiling
 from synthesizer_tpu_torch.utils import program as P
 from synthesizer_tpu_torch.utils.program import Flat, Program
 
-torch.set_num_threads(1)
-
 SR = 44100
 CPU = torch.device("cpu")
 B = 64          # frames a block or chunk: small, so that the traces are cheap

@@ -24,8 +24,6 @@ from synthesizer_tpu.ops import resample as JR
 from synthesizer_tpu_torch import Sample
 from synthesizer_tpu_torch.ops import resample as TR
 
-torch.set_num_threads(2)
-
 NPDT = {1: np.int8, 2: np.int16, 4: np.int32}
 TDT = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 #: (inrate, outrate): common pairs, a pure factor of 2 each way, a deep

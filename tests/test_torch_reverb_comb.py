@@ -21,8 +21,6 @@ from synthesizer_tpu_torch.ops import kernels as K
 from synthesizer_tpu_torch.utils import profiling
 from synthesizer_tpu_torch.utils.program import Program, _Inside, on_replay
 
-torch.set_num_threads(2)
-
 SR = 44100
 NETS = [TC.reverb_delays(SR, ch) for ch in range(2)]
 COMBS = [D for cs, _ in NETS for D in cs]

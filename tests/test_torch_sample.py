@@ -27,8 +27,6 @@ from synthesizer_tpu_torch.utils import libav as TL
 from synthesizer_tpu.sample import LevelMeter as JLevelMeter
 from synthesizer_tpu_torch.sample import LevelMeter
 
-torch.set_num_threads(2)
-
 SR = 44100
 NPDT = {1: np.int8, 2: np.int16, 4: np.int32}
 

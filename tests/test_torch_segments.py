@@ -23,8 +23,6 @@ from synthesizer_tpu_torch.ops.trig import cos_turns, sin_turns
 from test_torch_curves import curve_voices
 from test_torch_voicebank import assert_lsb, jax_fields
 
-torch.set_num_threads(1)
-
 SR = 44100
 TILE = K.TILE
 W = K.WINDOW

@@ -27,8 +27,6 @@ from synthesizer_tpu_torch.ops import hits as H
 from synthesizer_tpu_torch.ops.effects import BUDGETS
 from synthesizer_tpu_torch.utils import wavio
 
-torch.set_num_threads(2)
-
 SR = 44100
 
 

@@ -23,8 +23,6 @@ from synthesizer_tpu.server import RenderServer as JServer
 from synthesizer_tpu_torch import server as server_mod
 from synthesizer_tpu_torch.server import RenderServer, spec_from_json
 
-torch.set_num_threads(2)
-
 
 @pytest.fixture(scope="module")
 def servers(tmp_path_factory):

@@ -17,8 +17,6 @@ from synthesizer_tpu.models import voicebank as J
 from synthesizer_tpu_torch import bench_song
 from synthesizer_tpu_torch.models import voicebank as T
 
-torch.set_num_threads(1)
-
 SR = 44100
 
 

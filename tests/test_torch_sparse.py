@@ -16,8 +16,6 @@ from synthesizer_tpu_torch.ops import kernels as K
 from test_sparse_render import _sparse_voices, _total
 from test_torch_voicebank import to_port
 
-torch.set_num_threads(1)
-
 SR = 44100
 
 

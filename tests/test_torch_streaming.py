@@ -20,8 +20,6 @@ import synthesizer_tpu_torch as T
 from synthesizer_tpu import streaming as JS
 from synthesizer_tpu_torch import streaming as TS
 
-torch.set_num_threads(2)
-
 CPU = {"device": "cpu"}
 
 

@@ -24,8 +24,6 @@ from synthesizer_tpu_torch import oscillators as TO
 from synthesizer_tpu_torch.models import graph as TG
 from synthesizer_tpu_torch.models import spec as TS
 
-torch.set_num_threads(2)
-
 SR = 22050
 TABLE = tuple(float(v) for v in
               np.sin(np.linspace(0, 2 * np.pi, 32, endpoint=False)) ** 3)

@@ -19,8 +19,6 @@ from synthesizer_tpu_torch.sequencer import Song, SynthDef
 from synthesizer_tpu_torch.utils import profiling, wavio
 from synthesizer_tpu_torch.utils import program as P
 
-torch.set_num_threads(1)
-
 SR = 44100
 
 

@@ -16,7 +16,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from benchmark.inputs import tracker_song as T
 from benchmark.kinds.song import gap
@@ -25,8 +24,6 @@ from benchmark.reference import tracker_song as R
 from goldref import effects as G
 from synthesizer_tpu_torch.sequencer import Song
 from synthesizer_tpu_torch.utils import profiling
-
-torch.set_num_threads(2)
 
 SR = 44100
 SEED = 2 ** 31 + 20

@@ -9,8 +9,6 @@ import torch
 from synthesizer_tpu.ops import trig as jtrig
 from synthesizer_tpu_torch.ops import trig as ttrig
 
-torch.set_num_threads(1)
-
 
 @pytest.mark.parametrize("name", ["sin_turns", "cos_turns"])
 def test_trig_matches_jax(name):

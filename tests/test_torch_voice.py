@@ -19,8 +19,6 @@ from synthesizer_tpu_torch.models import spec as TS
 from synthesizer_tpu_torch.voice import RealtimeVoice as TVoice
 from synthesizer_tpu_torch.voice import _gate_gains
 
-torch.set_num_threads(2)
-
 SR = 44100
 BS = 1470
 

@@ -20,8 +20,6 @@ from test_pallas_kernel import VOICES as KERNEL_VOICES
 from test_voicebank import VOICES as BANK_VOICES
 from test_voicebank import rand_voice
 
-torch.set_num_threads(1)
-
 SR = 44100
 
 
